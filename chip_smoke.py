@@ -1,0 +1,603 @@
+#!/usr/bin/env python3
+"""Drive the PyTorch/CUDA port's main path on one NVIDIA H100 and check it.
+
+    python3 chip_smoke.py [--seed N]
+
+Builds the port's CUDA kernels from ``src/repro_torch/kernels/csrc`` (one
+``nvcc`` per source, all at once), holds each kernel against its plain
+PyTorch version on the card, then drives ``banded_singular_values`` (a
+banded matrix to its singular values) at fuse=1 and fuse=4, and checks the
+results against ``torch.linalg.svdvals`` of the dense matrix, which serves
+here only as a yardstick.  Every phase prints one JSON line; the line before
+the last two is the ``kernels`` summary, then the card's name and power
+limit as ``nvidia-smi`` gives them, then ``{"ok": true, "device": ...}``.
+
+Exits non-zero, with no result line, when there is no CUDA device, when the
+port's package is not next to this script, or when any phase fails.
+"""
+
+from __future__ import annotations
+
+import argparse
+import json
+import math
+import subprocess
+import sys
+import time
+from pathlib import Path
+
+ROOT = Path(__file__).resolve().parent
+
+# (b_in, tw, G) of the reference's kernel tests (tests/test_kernels.py)
+CHASE_SHAPES = [(4, 2, 3), (6, 2, 4), (8, 3, 5), (12, 4, 3), (16, 8, 2),
+                (32, 8, 2), (5, 4, 6), (2, 1, 8)]
+TOLS = {"float64": 1e-12, "float32": 3e-5, "bfloat16": 8e-2}
+STURM_TOLS = {"float64": 1e-13, "float32": 1e-5}
+STURM_CHECK_STEPS = 3       # bisection steps of the main-path-shape checks
+HBM_BYTES_PER_S = 3.35e12          # H100 SXM data sheet
+PEAK_FLOPS = {"float64": 34e12, "float32": 67e12, "bfloat16": 67e12}
+# bf16 is computed in fp32 units, outside the tensor cores
+
+
+class PhaseFailed(RuntimeError):
+    pass
+
+
+def emit(obj) -> None:
+    print(json.dumps(obj), flush=True)
+
+
+def check(cond: bool, what: str) -> None:
+    if not cond:
+        raise PhaseFailed(what)
+
+
+def main() -> int:
+    ap = argparse.ArgumentParser(description=__doc__.split("\n")[0])
+    ap.add_argument("--seed", type=int, default=0)
+    args = ap.parse_args()
+
+    import torch
+    if not torch.cuda.is_available():
+        print("chip_smoke: torch.cuda.is_available() is False; this script "
+              "runs on a CUDA device only", file=sys.stderr)
+        return 1
+    if not (ROOT / "src" / "repro_torch").is_dir():
+        print(f"chip_smoke: no src/repro_torch next to {Path(__file__).name}",
+              file=sys.stderr)
+        return 1
+    sys.path.insert(0, str(ROOT / "src"))
+    try:
+        return run(args, torch)
+    except PhaseFailed as exc:
+        print(f"chip_smoke: FAILED: {exc}", file=sys.stderr)
+        return 1
+
+
+# ---------------------------------------------------------------------------
+# measuring helpers
+# ---------------------------------------------------------------------------
+
+def gpu_ms(torch, fn, iters: int = 1, warmup: int = 0) -> float:
+    """Device milliseconds per call, from CUDA events around ``iters``
+    back-to-back calls."""
+    for _ in range(warmup):
+        fn()
+    torch.cuda.synchronize()
+    start = torch.cuda.Event(enable_timing=True)
+    end = torch.cuda.Event(enable_timing=True)
+    start.record()
+    for _ in range(iters):
+        fn()
+    end.record()
+    torch.cuda.synchronize()
+    return start.elapsed_time(end) / iters
+
+
+def profiler_ms(torch, fn, name: str, iters: int):
+    """Mean device time of kernels whose name contains ``name``, from
+    torch.profiler; None when the profiler sees no device time."""
+    from torch.profiler import ProfilerActivity, profile
+    torch.cuda.synchronize()
+    with profile(activities=[ProfilerActivity.CUDA]) as prof:
+        for _ in range(iters):
+            fn()
+        torch.cuda.synchronize()
+    total, count = 0.0, 0
+    for ev in prof.key_averages():
+        if name in ev.key:
+            total += ev.device_time_total
+            count += ev.count
+    return total / count / 1e3 if count and total > 0 else None
+
+
+def max_err(torch, got, want) -> tuple[float, float]:
+    """(max |got - want|, the output's scale max(1, max |want|))."""
+    g = got.double()
+    w = want.double()
+    return (float((g - w).abs().max()) if w.numel() else 0.0,
+            max(1.0, float(w.abs().max())) if w.numel() else 1.0)
+
+
+def panel_cells(b_in: int, tw: int, fuse: int) -> int:
+    """Band cells a (super-)cycle reads and writes: the union over its
+    cycles of the two panels each cycle changes."""
+    h = b_in + 2 * tw + 1
+    w = b_in + tw + 1
+    cells = set()
+    for i in range(fuse):
+        for y in range(h):
+            for x in range(w):
+                in_col = y >= tw and x <= tw
+                in_row = y >= h - 1 - tw
+                if in_col or in_row:
+                    cells.add((h - 1 - (y - x), i * b_in + x))
+    return len(cells)
+
+
+def chase_bound(b_in, tw, g, fuse, dtype, itemsize):
+    """(bound_ms, bound_by, bytes, flops) of one chase launch: each panel
+    cell read once and written once, about 5 flops per panel cell per cycle
+    (dot product and rank-1 update)."""
+    h = b_in + 2 * tw + 1
+    w = b_in + tw + 1
+    nbytes = 2 * g * panel_cells(b_in, tw, fuse) * itemsize + g * (1 + fuse)
+    flops = g * fuse * 5 * ((h - tw) * (tw + 1) + (tw + 1) * w)
+    t_bytes = nbytes / HBM_BYTES_PER_S
+    t_ops = flops / PEAK_FLOPS[dtype]
+    return (max(t_bytes, t_ops) * 1e3,
+            "bytes" if t_bytes >= t_ops else "operations", nbytes, flops)
+
+
+def sturm_bound(b, n, max_iter, dtype, itemsize):
+    """z, bound read once, sigma written once; 3 flops (multiply, divide,
+    subtract) per step of every pivot recurrence, a division counted as
+    one."""
+    nbytes = (b * (2 * n - 1) + b + b * n) * itemsize
+    flops = 3 * b * n * max_iter * (2 * n - 1)
+    t_bytes = nbytes / HBM_BYTES_PER_S
+    t_ops = flops / PEAK_FLOPS[dtype]
+    return (max(t_bytes, t_ops) * 1e3,
+            "bytes" if t_bytes >= t_ops else "operations", nbytes, flops)
+
+
+def main_path_shapes(bc, runs):
+    """Kernel shapes the main-path runs launch, from each run's stage plan
+    and wavefront width: every stage (b_in, tw) with B*G slots for a batch
+    of B, at the run's fuse depth and dtype, and the bisection's (B, n)."""
+    cycle, superstep, sturm = [], [], []
+    for lead, n, cfg in runs:
+        b = math.prod(lead)
+        for b_in, tw in cfg.plan:
+            g = b * bc.stage_schedule(n, b_in, tw, cfg.fuse)[2]
+            if cfg.fuse == 1:
+                cycle.append((b_in, tw, g, cfg.dtype))
+            else:
+                superstep.append((b_in, tw, g, cfg.fuse, cfg.dtype))
+        sturm.append((b, n, cfg.dtype))
+    return (sorted(set(cycle)), sorted(set(superstep)), sorted(set(sturm)))
+
+
+def banded_matrix(torch, lead, n, bw, dtype, gen):
+    """Random upper-banded (lead..., n, n) matrix on the card."""
+    a = torch.zeros(tuple(lead) + (n, n), dtype=torch.float64, device="cuda")
+    for k in range(bw + 1):
+        vals = torch.randn(tuple(lead) + (n - k,), generator=gen,
+                           dtype=torch.float64, device="cuda")
+        a.diagonal(k, -2, -1).copy_(vals)
+    return a.to(dtype)
+
+
+# ---------------------------------------------------------------------------
+# the run
+# ---------------------------------------------------------------------------
+
+def run(args, torch) -> int:
+    import numpy as np
+
+    from repro_torch.core import bidiag_svd as s3
+    from repro_torch.core import bulge_chasing as bc
+    from repro_torch.core import svd as tsvd
+    from repro_torch.core.tuning import PipelineConfig
+    from repro_torch.kernels import _build, bisect, bulge_chase, ops, ref
+
+    torch.backends.cuda.matmul.allow_tf32 = False
+    torch.backends.cudnn.allow_tf32 = False
+    t_all = time.perf_counter()
+
+    # ---- build -----------------------------------------------------------
+    t0 = time.perf_counter()
+    _build.build_all()
+    ptxas = [ln.strip() for log in _build.LOGS.values()
+             for ln in log.splitlines()
+             if "registers" in ln or "Compiling entry" in ln]
+    emit({"phase": "build", "ok": True,
+          "seconds": round(time.perf_counter() - t0, 3),
+          "sources": sorted(_build.SOURCES.values()), "ptxas": ptxas})
+
+    # ---- 1. device -------------------------------------------------------
+    kind = torch.cuda.get_device_name(0)
+    smi = subprocess.run(
+        ["nvidia-smi", "--query-gpu=name,power.limit",
+         "--format=csv,noheader"], capture_output=True, text=True,
+        timeout=60).stdout.strip().splitlines()
+    smi_line = smi[0] if smi else "nvidia-smi: no output"
+    emit({"phase": "device", "ok": True, "kind": kind,
+          "count": torch.cuda.device_count(), "nvidia_smi": smi_line,
+          "torch": torch.__version__, "cuda": torch.version.cuda})
+
+    # ---- the main path's runs, resolved before they are driven ----------
+    n3, bw3 = 4096, 64                    # phase 3: fp64, tw = 16
+    n4, bw4 = 16384, 64                   # phase 4: the paper's scale
+    b5, n5, bw5 = 32, 1024, 32            # phase 5: batched
+    f64, f32 = torch.float64, torch.float32
+    cfg1 = PipelineConfig.resolve(bw=bw3, dtype=f64, n=n3, fuse=1)
+    cfg4 = PipelineConfig.resolve(bw=bw3, dtype=f64, n=n3, fuse=4)
+    cfg32 = PipelineConfig.resolve(bw=bw3, dtype=f32, n=n3)
+    c1 = PipelineConfig.resolve(bw=bw4, dtype=f32, n=n4, fuse=1)
+    c4 = PipelineConfig.resolve(bw=bw4, dtype=f32, n=n4, fuse=4)
+    c5 = PipelineConfig.resolve(bw=bw5, dtype=f64, n=n5)
+    tw4 = c1.tw
+    runs = [((), n3, cfg1), ((), n3, cfg4), ((), n3, cfg32), ((), n4, c1),
+            ((), n4, c4), ((b5,), n5, c5)]
+    main_cycle, main_super, main_sturm = main_path_shapes(bc, runs)
+
+    # ---- 2. kernels against their plain versions ------------------------
+    # The reference's test shapes in every dtype and K in {2, 4}; every
+    # stage shape the main path launches (derived above) in every dtype;
+    # the bisection at every (B, n, dtype) of the main path for a few steps
+    # and at n = 512 for its full step count.
+    rng = np.random.default_rng(args.seed)
+    dev = torch.device("cuda")
+    dtypes = {"float64": f64, "float32": f32, "bfloat16": torch.bfloat16}
+    cycle_shapes = sorted({s + (d,) for s in CHASE_SHAPES for d in TOLS} | {
+        s[:3] + (d,) for s in main_cycle for d in TOLS})
+    super_shapes = sorted({s + (k, d) for s in CHASE_SHAPES for k in (2, 4)
+                           for d in TOLS} | {
+        s[:4] + (d,) for s in main_super for d in TOLS})
+    worst = {"chase_cycle_cuda": 0.0, "chase_superstep_cuda": 0.0,
+             "sturm_bisect_cuda": 0.0}
+    main_err = dict.fromkeys(worst, 0.0)
+    n_cmp = 0
+
+    def compare(name, got, want, tol, key, main):
+        """Hold ``got`` to ``want``; ``main``: a main-path shape in the
+        main path's dtype, whose error goes into the kernels line."""
+        nonlocal n_cmp
+        for g_, w_ in zip(got, want):
+            err, scale = max_err(torch, g_, w_)
+            ratio = err / (tol * scale)
+            worst[name] = max(worst[name], ratio)
+            check(ratio <= 1.0, f"{name} at {key}: |err| {err:.3e} > "
+                  f"{tol:.1e} * {scale:.3g}")
+            n_cmp += 1
+        if main:
+            main_err[name] = max(main_err[name],
+                                 max_err(torch, got[0], want[0])[0])
+
+    for b_in, tw, g, dname in cycle_shapes:
+        h, w = b_in + 2 * tw + 1, b_in + tw + 1
+        win = torch.from_numpy(rng.standard_normal((g, h, w))).to(
+            dev, dtypes[dname])
+        first = torch.from_numpy(np.arange(g) % 2 == 0).to(dev)
+        want = ref.chase_cycle_ref(win, first, b_in=b_in, tw=tw,
+                                   with_tape=True)
+        got = bulge_chase.chase_cycle_cuda(win.clone(), first, b_in=b_in,
+                                           tw=tw, with_tape=True)
+        torch.cuda.synchronize()
+        key = (b_in, tw, g, dname)
+        compare("chase_cycle_cuda", got, want, TOLS[dname], key,
+                key in main_cycle)
+    for b_in, tw, g, k, dname in super_shapes:
+        h, wk = b_in + 2 * tw + 1, k * b_in + tw + 1
+        blk = torch.from_numpy(rng.standard_normal((g, h, wk))).to(
+            dev, dtypes[dname])
+        first = torch.from_numpy(np.arange(g) % 2 == 0).to(dev)
+        live = torch.from_numpy(rng.integers(1, k + 1, size=g)).to(dev)
+        act = torch.arange(k, device=dev)[None, :] < live[:, None]
+        kw = dict(b_in=b_in, tw=tw, fuse=k, with_tape=True)
+        want = ref.chase_superstep_ref(blk, first, act, **kw)
+        got = bulge_chase.chase_superstep_cuda(blk.clone(), first, act, **kw)
+        torch.cuda.synchronize()
+        key = (b_in, tw, g, k, dname)
+        compare("chase_superstep_cuda", got, want, TOLS[dname], key,
+                key in main_super)
+
+    def gk_inputs(n, b, dtype):
+        d = torch.from_numpy(rng.standard_normal((b, n))).to(dev, dtype)
+        e = torch.from_numpy(rng.standard_normal((b, n))).to(dev, dtype)
+        return s3.gk_problem(d, e)[:2]
+
+    n_s = 512
+    sturm_cases = [(b, n, d, STURM_CHECK_STEPS, True)
+                   for b, n, d in main_sturm] + [
+        (1, n_s, d, s3.default_bisect_iters(dtypes[d]), False)
+        for d in STURM_TOLS]
+    for b, n, dname, iters, main in sturm_cases:
+        z, bound = gk_inputs(n, b, dtypes[dname])
+        want = s3.bisect_plain(z, bound, n=n, max_iter=iters)
+        got = bisect.sturm_bisect_cuda(z, bound, n=n, max_iter=iters)
+        torch.cuda.synchronize()
+        compare("sturm_bisect_cuda", [got], [want], STURM_TOLS[dname],
+                (b, n, dname, iters), main)
+    emit({"phase": "kernels_vs_plain", "ok": True, "comparisons": n_cmp,
+          "main_path_shapes": {
+              "chase_cycle_cuda (b_in, tw, slots, dtype)": main_cycle,
+              "chase_superstep_cuda (b_in, tw, slots, K, dtype)": main_super,
+              "sturm_bisect_cuda (B, n, dtype)": main_sturm},
+          "sturm_steps_at_main_path_shapes": STURM_CHECK_STEPS,
+          "worst_err_over_tol": {k: round(v, 6) for k, v in worst.items()},
+          "main_path_max_abs_err": main_err,
+          "tolerances": {"chase fp64/fp32/bf16": [1e-12, 3e-5, 8e-2],
+                         "sturm fp64/fp32": [1e-13, 1e-5],
+                         "scale": "max(1, max|plain|)"}})
+
+    # ---- per-kernel times at the main path's shapes ----------------------
+    # "ms" is the kernel's own device time from torch.profiler when the
+    # profiler sees it; "events_ms" is CUDA events over back-to-back calls
+    # of the wrapper, which includes the host's launch gaps.
+    timing = {}
+    g1 = bc.stage_schedule(n4, bw4, tw4, 1)[2]
+    g2 = bc.stage_schedule(n4, bw4, tw4, 4)[2]
+
+    def time_kernel(name, symbol, call, plain, iters, plain_iters, shape,
+                    bound, library=None):
+        events = gpu_ms(torch, call, iters=iters, warmup=2)
+        prof = profiler_ms(torch, call, symbol, min(iters, 50))
+        timing[name] = dict(
+            shape=shape, ms=prof if prof is not None else events,
+            ms_from="torch.profiler" if prof is not None else "cuda events",
+            events_ms=events, profiler_ms=prof,
+            plain_ms=gpu_ms(torch, plain, iters=plain_iters,
+                            warmup=1 if plain_iters > 1 else 0),
+            library_ms=(gpu_ms(torch, library, iters=5, warmup=1)
+                        if library is not None else None),
+            bound=bound)
+
+    win = torch.from_numpy(rng.standard_normal(
+        (g1, bw4 + 2 * tw4 + 1, bw4 + tw4 + 1))).to(dev, torch.float32)
+    first = torch.zeros(g1, dtype=torch.bool, device=dev)
+    kw = dict(b_in=bw4, tw=tw4)
+    time_kernel(
+        "chase_cycle_cuda", "chase_cycle_kernel",
+        lambda: bulge_chase.chase_cycle_cuda(win, first, **kw),
+        lambda: ref.chase_cycle_ref(win, first, **kw), 500, 20,
+        f"windows ({g1},{bw4 + 2 * tw4 + 1},{bw4 + tw4 + 1}) fp32, "
+        f"b_in={bw4}, tw={tw4}", chase_bound(bw4, tw4, g1, 1, "float32", 4))
+
+    wk = 4 * bw4 + tw4 + 1
+    blk = torch.from_numpy(rng.standard_normal(
+        (g2, bw4 + 2 * tw4 + 1, wk))).to(dev, torch.float32)
+    first2 = torch.zeros(g2, dtype=torch.bool, device=dev)
+    act = torch.ones(g2, 4, dtype=torch.bool, device=dev)
+    kw2 = dict(b_in=bw4, tw=tw4, fuse=4)
+    time_kernel(
+        "chase_superstep_cuda", "chase_superstep_kernel",
+        lambda: bulge_chase.chase_superstep_cuda(blk, first2, act, **kw2),
+        lambda: ref.chase_superstep_ref(blk, first2, act, **kw2), 500, 10,
+        f"blocks ({g2},{bw4 + 2 * tw4 + 1},{wk}) fp32, b_in={bw4}, "
+        f"tw={tw4}, K=4", chase_bound(bw4, tw4, g2, 4, "float32", 4))
+
+    # the library yardstick computes the same values from the dense
+    # bidiagonal whose Golub-Kahan off-diagonal is z (built outside the
+    # timing)
+    z, bound = gk_inputs(n_s, 1, torch.float64)
+    dense_b = (torch.diag(z[0, 0::2]) + torch.diag(z[0, 1::2], 1))
+    time_kernel(
+        "sturm_bisect_cuda", "sturm_bisect_kernel",
+        lambda: bisect.sturm_bisect_cuda(z, bound, n=n_s, max_iter=60),
+        lambda: s3.bisect_plain(z, bound, n=n_s, max_iter=60), 5, 1,
+        f"B=1, n={n_s} fp64, 60 steps",
+        sturm_bound(1, n_s, 60, "float64", 8),
+        library=lambda: torch.linalg.svdvals(dense_b))
+    emit({"phase": "kernel_times", "ok": True, "card": smi_line,
+          "kernels": {k: {kk: (vv if kk != "bound" else
+                               {"ms": vv[0], "by": vv[1], "bytes": vv[2],
+                                "flops": vv[3]})
+                          for kk, vv in v.items()}
+                      for k, v in timing.items()}})
+
+    # ---- main path: counts set to 0 before each run, read after ---------
+    main_counts = {k: 0 for k in ops.launch_counts()}
+
+    def drive(label, fn, expect):
+        ops.reset_launch_counts()
+        torch.cuda.synchronize()
+        t_host = time.perf_counter()
+        start = torch.cuda.Event(enable_timing=True)
+        end = torch.cuda.Event(enable_timing=True)
+        start.record()
+        out = fn()
+        end.record()
+        torch.cuda.synchronize()
+        wall = time.perf_counter() - t_host
+        counts = ops.launch_counts()
+        for k in expect:
+            check(counts[k] > 0, f"{label}: kernel {k} was not launched")
+        for k, v in counts.items():
+            main_counts[k] += v
+        return out, {"label": label, "device_ms": start.elapsed_time(end),
+                     "wall_s": wall, "launches": counts}
+
+    gen = torch.Generator(device="cuda")
+    gen.manual_seed(args.seed)
+
+    # warm-up on a small problem: loads the kernels, fills the allocator
+    warm = banded_matrix(torch, (), 256, 64, torch.float64, gen)
+    for f in (1, 4):
+        tsvd.banded_singular_values(warm, config=PipelineConfig.resolve(
+            bw=64, dtype=torch.float64, fuse=f))
+    torch.cuda.synchronize()
+
+    # ---- 3. fp64, n = 4096, bw = 64, checked against cuSOLVER -----------
+    a3 = banded_matrix(torch, (), n3, bw3, torch.float64, gen)
+    sig1, r1 = drive("fp64 n=4096 fuse=1 banded_singular_values",
+                     lambda: tsvd.banded_singular_values(a3, config=cfg1),
+                     ["chase_cycle_cuda", "sturm_bisect_cuda"])
+    (d4, e4), r4a = drive("fp64 n=4096 fuse=4 bidiagonal_of",
+                          lambda: tsvd.bidiagonal_of(a3, config=cfg4),
+                          ["chase_superstep_cuda"])
+    sig4, r4b = drive("fp64 n=4096 fuse=4 bidiag_singular_values",
+                      lambda: s3.bidiag_singular_values(d4, e4),
+                      ["sturm_bisect_cuda"])
+    sv3 = torch.linalg.svdvals(a3)
+    smax3 = float(sv3.max())
+    err1 = float((sig1 - sv3).abs().max())
+    err41 = float((sig4 - sig1).abs().max())
+    tsvd.validate_sigma(sig1)
+    ok3 = err1 <= 1e-10 * smax3 and err41 <= 1e-12 * smax3
+    emit({"phase": "main_fp64_n4096", "ok": ok3, "n": n3, "bw": bw3,
+          "tw": cfg1.tw, "plan": list(cfg1.plan), "sigma_max": smax3,
+          "err_vs_svdvals": err1, "tol_vs_svdvals": 1e-10 * smax3,
+          "err_fuse4_vs_fuse1": err41, "tol_fuse4": 1e-12 * smax3,
+          "runs": [r1, r4a, r4b]})
+    check(ok3, "phase 3: sigma off the fp64 yardstick or fuse-dependent")
+
+    # the phase-3 matrix in fp32, against the fp64 yardstick
+    sig32, r32 = drive("fp32 n=4096 fuse=1 banded_singular_values",
+                       lambda: tsvd.banded_singular_values(
+                           a3.float(), config=cfg32),
+                       ["chase_cycle_cuda", "sturm_bisect_cuda"])
+    err32 = float((sig32.double() - sv3).abs().max())
+    ok32 = err32 <= 2e-4 * smax3
+    del a3
+
+    # ---- 4. fp32 at the paper's scale, n = 16384, bw = 64 ----------------
+    a4 = banded_matrix(torch, (), n4, bw4, torch.float32, gen)
+    fro2 = float((a4.double() ** 2).sum())
+    s41, q1 = drive("fp32 n=16384 fuse=1 banded_singular_values",
+                    lambda: tsvd.banded_singular_values(a4, config=c1,
+                                                        check=True),
+                    ["chase_cycle_cuda", "sturm_bisect_cuda"])
+    (d, e), q4a = drive("fp32 n=16384 fuse=4 bidiagonal_of",
+                        lambda: tsvd.bidiagonal_of(a4, config=c4),
+                        ["chase_superstep_cuda"])
+    s44, q4b = drive("fp32 n=16384 fuse=4 bidiag_singular_values",
+                     lambda: s3.bidiag_singular_values(d, e),
+                     ["sturm_bisect_cuda"])
+    tsvd.validate_sigma(s44)
+    rel1 = abs(float((s41.double() ** 2).sum()) - fro2) / fro2
+    rel4 = abs(float((s44.double() ** 2).sum()) - fro2) / fro2
+    smax4 = float(s41.max())
+    d14 = float((s41 - s44).abs().max())
+    ok4 = (rel1 <= 1e-4 and rel4 <= 1e-4 and d14 <= 1e-5 * smax4
+           and ok32)
+    emit({"phase": "main_fp32_n16384", "ok": ok4, "n": n4, "bw": bw4,
+          "tw": c1.tw, "plan": list(c1.plan),
+          "supercycles_per_stage_fuse4": [
+              bc.stage_schedule(n4, b, t, 4)[1] for b, t in c1.plan],
+          "cycles_per_stage_fuse1": [
+              bc.stage_schedule(n4, b, t, 1)[1] for b, t in c1.plan],
+          "frobenius_rel_err_fuse1": rel1, "frobenius_rel_err_fuse4": rel4,
+          "tol_frobenius": 1e-4, "fuse4_vs_fuse1_max_abs": d14,
+          "tol_fuse4_vs_fuse1": 1e-5 * smax4, "sigma_max": smax4,
+          "fp32_n4096_err_vs_fp64_svdvals": err32,
+          "tol_fp32_n4096": 2e-4 * smax3, "runs": [q1, q4a, q4b, r32]})
+    check(ok4, "phase 4: Frobenius identity, fuse invariance or fp32 "
+          "accuracy failed")
+    timing["sturm_bisect_cuda"]["main_path_ms"] = q4b["device_ms"]
+    timing["sturm_bisect_cuda"]["main_path_shape"] = \
+        f"B=1, n={n4} fp32, 40 steps"
+    timing["sturm_bisect_cuda"]["main_path_bound"] = sturm_bound(
+        1, n4, 40, "float32", 4)
+    del a4
+
+    # ---- 5. batched, B = 32, n = 1024, bw = 32, fp64 --------------------
+    a5 = banded_matrix(torch, (b5,), n5, bw5, torch.float64, gen)
+    s5, q5 = drive("fp64 B=32 n=1024 fuse=1 banded_singular_values",
+                   lambda: tsvd.banded_singular_values(a5, config=c5,
+                                                       check=True),
+                   ["chase_cycle_cuda", "sturm_bisect_cuda"])
+    sv5 = torch.linalg.svdvals(a5)
+    err5 = float(((s5 - sv5).abs().amax(-1) / sv5.amax(-1)).max())
+    ok5 = s5.shape == (b5, n5) and err5 <= 1e-10
+    emit({"phase": "batched_fp64_B32_n1024", "ok": ok5,
+          "max_err_over_sigma_max": err5, "tol": 1e-10, "runs": [q5]})
+    check(ok5, "phase 5: batched sigma off the yardstick")
+
+    # ---- where stage 2's time goes: torch.profiler over one stage ------
+    from torch.profiler import ProfilerActivity, profile
+
+    from repro_torch.core import band as bandmod
+    n6 = 2048
+    band6 = bandmod.pack(banded_matrix(torch, (), n6, bw4, torch.float32,
+                                       gen), bw4, tw4)
+    for f in (1, 4):
+        def one_stage():
+            return bc.reduce_stage_packed(band6, n=n6, b_in=bw4, tw=tw4,
+                                          fuse=f, backend="cuda")
+        one_stage()
+        torch.cuda.synchronize()
+        t0 = time.perf_counter()
+        one_stage()
+        torch.cuda.synchronize()
+        wall = time.perf_counter() - t0
+        with profile(activities=[ProfilerActivity.CPU,
+                                 ProfilerActivity.CUDA]) as prof:
+            t0 = time.perf_counter()
+            one_stage()
+            torch.cuda.synchronize()
+            wall_prof = time.perf_counter() - t0
+        ka = prof.key_averages()
+        on_card = [ev for ev in ka if "CUDA" in str(ev.device_type)]
+        busy_us = sum(ev.device_time_total for ev in on_card)
+        cpu_ops = [ev for ev in ka if ev not in on_card]
+        top = sorted(cpu_ops, key=lambda ev: ev.self_cpu_time_total,
+                     reverse=True)[:8]
+        kern = sorted(on_card, key=lambda ev: ev.device_time_total,
+                      reverse=True)[:5]
+        cycles = bc.stage_schedule(n6, bw4, tw4, f)[1]
+        emit({"phase": "stage2_profile", "ok": True, "n": n6, "b_in": bw4,
+              "tw": tw4, "fuse": f, "dtype": "float32", "cycles": cycles,
+              "wall_s": wall, "us_per_cycle": wall / cycles * 1e6,
+              "profiled_wall_s": wall_prof,
+              "device_busy_s": busy_us / 1e6 if busy_us else None,
+              "device_idle_share": (1 - busy_us / 1e6 / wall_prof
+                                    if busy_us else None),
+              "top_host_ops": [
+                  {"op": ev.key, "count": ev.count,
+                   "self_cpu_ms": ev.self_cpu_time_total / 1e3}
+                  for ev in top],
+              "top_device_kernels": [
+                  {"kernel": ev.key[:80], "count": ev.count,
+                   "device_ms": ev.device_time_total / 1e3}
+                  for ev in kern]})
+
+    # ---- summary ---------------------------------------------------------
+    sources = {"chase_cycle_cuda": "src/repro_torch/kernels/csrc/chase.cu",
+               "chase_superstep_cuda": "src/repro_torch/kernels/csrc/chase.cu",
+               "sturm_bisect_cuda": "src/repro_torch/kernels/csrc/sturm.cu"}
+    replaces = {
+        "chase_cycle_cuda": "src/repro/kernels/bulge_chase.py:126",
+        "chase_superstep_cuda": "src/repro/kernels/bulge_chase.py:225",
+        "sturm_bisect_cuda": "src/repro/core/bidiag_svd.py:97 (jnp "
+                             "fori_loop; no pallas_call)"}
+    kernels = []
+    for name, t in timing.items():
+        bound = t["bound"]
+        row = {"name": name, "route": "cuda", "source": sources[name],
+               "replaces": replaces[name], "launches": main_counts[name],
+               "max_abs_err": main_err[name], "ms": t["ms"],
+               "plain_ms": t["plain_ms"], "bound_ms": bound[0],
+               "bound_by": bound[1], "library_ms": t["library_ms"],
+               "shape": t["shape"], "ms_from": t["ms_from"],
+               "events_ms": t["events_ms"],
+               "worst_err_over_tol": worst[name]}
+        if "main_path_ms" in t:
+            row.update(main_path_ms=t["main_path_ms"],
+                       main_path_shape=t["main_path_shape"],
+                       main_path_bound_ms=t["main_path_bound"][0])
+        kernels.append(row)
+    check(all(k["launches"] > 0 for k in kernels),
+          "a kernel of the main path was never launched")
+    emit({"phase": "total", "ok": True,
+          "seconds": round(time.perf_counter() - t_all, 3)})
+    emit({"kernels": kernels})
+    print(smi_line, flush=True)
+    emit({"ok": True, "device": {"platform": "gpu", "kind": kind,
+                                 "count": torch.cuda.device_count()}})
+    return 0
+
+
+if __name__ == "__main__":
+    sys.exit(main())

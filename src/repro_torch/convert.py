@@ -1,0 +1,53 @@
+"""Carry the reference package's state across into this one.
+
+The system has no weights.  What it carries is its configuration and its
+packed band storage, as plain Python values and numpy arrays, so this module
+needs nothing from the reference package.
+"""
+
+from __future__ import annotations
+
+import numpy as np
+import torch
+
+from repro_torch.core import tuning
+
+__all__ = ["pipeline_config_from_reference", "band_from_numpy"]
+
+_BACKENDS = {"pallas": "cuda", "ref": "ref"}
+_KEPT = ("bw", "tw", "fuse", "dtype")
+
+
+def pipeline_config_from_reference(fields: dict, device: str = "cuda"
+                                   ) -> tuning.PipelineConfig:
+    """This package's config from ``dataclasses.asdict`` of a reference
+    ``PipelineConfig``.
+
+    "pallas" becomes "cuda" and "ref" stays "ref"; ``bw``, ``tw``, ``fuse``
+    and ``dtype`` are kept.  ``interpret`` is dropped, and so are
+    ``max_batch`` (serving's bucket size) and ``unroll`` (the reference's
+    loop unrolling), which nothing in this package reads yet.  What this
+    slice lacks raises ``NotImplementedError``: singular vectors, a stage 3
+    other than bisection, the fused small-n backend."""
+    if fields.get("compute_uv", False):
+        raise NotImplementedError(tuning.LATER["compute_uv"])
+    stage3 = fields.get("stage3", "bisect")
+    if stage3 != "bisect":
+        raise NotImplementedError(tuning.LATER.get(stage3, stage3))
+    backend = fields["backend"]
+    if backend not in _BACKENDS:
+        raise NotImplementedError(tuning.LATER.get(
+            backend, f"backend {backend!r} has no counterpart here"))
+    kept = {k: fields[k] for k in _KEPT if k in fields}
+    cfg = tuning.PipelineConfig(backend=_BACKENDS[backend], device=str(device),
+                                **kept)
+    tuning.dtype_of(cfg.dtype)
+    from repro_torch.kernels import ops
+    ops.resolve_backend(cfg.backend, cfg.device)
+    return cfg
+
+
+def band_from_numpy(arr, device="cuda") -> torch.Tensor:
+    """The reference's packed band storage (..., H, ncols), given as a numpy
+    array, as a tensor on ``device``."""
+    return torch.tensor(np.asarray(arr), device=device)

@@ -1,0 +1,210 @@
+"""Band -> bidiagonal reduction by memory-aware bulge chasing (paper Alg. 1),
+on packed band storage, batch-native.
+
+Scheduling (one stage reduces the bandwidth ``b_in -> b_out = b_in - tw``):
+sweep R starts at global cycle ``3R`` and at local cycle j owns pivot column
+``p = R + b_out + j*b_in``.  Cycle j = 0 annihilates row R's outermost ``tw``
+band elements; cycle j > 0 the row bulge of row ``p - b_in``; each cycle then
+the column bulge of pivot column p.  The 3-cycle separation keeps the
+windows of one global cycle disjoint, so all of them go to one kernel
+launch, over B*G slots for a batch of B matrices.  With fuse depth K a
+launch chases K consecutive cycles of each sweep on one contiguous band
+block (``_chase_loop``).
+
+The band is updated in place.  The reference rebuilds its arrays with
+``.at[].set`` inside a ``fori_loop``; here each stage pads the band once into
+a new tensor, and every cycle gathers its windows from it, runs the kernel
+on them, and writes the changed cells back into it with ``index_put_``.
+The schedule of all T cycles is computed on the device once per stage as
+(T, G) tensors, so the loop does no ``.item()`` and no host-to-device copy.
+"""
+
+from __future__ import annotations
+
+import torch
+
+from repro_torch.core import band as bandmod
+from repro_torch.core import tuning
+
+__all__ = ["stage_schedule", "chase_cycle_indices", "reduce_stage_packed",
+           "bidiagonalize_packed", "bidiagonalize"]
+
+
+def stage_schedule(n: int, b_in: int, tw: int, fuse: int = 1
+                   ) -> tuple[int, int, int]:
+    """(n_sweeps, total_super_cycles, max_concurrent) of one stage.
+
+    Sweep R starts at super-cycle ``sep*R`` (``sep = sweep_separation(K)``)
+    and lives ``ceil((j_max(R)+1)/K)`` super-cycles; the last sweep finishes
+    last."""
+    conc = tuning.max_concurrent_sweeps(n, b_in, fuse, tw)
+    b_out = b_in - tw
+    nsweeps = max(n - 1 - b_out, 0)
+    if nsweeps == 0:
+        return 0, 0, conc
+    last = nsweeps - 1
+    max_j_last = max((n - 1 - last - b_out) // b_in, 0)
+    sep = tuning.sweep_separation(fuse)
+    total = sep * last + -(-(max_j_last + 1) // fuse)
+    return nsweeps, total, conc
+
+
+def chase_cycle_indices(t, g, n: int, b_in: int, tw: int, fuse: int = 1):
+    """Slot -> (sweep, base local cycle, base pivot, active, is_first).
+
+    Slot g at (super-)cycle t hosts sweep ``R = t//sep - g`` at base local
+    cycle ``j = (t - sep*R)*fuse``.  ``R`` is negative for slots whose sweep
+    has not started; ``//`` floors on Python ints and on integer tensors
+    alike, as the reference's does.  Works on ints and on tensors."""
+    sep = tuning.sweep_separation(fuse)
+    b_out = b_in - tw
+    nsweeps = max(n - 1 - b_out, 0)
+    R = t // sep - g
+    j = (t - sep * R) * fuse
+    p = R + b_out + j * b_in
+    active = (R >= 0) & (R < nsweeps) & (p <= n - 1)
+    return R, j, p, active, (j == 0)
+
+
+def _cycle_table(n: int, b_in: int, tw: int, fuse: int, T: int, G: int,
+                 B: int, device):
+    """The whole stage's schedule on the device.
+
+    Returns ``p_safe (T, G)``: each slot's first band column, pointing an
+    inactive slot at its own all-zero dump zone (``n + WK + g*WK``);
+    ``first (T, B*G)``; and, fused, ``act (T, B*G, K)``, the live prefix of
+    each slot's K cycles."""
+    wk = fuse * b_in + tw + 1
+    t = torch.arange(T, device=device)[:, None]
+    g = torch.arange(G, device=device)[None, :]
+    _, _, p, on, first = chase_cycle_indices(t, g, n, b_in, tw, fuse)
+    p_safe = torch.where(on, p, n + wk + g * wk)
+    act = None
+    if fuse > 1:
+        off = torch.arange(fuse, device=device) * b_in
+        act = (on[..., None] & (p[..., None] + off <= n - 1)).repeat(1, B, 1)
+    return p_safe, first.repeat(1, B), act
+
+
+def _chase_loop(bandp: torch.Tensor, p_safe, first, act, *, b_in: int,
+                tw: int, fuse: int, backend: str, config) -> None:
+    """Run every (super-)cycle of one stage on the padded band, in place.
+
+    The one place a cycle is launched: a CUDA graph or a persistent kernel
+    can replace this loop without touching its callers.
+
+    Windows of inactive slots come from their dump zones, which are all
+    zero; a zero window's reflectors have tau = 0, so the kernel leaves it
+    zero and writing it back changes nothing."""
+    from repro_torch.kernels import ops
+    B, H, _ = bandp.shape
+    T, G = p_safe.shape
+    dev = bandp.device
+    if fuse == 1:
+        W = b_in + tw + 1
+        yy = torch.arange(H, device=dev)[:, None]
+        ww = torch.arange(W, device=dev)[None, :]
+        # window cell (y, w) <- band cell (H-1+w-y, p+w); cells with y < w
+        # are not stored, read a clamped neighbour, and are never used
+        d_gather = (H - 1 + ww - yy).clamp(0, H - 1)
+        vy, vw = (yy >= ww).nonzero(as_tuple=True)
+        vd = H - 1 + vw - vy
+        vcell = vy * W + vw
+        for t in range(T):
+            p = p_safe[t]
+            win = bandp[:, d_gather, p[:, None, None] + ww]       # (B,G,H,W)
+            out = ops.chase_cycle(win.reshape(B * G, H, W), first[t],
+                                  b_in=b_in, tw=tw, backend=backend,
+                                  config=config)
+            vals = out.reshape(B, G, H * W)[:, :, vcell]
+            bandp[:, vd, p[:, None] + vw] = vals
+        return
+    WK = fuse * b_in + tw + 1
+    rows = torch.arange(H, device=dev)[:, None]
+    cc = torch.arange(WK, device=dev)
+    for t in range(T):
+        cols = p_safe[t][:, None, None] + cc                     # (G,1,WK)
+        blocks = bandp[:, rows, cols]                            # (B,G,H,WK)
+        out = ops.chase_cycle(blocks.reshape(B * G, H, WK), first[t],
+                              b_in=b_in, tw=tw, fuse=fuse, active=act[t],
+                              backend=backend, config=config)
+        bandp[:, rows, cols] = out.reshape(B, G, H, WK)
+
+
+def reduce_stage_packed(band: torch.Tensor, *, n: int, b_in: int, tw: int,
+                        backend: str = "auto", config=None,
+                        fuse: int | None = None) -> torch.Tensor:
+    """One SBR stage on packed storage (..., b_in + 2*tw + 1, >= n).
+
+    Returns a new tensor of the same shape whose bandwidth is ``b_in - tw``.
+    All B problems of a batch advance on one wavefront clock: each
+    (super-)cycle is one kernel launch over B*G slots.  ``fuse=K`` chases K
+    consecutive cycles per launch; the result does not depend on K.
+    Explicit ``backend=``/``fuse=`` win over ``config``."""
+    if fuse is None:
+        fuse = config.fuse if config is not None else 1
+    fuse = max(int(fuse), 1)
+    assert b_in - tw >= 1, (b_in, tw)
+    H = b_in + 2 * tw + 1
+    if band.dim() < 2 or band.shape[-2] != H:
+        raise ValueError(f"band has shape {tuple(band.shape)}, expected "
+                         f"(..., {H}, >= {n})")
+    lead = band.shape[:-2]
+    ncols0 = band.shape[-1]
+    band3 = band.reshape((-1, H, ncols0))
+    nsweeps, T, G = stage_schedule(n, b_in, tw, fuse)
+    if nsweeps == 0 or T == 0:
+        return band.clone()
+    wk = fuse * b_in + tw + 1
+    n_pad = n + wk + G * wk               # dump zones of the G slots at the end
+    bandp = bandmod.pad_columns(band3, max(n_pad - ncols0, 0))
+    p_safe, first, act = _cycle_table(n, b_in, tw, fuse, T, G,
+                                      band3.shape[0], band.device)
+    _chase_loop(bandp, p_safe, first, act, b_in=b_in, tw=tw, fuse=fuse,
+                backend=backend, config=config)
+    return bandp[..., :ncols0].reshape(lead + (H, ncols0))
+
+
+def bidiagonalize_packed(band: torch.Tensor, *, n: int, bw: int, tw: int,
+                         backend: str = "auto", config=None,
+                         fuse: int | None = None):
+    """Full SBR bw -> 1 on packed storage; returns (diag, superdiag).
+
+    ``band`` is packed with ``tw_0 = min(tw, bw-1)`` sub rows
+    (``band.pack(a, bw, min(tw, bw-1))``).  Entering each stage (b_in, tw_i)
+    of the plan the storage holds ``tw_i`` sub rows, the diagonal and
+    ``b_in + tw_i`` super rows; between stages it is re-sliced."""
+    plan = tuning.stage_plan(bw, tw)
+    if not plan:
+        h = band.shape[-2]
+        tw0 = (h - 2) // 2 if h > 2 else 0
+        d = bandmod.band_extract_diag(band, tw0, 0, n)
+        e = (bandmod.band_extract_diag(band, tw0, 1, n) if bw >= 1
+             else torch.zeros_like(d))
+        return d, e
+    cur = band
+    tw_cur = plan[0][1]
+    if cur.shape[-2] != plan[0][0] + 2 * tw_cur + 1:
+        raise ValueError(f"band has {cur.shape[-2]} rows; the plan {plan} "
+                         f"needs {plan[0][0] + 2 * tw_cur + 1}")
+    for b_in, twi in plan:
+        h_i = b_in + 2 * twi + 1
+        start = tw_cur - twi
+        cur = cur[..., start:start + h_i, :]
+        cur = reduce_stage_packed(cur, n=n, b_in=b_in, tw=twi,
+                                  backend=backend, config=config, fuse=fuse)
+        tw_cur = twi
+    d = bandmod.band_extract_diag(cur, tw_cur, 0, n)
+    e = bandmod.band_extract_diag(cur, tw_cur, 1, n)
+    return d, e
+
+
+def bidiagonalize(a: torch.Tensor, *, bw: int, tw: int,
+                  backend: str = "auto", config=None,
+                  fuse: int | None = None):
+    """Dense upper-banded (..., n, n) -> (diag, superdiag), each (..., n)."""
+    n = a.shape[-1]
+    tw0 = min(tw, max(bw - 1, 1))
+    packed = bandmod.pack(a, bw, tw0)
+    return bidiagonalize_packed(packed, n=n, bw=bw, tw=tw, backend=backend,
+                                config=config, fuse=fuse)

@@ -1,0 +1,185 @@
+"""Schedule knobs and the shared-memory budget of the Hopper chase kernels.
+
+The paper's dominant knob is the inner tilewidth TW, whose optimum fills one
+128-byte cache line (32 for fp32, 16 for fp64).  The schedule half of the
+reference's ``core/tuning.py`` is copied here unchanged (``stage_plan``,
+``sweep_separation``, ``max_concurrent_sweeps``): it is integer algebra and
+must agree exactly.  The TPU's VMEM budget is NOT copied.  In its place
+``smem_bytes`` counts the bytes the CUDA chase kernels
+(``kernels/csrc/chase.cu``) hold in shared memory per block; it is the one
+copy of that layout's size, and the kernels' wrappers launch with exactly
+this many bytes.  ``check_smem_budget`` holds them to Hopper's 232,448 B per
+block.
+"""
+
+from __future__ import annotations
+
+import dataclasses
+
+import torch
+
+from repro_torch.core.householder import acc_dtype
+
+__all__ = [
+    "SMEM_PER_BLOCK", "default_tilewidth", "sweep_separation",
+    "max_concurrent_sweeps", "smem_bytes", "check_smem_budget",
+    "default_fuse_depth", "stage_plan", "PipelineConfig",
+]
+
+SMEM_PER_BLOCK = 232_448     # H100: shared memory one block may hold, bytes
+
+_DTYPES = {"float64": torch.float64, "float32": torch.float32,
+           "bfloat16": torch.bfloat16}
+
+
+def dtype_of(name) -> torch.dtype:
+    """torch dtype from a name ("float32") or a dtype."""
+    if isinstance(name, torch.dtype):
+        return name
+    if name not in _DTYPES:
+        raise ValueError(f"dtype must be one of {tuple(_DTYPES)}, got {name!r}")
+    return _DTYPES[name]
+
+
+def dtype_name(dtype) -> str:
+    return str(dtype_of(dtype)).removeprefix("torch.")
+
+
+def _itemsize(dtype) -> int:
+    return torch.empty((), dtype=dtype_of(dtype)).element_size()
+
+
+def default_tilewidth(bw: int, dtype=torch.float32) -> int:
+    """TW that fills one 128-byte cache line (paper Fig. 4): fp32 -> 32,
+    fp64 -> 16, bf16 -> 64; at least 8, at most bw - 1."""
+    per_line = 128 // _itemsize(dtype)
+    tw = max(8, min(per_line, 64))
+    return max(1, min(tw, bw - 1))
+
+
+def sweep_separation(fuse: int = 1) -> int:
+    """Sweep-start separation in (super-)cycles: 3 at K = 1 (the paper's
+    3-cycle rule), 2 for K >= 2, which already keeps the wider fused windows
+    disjoint (``2*K*b_in - 1 >= K*b_in + tw + 1`` whenever ``K >= 2``)."""
+    assert fuse >= 1, fuse
+    return 3 if fuse == 1 else 2
+
+
+def max_concurrent_sweeps(n: int, b_in: int, fuse: int = 1,
+                          tw: int | None = None) -> int:
+    """Wavefront width G (paper: #blocks) of one stage.
+
+    ``fuse=1``: ``ceil(n / (3*b_in - 1)) + 1``.  Fused: a sweep lives
+    ``dur = ceil((j_max + 1)/K)`` super-cycles, so slot ``g`` never exceeds
+    ``(dur - 1) // sep``; that bound needs ``tw``."""
+    if fuse == 1 or tw is None:
+        stride = sweep_separation(fuse) * fuse * b_in - 1
+        return max(1, -(-n // stride) + 1)
+    j_max0 = max((n - 1 - (b_in - tw)) // b_in, 0)
+    dur0 = -(-(j_max0 + 1) // fuse)
+    return max(1, (dur0 - 1) // sweep_separation(fuse) + 1)
+
+
+def smem_bytes(b_in: int, tw: int, dtype=torch.float32, fuse: int = 1) -> int:
+    """Shared memory one block of a chase kernel holds, in bytes.
+
+    Both kernels stage, per cycle, the two panels a cycle changes, in the
+    accumulation type: the column panel rows ``[tw, H)`` x cols ``[0, tw]``
+    and the part of the row panel (rows ``[H-1-tw, H)``) right of it, cols
+    ``[tw+1, W)``; plus the two reflectors and four scalars.  The fused
+    kernel keeps its block in device memory and stages each of its K cycles
+    in the same buffer, so the count does not grow with ``fuse``."""
+    assert fuse >= 1, fuse
+    h = b_in + 2 * tw + 1
+    words = (h - tw) * (tw + 1) + (tw + 1) * b_in + 2 * (tw + 1) + 4
+    return words * _itemsize(acc_dtype(dtype_of(dtype)))
+
+
+def check_smem_budget(b_in: int, tw: int, dtype=torch.float32,
+                      fuse: int = 1) -> int:
+    """Raise when a chase block would not fit Hopper's shared memory;
+    return the bytes it needs."""
+    need = smem_bytes(b_in, tw, dtype, fuse)
+    if need > SMEM_PER_BLOCK:
+        raise ValueError(
+            f"chase kernel for b_in={b_in}, tw={tw}, dtype={dtype_name(dtype)}"
+            f" needs {need} B of shared memory per block; the H100 gives "
+            f"{SMEM_PER_BLOCK} B. Reduce the bandwidth or the tilewidth.")
+    return need
+
+
+def default_fuse_depth(b_in: int, tw: int, dtype=torch.float32, *,
+                       cap: int = 4) -> int:
+    """Fuse depth K for ``fuse=None``: the cap, once ``check_smem_budget``
+    has shown that a K-cycle block fits (the count does not grow with K, so
+    shared memory never forces a shallower K).  Past K = 2 the super-cycle
+    count stops falling (sweep starts set it), so the cap is small."""
+    cap = max(int(cap), 1)
+    check_smem_budget(b_in, tw, dtype, cap)
+    return cap
+
+
+def stage_plan(bw: int, tw: int) -> tuple[tuple[int, int], ...]:
+    """Tile-width schedule ((b_in, tw_i), ...) reducing bw -> 1, <= tw per
+    stage."""
+    plan = []
+    b = bw
+    while b > 1:
+        twi = min(tw, b - 1)
+        plan.append((b, twi))
+        b -= twi
+    return tuple(plan)
+
+
+LATER = {
+    "fused_small": "the one-dispatch small-n tier comes in a later slice",
+    "dc": "divide-and-conquer stage 3 comes in a later slice",
+    "auto": "stage3='auto' needs divide-and-conquer, a later slice",
+    "compute_uv": "singular vectors (tape replay) come in a later slice",
+}
+
+
+@dataclasses.dataclass(frozen=True)
+class PipelineConfig:
+    """Resolved configuration of the banded pipeline (stages 2 and 3).
+
+    ``backend`` is "ref" (plain PyTorch) or "cuda" (the hand-written
+    kernels); ``device`` is where the pipeline runs, the card unless the
+    caller asks for the CPU."""
+    bw: int
+    tw: int
+    backend: str = "cuda"
+    dtype: str = "float32"
+    fuse: int = 1
+    stage3: str = "bisect"
+    device: str = "cuda"
+
+    @property
+    def plan(self) -> tuple[tuple[int, int], ...]:
+        return stage_plan(self.bw, self.tw)
+
+    @classmethod
+    def resolve(cls, *, bw: int = 32, tw: int | None = None,
+                backend: str = "auto", dtype=torch.float32,
+                n: int | None = None, fuse: int | None = 1,
+                stage3: str = "bisect",
+                device: str = "cuda") -> "PipelineConfig":
+        """Resolve every knob to a concrete value.
+
+        ``backend="auto"`` follows the requested ``device``: "cuda" on a
+        CUDA device, "ref" on the CPU.  It never looks at what the machine
+        has.  ``fuse=None`` asks ``default_fuse_depth``."""
+        from repro_torch.kernels import ops   # deferred: ops imports tuning
+        if stage3 != "bisect":
+            raise NotImplementedError(LATER.get(stage3, f"stage3={stage3!r}"))
+        bw = max(int(bw), 1)
+        if n is not None:
+            bw = min(bw, max(n, 1))
+        backend = ops.resolve_backend(backend, device)
+        tw = tw if tw is not None else default_tilewidth(bw, dtype_of(dtype))
+        tw = max(1, min(tw, max(bw - 1, 1)))
+        check_smem_budget(bw, tw, dtype)
+        if fuse is None:
+            fuse = default_fuse_depth(bw, tw, dtype)
+        return cls(bw=bw, tw=tw, backend=backend, dtype=dtype_name(dtype),
+                   fuse=max(int(fuse), 1), stage3=stage3, device=str(device))

@@ -1,0 +1,3 @@
+"""Hand-written CUDA kernels of the pipeline, their wrappers, their plain
+PyTorch versions and the backend registry.  Sources are built on first use
+on a CUDA tensor, never on import."""

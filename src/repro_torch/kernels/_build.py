@@ -1,0 +1,86 @@
+"""Build ``csrc/*.cu`` with ``nvcc`` into shared libraries and load them with
+``ctypes``.
+
+Each source has a plain C interface, so a build takes seconds and needs no
+PyTorch headers.  Libraries go to ``kernels/build/`` (ignored by git), named
+by a hash of the source and the flags, so an edited source is rebuilt and an
+unchanged one is reused.  Nothing is built when the package is imported:
+the first launch on a CUDA tensor builds what it needs, and
+``build_all`` starts one ``nvcc`` per source, all at once.
+"""
+
+from __future__ import annotations
+
+import ctypes
+import hashlib
+import os
+import shutil
+import subprocess
+from pathlib import Path
+
+__all__ = ["SOURCES", "FLAGS", "build_all", "load", "LOGS"]
+
+CSRC = Path(__file__).resolve().parent / "csrc"
+BUILD = Path(__file__).resolve().parent / "build"
+SOURCES = {"chase": "chase.cu", "sturm": "sturm.cu"}
+# No --use_fast_math: the kernels need IEEE division, sqrt and subnormals.
+FLAGS = ["-gencode", "arch=compute_90a,code=sm_90a", "-std=c++17", "-O3",
+         "-shared", "-Xcompiler", "-fPIC", "-Xptxas", "-v"]
+
+LOGS: dict[str, str] = {}          # compiler output (ptxas -v) per source
+_LIBS: dict[str, ctypes.CDLL] = {}
+
+
+def _nvcc() -> str:
+    found = shutil.which("nvcc")
+    if found:
+        return found
+    default = "/usr/local/cuda/bin/nvcc"
+    if os.path.exists(default):
+        return default
+    raise RuntimeError("nvcc not found: the CUDA kernels cannot be built")
+
+
+def _target(name: str) -> Path:
+    h = hashlib.sha256((CSRC / SOURCES[name]).read_bytes())
+    h.update(" ".join(FLAGS).encode())
+    return BUILD / f"lib{name}-{h.hexdigest()[:16]}.so"
+
+
+def build_all(names=None) -> dict[str, Path]:
+    """Build the named sources (default: all) that are not built yet, one
+    ``nvcc`` process each, all started together.  Returns name -> library
+    path; raises with the compiler's output when a build fails."""
+    names = list(SOURCES if names is None else names)
+    BUILD.mkdir(parents=True, exist_ok=True)
+    out, procs = {}, {}
+    for name in names:
+        target = _target(name)
+        out[name] = target
+        if target.exists():
+            continue
+        tmp = target.with_name(f"{target.name}.{os.getpid()}.tmp")
+        cmd = [_nvcc(), *FLAGS, "-o", str(tmp), str(CSRC / SOURCES[name])]
+        procs[name] = (subprocess.Popen(cmd, stdout=subprocess.PIPE,
+                                        stderr=subprocess.STDOUT, text=True),
+                       tmp, target)
+    failed = []
+    for name, (proc, tmp, target) in procs.items():
+        log, _ = proc.communicate()
+        LOGS[name] = log
+        if proc.returncode != 0:
+            failed.append(f"{SOURCES[name]}:\n{log}")
+            continue
+        os.replace(tmp, target)
+    if failed:
+        raise RuntimeError("nvcc failed:\n" + "\n".join(failed))
+    return out
+
+
+def load(name: str) -> ctypes.CDLL:
+    """The loaded library of one source, built on first use."""
+    lib = _LIBS.get(name)
+    if lib is None:
+        lib = ctypes.CDLL(str(build_all([name])[name]))
+        _LIBS[name] = lib
+    return lib

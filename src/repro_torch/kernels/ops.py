@@ -1,0 +1,135 @@
+"""Backend registry and the dispatching wrappers of the pipeline's kernels.
+
+Backends are entries in a small registry (``register_backend``) that maps a
+name to per-op implementations:
+
+  "ref"   the plain PyTorch versions, on any device;
+  "cuda"  the hand-written Hopper kernels, on CUDA tensors only.
+
+``resolve_backend`` turns "auto" into a concrete name from the *requested
+device*, never from what the machine has: "cuda" for a CUDA device, "ref"
+for the CPU.  Asking for "cuda" on the CPU raises; nothing falls back.
+"""
+
+from __future__ import annotations
+
+from typing import Callable
+
+import torch
+
+from repro_torch.core.tuning import LATER
+
+__all__ = ["chase_cycle", "sturm_bisect", "register_backend",
+           "resolve_backend", "backend_names", "launch_counts",
+           "reset_launch_counts"]
+
+_REGISTRY: dict[str, dict[str, Callable]] = {}
+
+
+def register_backend(name: str, **impls: Callable) -> None:
+    """Register (or extend) a backend: op name -> implementation."""
+    _REGISTRY.setdefault(name, {}).update(impls)
+
+
+def backend_names() -> tuple[str, ...]:
+    return tuple(sorted(_REGISTRY))
+
+
+def resolve_backend(backend: str = "auto", device="cuda") -> str:
+    """A concrete registry key for ``backend`` on ``device``."""
+    dev = torch.device(device)
+    if backend == "auto":
+        backend = "cuda" if dev.type == "cuda" else "ref"
+    if backend in LATER:
+        raise NotImplementedError(LATER[backend])
+    if backend not in _REGISTRY:
+        raise ValueError(f"unknown backend {backend!r}; registered: "
+                         f"{backend_names()}")
+    if backend == "cuda" and dev.type != "cuda":
+        raise ValueError(f"backend 'cuda' runs on CUDA tensors only, got "
+                         f"device {dev}")
+    return backend
+
+
+def _impl(op: str, backend: str, config, device) -> Callable:
+    if backend == "auto" and config is not None:
+        backend = config.backend
+    return _REGISTRY[resolve_backend(backend, device)][op]
+
+
+# ---- "ref": plain PyTorch -------------------------------------------------
+
+def _ref_chase(windows, is_first, *, b_in, tw, with_tape, fuse, active):
+    from repro_torch.kernels import ref
+    if fuse == 1:
+        return ref.chase_cycle_ref(windows, is_first, b_in=b_in, tw=tw,
+                                   with_tape=with_tape)
+    return ref.chase_superstep_ref(windows, is_first, active, b_in=b_in,
+                                   tw=tw, fuse=fuse, with_tape=with_tape)
+
+
+def _ref_bisect(z, bound, *, n, max_iter):
+    from repro_torch.core.bidiag_svd import bisect_plain
+    return bisect_plain(z, bound, n=n, max_iter=max_iter)
+
+
+register_backend("ref", chase_cycle=_ref_chase, sturm_bisect=_ref_bisect)
+
+
+# ---- "cuda": the Hopper kernels (built on first use) ----------------------
+
+def _cuda_chase(windows, is_first, *, b_in, tw, with_tape, fuse, active):
+    from repro_torch.kernels import bulge_chase
+    if fuse == 1:
+        return bulge_chase.chase_cycle_cuda(windows, is_first, b_in=b_in,
+                                            tw=tw, with_tape=with_tape)
+    return bulge_chase.chase_superstep_cuda(windows, is_first, active,
+                                            b_in=b_in, tw=tw, fuse=fuse,
+                                            with_tape=with_tape)
+
+
+def _cuda_bisect(z, bound, *, n, max_iter):
+    from repro_torch.kernels import bisect
+    return bisect.sturm_bisect_cuda(z, bound, n=n, max_iter=max_iter)
+
+
+register_backend("cuda", chase_cycle=_cuda_chase, sturm_bisect=_cuda_bisect)
+
+
+# ---- public wrappers ------------------------------------------------------
+
+def chase_cycle(windows: torch.Tensor, is_first: torch.Tensor, *, b_in: int,
+                tw: int, backend: str = "auto", config=None,
+                with_tape: bool = False, fuse: int = 1,
+                active: torch.Tensor | None = None):
+    """One wavefront of chase (super-)cycles.
+
+    ``fuse=1``: rolled windows (G, H, W) and ``is_first`` (G,).  ``fuse=K``:
+    contiguous band blocks (G, H, K*b_in + tw + 1), ``is_first`` and the
+    ``active`` (G, K) prefix mask.  The "cuda" backend updates the operand in
+    place and returns it; "ref" returns a new tensor.  With ``with_tape``
+    also the reflector tape, as the reference's ``ops.chase_cycle``."""
+    impl = _impl("chase_cycle", backend, config, windows.device)
+    return impl(windows, is_first, b_in=b_in, tw=tw, with_tape=with_tape,
+                fuse=fuse, active=active)
+
+
+def sturm_bisect(z: torch.Tensor, bound: torch.Tensor, *, n: int,
+                 max_iter: int, backend: str = "auto", config=None):
+    """Singular values (B, n), descending, of prescaled bidiagonals given by
+    their Golub–Kahan off-diagonals ``z`` (B, 2n-1) and bounds (B,)."""
+    impl = _impl("sturm_bisect", backend, config, z.device)
+    return impl(z, bound, n=n, max_iter=max_iter)
+
+
+def launch_counts() -> dict[str, int]:
+    """Launches of every CUDA kernel since the last reset."""
+    from repro_torch.kernels import bisect, bulge_chase
+    return {**bulge_chase.launches, **bisect.launches}
+
+
+def reset_launch_counts() -> None:
+    from repro_torch.kernels import bisect, bulge_chase
+    for counts in (bulge_chase.launches, bisect.launches):
+        for key in counts:
+            counts[key] = 0

@@ -1,0 +1,126 @@
+"""Plain PyTorch versions of the chase kernels (``csrc/chase.cu``).
+
+They run on any device.  The CPU tests hold them against the reference's
+``kernels/ref.py``, and ``chip_smoke.py`` holds the CUDA kernels against
+them on the card.
+
+A *rolled dense window* of one chase cycle (paper Alg. 2) is
+
+    window[y, w] = A[p - b_in - tw + y, p + w],
+    H = b_in + 2*tw + 1,  W = b_in + tw + 1,
+
+and a cycle is (1) a right reflector that annihilates the row bulge in
+columns ``[0, tw]`` of row ``tw`` (row ``2*tw`` on a sweep's first cycle),
+applied to rows ``[tw, H)``; then (2) a left reflector that annihilates the
+column bulge of column 0, rows ``[H-1-tw, H)``, applied across all W
+columns.  Only those two panels change, and every cell of them has
+``y >= w``: it lies inside the band storage.
+
+Half types accumulate in float32 and are rounded to their storage type
+after each of the two updates, as the reference kernel does.
+"""
+
+from __future__ import annotations
+
+import torch
+
+from repro_torch.core.householder import acc_dtype, make_reflector
+
+__all__ = ["chase_cycle_ref", "chase_superstep_ref"]
+
+
+def _chase_window(win: torch.Tensor, first: torch.Tensor, *, b_in: int,
+                  tw: int):
+    """One chase cycle on each of G windows (G, H, W); returns a new tensor
+    and the reflector pairs ``(v, tau), (v2, tau2)`` in the accumulation
+    type."""
+    g, h, w = win.shape
+    assert h == b_in + 2 * tw + 1 and w == b_in + tw + 1, (win.shape, b_in, tw)
+    dt = win.dtype
+    acc = acc_dtype(dt)
+    ln = tw + 1
+    gi = torch.arange(g, device=win.device)
+    out = win.clone()
+
+    # right reflector on the pivot row, applied to rows [tw, H), cols [0, tw]
+    yr = torch.where(first, 2 * tw, tw)
+    v, tau, beta = make_reflector(out[gi, yr, :ln])
+    blk = out[:, tw:, :ln].to(acc)
+    wdot = (blk @ v[:, :, None])[..., 0]
+    blk = blk - tau[:, None, None] * (wdot[:, :, None] * v[:, None, :])
+    fix = torch.zeros((g, ln), dtype=acc, device=win.device)
+    fix[:, 0] = beta
+    r = yr - tw
+    blk[gi, r] = torch.where((tau != 0)[:, None], fix, blk[gi, r])
+    out[:, tw:, :ln] = blk.to(dt)
+
+    # left reflector on column 0, rows [H-1-tw, H), applied across W columns
+    y0 = h - 1 - tw
+    blk2 = out[:, y0:, :].to(acc)
+    v2, tau2, beta2 = make_reflector(blk2[:, :, 0])
+    w2 = (v2[:, None, :] @ blk2)[:, 0, :]
+    blk2 = blk2 - tau2[:, None, None] * (v2[:, :, None] * w2[:, None, :])
+    colfix = torch.zeros((g, ln), dtype=acc, device=win.device)
+    colfix[:, 0] = beta2
+    blk2[:, :, 0] = torch.where((tau2 != 0)[:, None], colfix, blk2[:, :, 0])
+    out[:, y0:, :] = blk2.to(dt)
+    return out, (v, tau), (v2, tau2)
+
+
+def _tape(pair1, pair2, dt):
+    (v, tau), (v2, tau2) = pair1, pair2
+    return (torch.stack([v, v2], 1).to(dt), torch.stack([tau, tau2], 1).to(dt))
+
+
+def chase_cycle_ref(windows: torch.Tensor, is_first: torch.Tensor, *,
+                    b_in: int, tw: int, with_tape: bool = False):
+    """One chase cycle on each of G disjoint windows (G, H, W).
+
+    Returns the updated windows (a new tensor); with ``with_tape`` also the
+    reflector tape ``vs (G, 2, tw+1)``, ``taus (G, 2)`` (right reflector
+    first, then left)."""
+    out, p1, p2 = _chase_window(windows, is_first.bool(), b_in=b_in, tw=tw)
+    if with_tape:
+        return (out,) + _tape(p1, p2, windows.dtype)
+    return out
+
+
+def chase_superstep_ref(blocks: torch.Tensor, is_first: torch.Tensor,
+                        active: torch.Tensor, *, b_in: int, tw: int,
+                        fuse: int, with_tape: bool = False):
+    """K = ``fuse`` consecutive cycles of one sweep on each of G contiguous
+    band blocks (G, H, K*b_in + tw + 1).
+
+    Cycle i's window cell (y, w) is ``block[H-1-(y-w), i*b_in + w]``; the
+    cycles run in order on the block itself, so each reads what the one
+    before it wrote.  ``is_first`` applies to cycle 0; ``active[g, i]``
+    gates cycle i (an inactive cycle leaves the block as it was, but its
+    reflector pair is still recorded).  Returns a new tensor; with
+    ``with_tape`` also ``vs (G, K, 2, tw+1)``, ``taus (G, K, 2)``."""
+    g, h, wk = blocks.shape
+    assert h == b_in + 2 * tw + 1 and wk == fuse * b_in + tw + 1, (
+        blocks.shape, b_in, tw, fuse)
+    w = b_in + tw + 1
+    dev = blocks.device
+    yy = torch.arange(h, device=dev)[:, None]
+    ww = torch.arange(w, device=dev)[None, :]
+    rows = (h - 1 - (yy - ww)).clamp(0, h - 1)        # band row of window cell
+    valid = yy >= ww                                  # the cell is stored
+    vy, vw = valid.nonzero(as_tuple=True)
+    zero = torch.zeros((), dtype=blocks.dtype, device=dev)
+    out = blocks.clone()
+    first = is_first.bool()
+    active = active.bool()
+    vs, taus = [], []
+    for i in range(fuse):
+        win = torch.where(valid, out[:, rows, (i * b_in + ww).expand(h, w)],
+                          zero)
+        new, p1, p2 = _chase_window(win, first & (i == 0), b_in=b_in, tw=tw)
+        new = torch.where(active[:, i, None, None], new, win)
+        out[:, rows[vy, vw], i * b_in + vw] = new[:, vy, vw]
+        v, t = _tape(p1, p2, blocks.dtype)
+        vs.append(v)
+        taus.append(t)
+    if with_tape:
+        return out, torch.stack(vs, 1), torch.stack(taus, 1)
+    return out

@@ -1,0 +1,88 @@
+"""Rules of the port: it imports neither JAX nor the reference package, its
+entry points run on the card unless the caller asks for the CPU, and a
+kernel backend never falls back to the CPU."""
+
+import ast
+import os
+import subprocess
+import sys
+from pathlib import Path
+
+import numpy as np
+import pytest
+import torch
+
+import repro_torch
+from repro_torch.kernels import ops
+
+torch.set_num_threads(2)
+
+REPO = Path(__file__).resolve().parents[1]
+PORT_FILES = sorted((REPO / "src" / "repro_torch").rglob("*.py")) + [
+    REPO / "chip_smoke.py"]
+
+
+def _imports(path: Path):
+    tree = ast.parse(path.read_text(), filename=str(path))
+    for node in ast.walk(tree):
+        if isinstance(node, ast.Import):
+            yield from (alias.name for alias in node.names)
+        elif isinstance(node, ast.ImportFrom) and node.module:
+            yield node.module
+
+
+@pytest.mark.parametrize("path", PORT_FILES,
+                         ids=lambda p: str(p.relative_to(REPO)))
+def test_port_imports_no_jax_and_no_reference(path):
+    for name in _imports(path):
+        top = name.split(".")[0]
+        assert top not in ("jax", "jaxlib", "repro"), (path, name)
+
+
+def test_import_leaves_jax_out():
+    mods = ["repro_torch", "repro_torch.convert", "repro_torch.core.band",
+            "repro_torch.core.householder", "repro_torch.core.tuning",
+            "repro_torch.core.bulge_chasing", "repro_torch.core.bidiag_svd",
+            "repro_torch.core.svd", "repro_torch.kernels.ops",
+            "repro_torch.kernels.ref", "repro_torch.kernels.bulge_chase",
+            "repro_torch.kernels.bisect", "repro_torch.kernels._build"]
+    code = ("import importlib, sys\n"
+            f"for m in {mods!r}: importlib.import_module(m)\n"
+            "bad = [m for m in sys.modules if m.split('.')[0] in "
+            "('jax', 'jaxlib', 'repro')]\n"
+            "assert not bad, bad\n")
+    env = dict(os.environ, PYTHONPATH=str(REPO / "src"))
+    res = subprocess.run([sys.executable, "-c", code], env=env,
+                         capture_output=True, text=True, timeout=120)
+    assert res.returncode == 0, res.stderr
+
+
+def test_entry_point_defaults_to_the_card():
+    a = np.triu(np.random.default_rng(0).standard_normal((12, 12)))
+    a = a - np.triu(a, 4)
+    if torch.cuda.is_available():
+        assert repro_torch.banded_singular_values(a, bw=3).device.type == \
+            "cuda"
+        return
+    with pytest.raises(RuntimeError, match="device='cpu'"):
+        repro_torch.banded_singular_values(a, bw=3)
+    with pytest.raises(RuntimeError, match="device='cpu'"):
+        repro_torch.bidiagonal_of(a, bw=3)
+    assert repro_torch.PipelineConfig.resolve(bw=3).device == "cuda"
+    assert repro_torch.PipelineConfig.resolve(bw=3).backend == "cuda"
+    sig = repro_torch.banded_singular_values(a, bw=3, device="cpu")
+    assert sig.device.type == "cpu"
+
+
+def test_cuda_backend_on_cpu_tensor_raises():
+    with pytest.raises(ValueError, match="CUDA"):
+        ops.resolve_backend("cuda", "cpu")
+    with pytest.raises(ValueError, match="CUDA"):
+        ops.sturm_bisect(torch.zeros(1, 3, dtype=torch.float64),
+                         torch.ones(1, dtype=torch.float64), n=2,
+                         max_iter=4, backend="cuda")
+    with pytest.raises(ValueError, match="CUDA"):
+        repro_torch.PipelineConfig.resolve(bw=4, backend="cuda",
+                                           device="cpu")
+    assert ops.resolve_backend("auto", "cpu") == "ref"
+    assert ops.resolve_backend("auto", "cuda") == "cuda"
