@@ -5,12 +5,16 @@
 
 Builds the port's CUDA kernels from ``src/repro_torch/kernels/csrc`` (one
 ``nvcc`` per source, all at once), holds each kernel against its plain
-PyTorch version on the card, then drives ``banded_singular_values`` (a
-banded matrix to its singular values) at fuse=1 and fuse=4, and checks the
-results against ``torch.linalg.svdvals`` of the dense matrix, which serves
-here only as a yardstick.  Every phase prints one JSON line; the line before
-the last two is the ``kernels`` summary, then the card's name and power
-limit as ``nvidia-smi`` gives them, then ``{"ok": true, "device": ...}``.
+PyTorch version on the card at every shape the main path launches it with,
+then drives the main path: ``banded_singular_values`` (a banded matrix to
+its singular values) at fuse=1 and fuse=4, ``singular_values`` and ``svd``
+of a dense fp64 matrix at n = 4096 (U, sigma, V^T, timed part by part), and
+``svd_batched(..., compute_uv=True)`` on 16 fp32 matrices.  Results are
+checked against ``torch.linalg.svdvals``, which serves here only as a
+yardstick, and U and V^T by reconstruction and orthogonality.  Every phase
+prints one JSON line; the line before the last two is the ``kernels``
+summary, then the card's name and power limit as ``nvidia-smi`` gives them,
+then ``{"ok": true, "device": ...}``.
 
 Exits non-zero, with no result line, when there is no CUDA device, when the
 port's package is not next to this script, or when any phase fails.
@@ -19,6 +23,7 @@ port's package is not next to this script, or when any phase fails.
 from __future__ import annotations
 
 import argparse
+import contextlib
 import json
 import math
 import subprocess
@@ -31,12 +36,23 @@ ROOT = Path(__file__).resolve().parent
 # (b_in, tw, G) of the reference's kernel tests (tests/test_kernels.py)
 CHASE_SHAPES = [(4, 2, 3), (6, 2, 4), (8, 3, 5), (12, 4, 3), (16, 8, 2),
                 (32, 8, 2), (5, 4, 6), (2, 1, 8)]
+# (m, k, w) of the reference's compact-WY tests (tests/test_kernels.py)
+WY_SHAPES = [(64, 8, 100), (128, 16, 64), (33, 4, 7), (256, 32, 512),
+             (16, 1, 5)]
 TOLS = {"float64": 1e-12, "float32": 3e-5, "bfloat16": 8e-2}
+# the compact-WY apply at bf16: kernel and plain version both accumulate in
+# fp32 and round once at the store, so about one bf16 ulp of the scale
+# (at most 2**-7), whatever k; fp64 and fp32 take TOLS times max(1, k // 4)
+WY_TOL_BF16 = 1e-2
 STURM_TOLS = {"float64": 1e-13, "float32": 1e-5}
 STURM_CHECK_STEPS = 3       # bisection steps of the main-path-shape checks
 HBM_BYTES_PER_S = 3.35e12          # H100 SXM data sheet
 PEAK_FLOPS = {"float64": 34e12, "float32": 67e12, "bfloat16": 67e12}
 # bf16 is computed in fp32 units, outside the tensor cores
+# matrix products (the compact-WY apply): fp64 on the tensor cores, 67
+# TFLOP/s; fp32 at fp32 precision has no tensor-core route (TF32 is not
+# fp32), 67 TFLOP/s; bf16 with fp32 sums on the tensor cores, 989 TFLOP/s
+PEAK_MATMUL_FLOPS = {"float64": 67e12, "float32": 67e12, "bfloat16": 989e12}
 
 
 class PhaseFailed(RuntimeError):
@@ -178,6 +194,97 @@ def main_path_shapes(bc, runs):
     return (sorted(set(cycle)), sorted(set(superstep)), sorted(set(sturm)))
 
 
+def tape_apply_shapes(bc, runs):
+    """(S, m, k, w, dtype) of every ``tape_apply`` launch of the full-SVD
+    runs ``(lead, n, cfg, dense)``: the stage-1 QR trailing update
+    (B, big, nb, big) and the stage-1 replay (B, n, nb, n) of a dense input,
+    and each chase stage's replay (B*G*K, tw+1, 1, n)."""
+    shapes = set()
+    for lead, n, cfg, dense in runs:
+        b = math.prod(lead)
+        if dense:
+            big = (max(1, -(-(n - 1) // cfg.bw)) + 2) * cfg.bw
+            shapes.add((b, big, cfg.bw, big, cfg.dtype))
+            shapes.add((b, n, cfg.bw, n, cfg.dtype))
+        for b_in, tw in cfg.plan:
+            g = bc.stage_schedule(n, b_in, tw, cfg.fuse)[2]
+            shapes.add((b * g * cfg.fuse, tw + 1, 1, n, cfg.dtype))
+    return sorted(shapes)
+
+
+def wy_inputs(torch, s, m, k, w, dtype, rng, orthogonal=False):
+    """V (unit lower trapezoidal), T and C of a compact-WY apply, made from
+    ``rng`` on the card.  ``orthogonal``: T from Householder taus, so that
+    I - V T V^T is orthogonal and repeated applies stay bounded (timing);
+    else T upper triangular times 0.2, as the reference's kernel test."""
+    import numpy as np
+
+    from repro_torch.core import stage1
+    v = np.tril(rng.standard_normal((s, m, k)), -1)
+    v[:, np.arange(k), np.arange(k)] = 1.0
+    v = torch.from_numpy(v).cuda()
+    if orthogonal:
+        taus = 2.0 / (v * v).sum(1)
+        t = stage1.wy_t_factor(v, taus)
+    else:
+        t = torch.from_numpy(np.triu(rng.standard_normal((s, k, k))) * 0.2
+                             ).cuda()
+    c = torch.from_numpy(rng.standard_normal((s, m, w))).cuda()
+    return v.to(dtype), t.to(dtype), c.to(dtype)
+
+
+def wy_tol(dname: str, k: int) -> float:
+    return WY_TOL_BF16 if dname == "bfloat16" else TOLS[dname] * max(1, k // 4)
+
+
+def tape_bound(s, m, k, w, dtype, itemsize):
+    """V, T, C read once and C written once; 4*m*k*w + 2*k*k*w flops per
+    slot (the three products and the subtraction), at the card's peak for
+    matrix products of the type."""
+    nbytes = (s * m * k + s * k * k + 2 * s * m * w) * itemsize
+    flops = s * (4 * m * k * w + 2 * k * k * w)
+    t_bytes = nbytes / HBM_BYTES_PER_S
+    t_ops = flops / PEAK_MATMUL_FLOPS[dtype]
+    return (max(t_bytes, t_ops) * 1e3,
+            "bytes" if t_bytes >= t_ops else "operations", nbytes, flops)
+
+
+@contextlib.contextmanager
+def timed_parts(torch, parts):
+    """While open, each function ``getattr(module, name)`` of ``parts``
+    (label -> (module, name)) runs between CUDA events and ends in a
+    synchronise, so the host clock covers that part alone.  Yields the dict
+    label -> {"device_ms", "wall_s"} that the calls fill.
+
+    ``core/svd.py``'s pipeline calls its parts through these module
+    attributes.  torch.profiler would name the parts too, but a full SVD
+    at n = 4096 runs millions of ops, whose trace takes minutes to parse."""
+    out, saved = {}, []
+
+    def timed(label, fn):
+        def call(*a, **kw):
+            start = torch.cuda.Event(enable_timing=True)
+            end = torch.cuda.Event(enable_timing=True)
+            t0 = time.perf_counter()
+            start.record()
+            res = fn(*a, **kw)
+            end.record()
+            torch.cuda.synchronize()
+            out[label] = {"device_ms": start.elapsed_time(end),
+                          "wall_s": time.perf_counter() - t0}
+            return res
+        return call
+
+    try:
+        for label, (mod, name) in parts.items():
+            saved.append((mod, name, getattr(mod, name)))
+            setattr(mod, name, timed(label, saved[-1][2]))
+        yield out
+    finally:
+        for mod, name, fn in saved:
+            setattr(mod, name, fn)
+
+
 def banded_matrix(torch, lead, n, bw, dtype, gen):
     """Random upper-banded (lead..., n, n) matrix on the card."""
     a = torch.zeros(tuple(lead) + (n, n), dtype=torch.float64, device="cuda")
@@ -199,7 +306,8 @@ def run(args, torch) -> int:
     from repro_torch.core import bulge_chasing as bc
     from repro_torch.core import svd as tsvd
     from repro_torch.core.tuning import PipelineConfig
-    from repro_torch.kernels import _build, bisect, bulge_chase, ops, ref
+    from repro_torch.kernels import (_build, bisect, bulge_chase, hh_apply,
+                                     ops, ref)
 
     torch.backends.cuda.matmul.allow_tf32 = False
     torch.backends.cudnn.allow_tf32 = False
@@ -237,10 +345,16 @@ def run(args, torch) -> int:
     c1 = PipelineConfig.resolve(bw=bw4, dtype=f32, n=n4, fuse=1)
     c4 = PipelineConfig.resolve(bw=bw4, dtype=f32, n=n4, fuse=4)
     c5 = PipelineConfig.resolve(bw=bw5, dtype=f64, n=n5)
+    nd, bwd = 4096, 64                    # dense fp64 full SVD, tw = 16
+    b7, n7, bw7 = 16, 512, 32             # batched fp32 full SVD
+    cd = PipelineConfig.resolve(bw=bwd, dtype=f64, n=nd, fuse=4)
+    c7 = PipelineConfig.resolve(bw=bw7, dtype=f32, n=n7, fuse=4)
     tw4 = c1.tw
     runs = [((), n3, cfg1), ((), n3, cfg4), ((), n3, cfg32), ((), n4, c1),
-            ((), n4, c4), ((b5,), n5, c5)]
+            ((), n4, c4), ((b5,), n5, c5), ((), nd, cd), ((b7,), n7, c7)]
     main_cycle, main_super, main_sturm = main_path_shapes(bc, runs)
+    main_tape = tape_apply_shapes(bc, [((), nd, cd, True),
+                                       ((b7,), n7, c7, True)])
 
     # ---- 2. kernels against their plain versions ------------------------
     # The reference's test shapes in every dtype and K in {2, 4}; every
@@ -256,7 +370,7 @@ def run(args, torch) -> int:
                            for d in TOLS} | {
         s[:4] + (d,) for s in main_super for d in TOLS})
     worst = {"chase_cycle_cuda": 0.0, "chase_superstep_cuda": 0.0,
-             "sturm_bisect_cuda": 0.0}
+             "sturm_bisect_cuda": 0.0, "tape_apply_cuda": 0.0}
     main_err = dict.fromkeys(worst, 0.0)
     n_cmp = 0
 
@@ -320,16 +434,43 @@ def run(args, torch) -> int:
         torch.cuda.synchronize()
         compare("sturm_bisect_cuda", [got], [want], STURM_TOLS[dname],
                 (b, n, dname, iters), main)
+    # the compact-WY apply: the reference's shapes (one slot and five) and
+    # every main-path shape, each in fp64, fp32 and bf16 (tolerance:
+    # wy_tol)
+    tape_cases = sorted({(sl, m, k, w, d) for m, k, w in WY_SHAPES
+                         for sl in (1, 5) for d in TOLS} | {
+        sh[:4] + (d,) for sh in main_tape for d in TOLS})
+    for sl, m, k, w, dname in tape_cases:
+        v, t, c = wy_inputs(torch, sl, m, k, w, dtypes[dname], rng)
+        want = ref.tape_apply_ref(v, t, c)
+        got = hh_apply.tape_apply_cuda(v, t, c.clone())
+        torch.cuda.synchronize()
+        key = (sl, m, k, w, dname)
+        compare("tape_apply_cuda", [got], [want], wy_tol(dname, k), key,
+                key in main_tape)
+        del v, t, c, want, got
+    one = wy_inputs(torch, 1, 64, 8, 100, f64, rng)
+    got = hh_apply.hh_block_apply_cuda(one[0][0], one[1][0],
+                                       one[2][0].clone())
+    torch.cuda.synchronize()
+    compare("tape_apply_cuda", [got],
+            [ref.hh_block_apply_ref(one[0][0], one[1][0], one[2][0])],
+            TOLS["float64"] * 2, "hh_block_apply (64, 8, 100)", False)
     emit({"phase": "kernels_vs_plain", "ok": True, "comparisons": n_cmp,
           "main_path_shapes": {
               "chase_cycle_cuda (b_in, tw, slots, dtype)": main_cycle,
               "chase_superstep_cuda (b_in, tw, slots, K, dtype)": main_super,
-              "sturm_bisect_cuda (B, n, dtype)": main_sturm},
+              "sturm_bisect_cuda (B, n, dtype)": main_sturm,
+              "tape_apply_cuda (S, m, k, w, dtype)": main_tape},
+          "tape_apply_cases": len(tape_cases),
           "sturm_steps_at_main_path_shapes": STURM_CHECK_STEPS,
           "worst_err_over_tol": {k: round(v, 6) for k, v in worst.items()},
           "main_path_max_abs_err": main_err,
           "tolerances": {"chase fp64/fp32/bf16": [1e-12, 3e-5, 8e-2],
                          "sturm fp64/fp32": [1e-13, 1e-5],
+                         "tape_apply fp64/fp32": "chase's, times "
+                                                 "max(1, k // 4)",
+                         "tape_apply bf16": WY_TOL_BF16,
                          "scale": "max(1, max|plain|)"}})
 
     # ---- per-kernel times at the main path's shapes ----------------------
@@ -390,6 +531,28 @@ def run(args, torch) -> int:
         f"B=1, n={n_s} fp64, 60 steps",
         sturm_bound(1, n_s, 60, "float64", 8),
         library=lambda: torch.linalg.svdvals(dense_b))
+    # the compact-WY apply at the stage-1 panel shape and at the last chase
+    # stage's replay shape of the dense run; I - V T V^T is orthogonal
+    # here, so the repeated in-place applies stay bounded.  The library
+    # yardstick is the same function as a PyTorch user writes it, three
+    # cuBLAS products (the subtraction fused into the last)
+    big_d = (max(1, -(-(nd - 1) // bwd)) + 2) * bwd
+    b_last, tw_last = cd.plan[-1]
+    s_last = bc.stage_schedule(nd, b_last, tw_last, cd.fuse)[2] * cd.fuse
+    tape_timed = [(1, big_d, bwd, big_d, 20, 3),
+                  (s_last, tw_last + 1, 1, nd, 200, 20)]
+    for i, (sl, m, k, w, iters, plain_iters) in enumerate(tape_timed):
+        v, t, c = wy_inputs(torch, sl, m, k, w, f64, rng, orthogonal=True)
+        name = "tape_apply_cuda" if i == 0 else "tape_apply_cuda (replay)"
+        time_kernel(
+            name, "tape_apply_kernel",
+            lambda v=v, t=t, c=c: hh_apply.tape_apply_cuda(v, t, c),
+            lambda v=v, t=t, c=c: ref.tape_apply_ref(v, t, c), iters,
+            plain_iters, f"S={sl}, m={m}, k={k}, w={w} fp64",
+            tape_bound(sl, m, k, w, "float64", 8),
+            library=lambda v=v, t=t, c=c: torch.baddbmm(
+                c, v, torch.bmm(t, torch.bmm(v.mT, c)), alpha=-1))
+        del v, t, c
     emit({"phase": "kernel_times", "ok": True, "card": smi_line,
           "kernels": {k: {kk: (vv if kk != "bound" else
                                {"ms": vv[0], "by": vv[1], "bytes": vv[2],
@@ -515,6 +678,79 @@ def run(args, torch) -> int:
           "max_err_over_sigma_max": err5, "tol": 1e-10, "runs": [q5]})
     check(ok5, "phase 5: batched sigma off the yardstick")
 
+    # ---- 6. dense fp64 n = 4096: singular values, then the full SVD -----
+    full_path = ["chase_superstep_cuda", "sturm_bisect_cuda",
+                 "tape_apply_cuda"]
+    ad = torch.randn((nd, nd), generator=gen, dtype=f64, device="cuda")
+    sig_d, rv = drive("fp64 n=4096 fuse=4 singular_values",
+                      lambda: tsvd.singular_values(ad, config=cd), full_path)
+    svd_parts = {"stage1": (tsvd.s1, "band_reduce"),
+                 "stage2": (tsvd.bc, "bidiagonalize"),
+                 "replay": (tsvd.transforms, "accumulate_transforms"),
+                 "stage3_values": (tsvd.s3, "bidiag_singular_values"),
+                 "stage3_vectors": (tsvd.s3, "bidiag_vectors")}
+    with timed_parts(torch, svd_parts) as parts:
+        (ud, sd, vtd), ru = drive("fp64 n=4096 fuse=4 svd",
+                                  lambda: tsvd.svd(ad, config=cd), full_path)
+    # the compose (two products) and the entry point's own work
+    parts["compose_and_rest"] = {"wall_s": ru["wall_s"] - sum(
+        p["wall_s"] for p in parts.values())}
+    svd_d = torch.linalg.svdvals(ad)
+    smax_d = float(svd_d.max())
+    err_d = float((sig_d - svd_d).abs().max())
+    bits_d = float((sd - sig_d).abs().max())
+    eye = torch.eye(nd, dtype=f64, device="cuda")
+    recon_d = float(torch.linalg.norm(ad - (ud * sd) @ vtd)
+                    / torch.linalg.norm(ad))
+    orth_ud = float((ud.mT @ ud - eye).abs().max())
+    orth_vd = float((vtd @ vtd.mT - eye).abs().max())
+    tol_rec_d = 50 * nd * torch.finfo(f64).eps
+    ok_d = (err_d <= 1e-10 * smax_d and bits_d == 0.0
+            and torch.equal(sd, sig_d) and recon_d <= tol_rec_d
+            and orth_ud <= 1e-9 and orth_vd <= 1e-9)
+    emit({"phase": "dense_fp64_n4096", "ok": ok_d, "n": nd, "bw": bwd,
+          "tw": cd.tw, "fuse": cd.fuse, "plan": list(cd.plan),
+          "supercycles_per_stage": [bc.stage_schedule(nd, b, t, cd.fuse)[1]
+                                    for b, t in cd.plan],
+          "sigma_max": smax_d, "err_vs_svdvals": err_d,
+          "tol_vs_svdvals": 1e-10 * smax_d,
+          "svd_vs_singular_values_max_abs": bits_d,
+          "recon_rel_fro": recon_d, "tol_recon": tol_rec_d,
+          "orth_u": orth_ud, "orth_v": orth_vd, "tol_orth": 1e-9,
+          "svd_parts": parts,
+          "stage3_vectors_share_of_svd": (parts["stage3_vectors"]["wall_s"]
+                                          / ru["wall_s"]),
+          "runs": [rv, ru]})
+    check(ok_d, "phase 6: dense fp64 full SVD off its bounds, or sigma not "
+          "bit-identical to the values path")
+    del ad, ud, vtd, eye
+
+    # ---- 7. batched fp32 full SVD, B = 16, n = 512, bw = 32 -------------
+    a7 = torch.randn((b7, n7, n7), generator=gen, dtype=f32, device="cuda")
+    (u7, s7, vt7), r7 = drive(
+        "fp32 B=16 n=512 fuse=4 svd_batched(compute_uv=True)",
+        lambda: tsvd.svd_batched(a7, c7, compute_uv=True), full_path)
+    a7d = a7.double()
+    sv7 = torch.linalg.svdvals(a7d)
+    err7 = float(((s7.double() - sv7).abs().amax(-1) / sv7.amax(-1)).max())
+    res7 = (a7d - (u7.double() * s7.double()[..., None, :]) @ vt7.double())
+    recon7 = float((torch.linalg.norm(res7, dim=(-2, -1))
+                    / torch.linalg.norm(a7d, dim=(-2, -1))).max())
+    eye7 = torch.eye(n7, dtype=f64, device="cuda")
+    orth_u7 = float((u7.double().mT @ u7.double() - eye7).abs().max())
+    orth_v7 = float((vt7.double() @ vt7.double().mT - eye7).abs().max())
+    tol_rec7 = 50 * n7 * torch.finfo(f32).eps
+    ok7 = (tuple(u7.shape) == (b7, n7, n7) and err7 <= 2e-4
+           and recon7 <= tol_rec7 and orth_u7 <= 5e-3 and orth_v7 <= 5e-3)
+    emit({"phase": "batched_fp32_B16_n512", "ok": ok7, "B": b7, "n": n7,
+          "bw": bw7, "tw": c7.tw, "fuse": c7.fuse,
+          "max_err_over_sigma_max": err7, "tol_sigma": 2e-4,
+          "max_recon_rel_fro": recon7, "tol_recon": tol_rec7,
+          "orth_u": orth_u7, "orth_v": orth_v7, "tol_orth": 5e-3,
+          "runs": [r7]})
+    check(ok7, "phase 7: batched fp32 full SVD off its bounds")
+    del a7, a7d, u7, vt7, res7
+
     # ---- where stage 2's time goes: torch.profiler over one stage ------
     from torch.profiler import ProfilerActivity, profile
 
@@ -566,14 +802,18 @@ def run(args, torch) -> int:
     # ---- summary ---------------------------------------------------------
     sources = {"chase_cycle_cuda": "src/repro_torch/kernels/csrc/chase.cu",
                "chase_superstep_cuda": "src/repro_torch/kernels/csrc/chase.cu",
-               "sturm_bisect_cuda": "src/repro_torch/kernels/csrc/sturm.cu"}
+               "sturm_bisect_cuda": "src/repro_torch/kernels/csrc/sturm.cu",
+               "tape_apply_cuda": "src/repro_torch/kernels/csrc/hh_apply.cu"}
     replaces = {
         "chase_cycle_cuda": "src/repro/kernels/bulge_chase.py:126",
         "chase_superstep_cuda": "src/repro/kernels/bulge_chase.py:225",
         "sturm_bisect_cuda": "src/repro/core/bidiag_svd.py:97 (jnp "
-                             "fori_loop; no pallas_call)"}
+                             "fori_loop; no pallas_call)",
+        "tape_apply_cuda": "src/repro/kernels/hh_apply.py:56 (and "
+                           "hh_block_apply_pallas :33)"}
     kernels = []
-    for name, t in timing.items():
+    for name in sources:
+        t = timing[name]
         bound = t["bound"]
         row = {"name": name, "route": "cuda", "source": sources[name],
                "replaces": replaces[name], "launches": main_counts[name],
@@ -587,6 +827,14 @@ def run(args, torch) -> int:
             row.update(main_path_ms=t["main_path_ms"],
                        main_path_shape=t["main_path_shape"],
                        main_path_bound_ms=t["main_path_bound"][0])
+        second = timing.get(f"{name} (replay)")
+        if second is not None:
+            row["replay_shape"] = {
+                "shape": second["shape"], "ms": second["ms"],
+                "ms_from": second["ms_from"], "plain_ms": second["plain_ms"],
+                "library_ms": second["library_ms"],
+                "bound_ms": second["bound"][0],
+                "bound_by": second["bound"][1]}
         kernels.append(row)
     check(all(k["launches"] > 0 for k in kernels),
           "a kernel of the main path was never launched")

@@ -7,8 +7,13 @@ kernels run.
 """
 
 from repro_torch.core.svd import (NumericalFault, banded_singular_values,
-                                  bidiagonal_of, validate_sigma)
+                                  banded_svd, batched_singular_values,
+                                  bidiagonal_of, singular_values,
+                                  spot_check_svd, svd, svd_batched,
+                                  validate_sigma, validate_uv)
 from repro_torch.core.tuning import PipelineConfig
 
-__all__ = ["banded_singular_values", "bidiagonal_of", "validate_sigma",
+__all__ = ["singular_values", "batched_singular_values", "svd_batched",
+           "svd", "banded_svd", "banded_singular_values", "bidiagonal_of",
+           "validate_sigma", "validate_uv", "spot_check_svd",
            "NumericalFault", "PipelineConfig"]

@@ -10,6 +10,13 @@ recurrence and bisecting gives every sigma independently.
 bisection to ``ops.sturm_bisect``: the CUDA kernel ``csrc/sturm.cu`` on the
 card, the plain version ``bisect_plain`` (built on ``sturm_count``) on the
 CPU or under ``backend="ref"``.
+
+Singular vectors (``bidiag_svd``, ``bidiag_vectors``) come from inverse
+iteration on the Golub–Kahan tridiagonal at each sigma, then cluster
+reorthogonalization and left/right re-pairing, as in the reference.  They
+are plain torch, batched over all (matrix, sigma) pairs: the recurrences
+are loops of 2n dependent steps, and the reorthogonalization a loop over
+the n values.
 """
 
 from __future__ import annotations
@@ -20,7 +27,7 @@ from repro_torch.core.householder import acc_dtype
 
 __all__ = ["default_bisect_iters", "gk_offdiag", "sturm_count",
            "bisect_plain", "gk_problem", "bidiag_singular_values",
-           "bidiag_singular_values_plain"]
+           "bidiag_singular_values_plain", "bidiag_vectors", "bidiag_svd"]
 
 
 def default_bisect_iters(acc: torch.dtype) -> int:
@@ -134,3 +141,174 @@ def bidiag_singular_values_plain(d: torch.Tensor, e: torch.Tensor, *,
                                  max_iter: int | None = None) -> torch.Tensor:
     """``bidiag_singular_values`` through the plain version, on any device."""
     return bidiag_singular_values(d, e, max_iter=max_iter, backend="ref")
+
+
+# ---------------------------------------------------------------------------
+# Singular vectors: inverse iteration on the Golub–Kahan tridiagonal
+# ---------------------------------------------------------------------------
+
+def _tridiag_solve(z: torch.Tensor, lam: torch.Tensor,
+                   b: torch.Tensor) -> torch.Tensor:
+    """Solve ``(T - lam I) x = b`` for every shift at once: T the
+    zero-diagonal tridiagonal with off-diagonal ``z`` (B, m-1), ``lam``
+    (B, n) shifts, ``b`` (B, n, m) right-hand sides; returns x (B, n, m).
+
+    Thomas elimination with pivots guarded away from zero: near-singular
+    shifts are the point of inverse iteration (the guarded solve just
+    scales the eigen-direction up)."""
+    m = z.shape[-1] + 1
+    eps = torch.finfo(z.dtype).eps
+    tiny = (eps * z.abs().amax(-1).clamp(min=1))[:, None]        # (B, 1)
+
+    def guard(p):
+        return torch.where(p.abs() < tiny, torch.where(p < 0, -tiny, tiny), p)
+
+    ys = b.new_empty((m,) + lam.shape)
+    cs = b.new_empty((m - 1,) + lam.shape)
+    piv = guard(-lam)
+    y = b[..., 0] / piv
+    ys[0] = y
+    for i in range(1, m):
+        z_im1 = z[:, i - 1, None]
+        c = z_im1 / piv                         # elimination multiplier
+        piv = guard(-lam - z_im1 * c)
+        y = (b[..., i] - z_im1 * y) / piv
+        ys[i] = y
+        cs[i - 1] = c
+    xs = torch.empty_like(ys)
+    x = ys[m - 1]
+    xs[m - 1] = x
+    for i in range(m - 2, -1, -1):
+        x = ys[i] - cs[i] * x
+        xs[i] = x
+    return xs.permute(1, 2, 0)
+
+
+def _orthonormalize_pairs(us: torch.Tensor, vs: torch.Tensor,
+                          sig: torch.Tensor, dd: torch.Tensor,
+                          ee: torch.Tensor):
+    """Cluster reorthogonalization and left/right re-pairing (cf. LAPACK
+    stein), batched over B bidiagonals; rows of us / vs (B, n, n) are the
+    vectors, sig (B, n) descending.
+
+    In order of k: v_k minus its projections on the earlier v_j whose sigma
+    lies in its cluster (width 1e-3 relative), renormalized; then
+    ``u_k = B v_k / ||B v_k||``, exact for a true right vector and sign-
+    aligned (u^T B v > 0).  For sigma ~ 0 that identity degenerates, so the
+    zero cluster orthogonalizes the u's directly.  The reference masks a
+    dense projection onto all earlier rows; here it runs over the rows from
+    the cluster's first member to k - 1 only (the rows the mask keeps, and
+    no projection at all for a lone value), which subtracts the same
+    terms."""
+    acc = vs.dtype
+    B, n = sig.shape
+    eps = torch.finfo(acc).eps
+    tiny = torch.finfo(acc).tiny
+    scale = sig[:, 0].clamp(min=1)
+    ctol = (1e-3 * scale)[:, None]            # cluster width (relative)
+    stol = torch.sqrt(torch.tensor(eps, dtype=acc)) * scale  # zero cluster
+    in_cluster = (sig[:, :, None] - sig[:, None, :]) < ctol[..., None]
+    # first j (<= k) whose sigma lies in k's cluster, over the batch
+    starts = in_cluster.int().argmax(1).amin(0).tolist()
+    eye = torch.eye(n, dtype=acc, device=sig.device)
+
+    def mgs(k, rows, vec):
+        """vec minus its projections on the earlier same-cluster rows,
+        renormalized; an orthogonalized one-hot when it collapses."""
+        j0 = starts[k]
+        if j0 >= k:
+            w1, w2 = vec, eye[k].expand_as(vec)
+        else:
+            blk = rows[:, j0:k]                                   # (B, r, n)
+            mask = in_cluster[:, j0:k, k].to(acc)                 # (B, r)
+
+            def clean(w):
+                proj = mask * (blk @ w[..., None])[..., 0]
+                return w - (proj[:, None, :] @ blk)[:, 0]
+
+            w1, w2 = clean(vec), clean(eye[k].expand_as(vec))
+        n1 = torch.linalg.vector_norm(w1, dim=-1, keepdim=True)
+        n2 = torch.linalg.vector_norm(w2, dim=-1, keepdim=True)
+        return torch.where(n1 > 0.01, w1 / n1.clamp(min=tiny),
+                           w2 / n2.clamp(min=tiny))
+
+    for k in range(n):
+        v = mgs(k, vs, vs[:, k])
+        bv = dd * v + torch.nn.functional.pad(ee[:, 1:] * v[:, 1:], (0, 1))
+        nbv = torch.linalg.vector_norm(bv, dim=-1, keepdim=True)
+        u_zero = mgs(k, us, us[:, k])
+        us[:, k] = torch.where((sig[:, k] > stol)[:, None],
+                               bv / nbv.clamp(min=tiny), u_zero)
+        vs[:, k] = v
+    return us, vs
+
+
+def _vectors_from_sigma(d: torch.Tensor, e: torch.Tensor, sig: torch.Tensor,
+                        *, inv_iters: int = 2):
+    """(U, V^T) of the bidiagonals (d, e) (B, n), n >= 2, given their
+    singular values ``sig`` (B, n), descending: ``inv_iters`` rounds of
+    inverse iteration on the Golub–Kahan tridiagonal at each sigma, whose
+    eigenvector interleaves (v, u), then :func:`_orthonormalize_pairs`."""
+    B, n = d.shape
+    dt = d.dtype
+    acc = acc_dtype(dt)
+    z = gk_offdiag(d.to(acc), e.to(acc))
+    sc = _gk_prescale(z)
+    z = z / sc[:, None]
+    m = 2 * n
+    dd = d.to(acc)
+    ee = e.to(acc)
+    # deterministic, k-dependent start: decorrelates degenerate clusters
+    t = torch.arange(1, m + 1, dtype=acc, device=d.device)
+    kk = torch.arange(n, dtype=acc, device=d.device)
+    b0 = torch.sin(t * (kk[:, None] + 1) * 0.7) + 0.01                # (n, m)
+    x = (b0 / torch.linalg.vector_norm(b0, dim=-1, keepdim=True)).expand(
+        B, n, m)
+    lam = sig.to(acc) / sc[:, None]
+    tiny = torch.finfo(acc).tiny
+    for _ in range(inv_iters):
+        x = _tridiag_solve(z, lam, x)
+        x = x / torch.linalg.vector_norm(x, dim=-1, keepdim=True).clamp(
+            min=tiny)
+    v = x[..., 0::2]
+    u = x[..., 1::2]
+    nv = torch.linalg.vector_norm(v, dim=-1, keepdim=True)
+    nu = torch.linalg.vector_norm(u, dim=-1, keepdim=True)
+    ok = torch.minimum(nv, nu) > 1e-6
+    onehot = torch.eye(n, dtype=acc, device=d.device)
+    one = torch.ones((), dtype=acc, device=d.device)
+    v = torch.where(ok, v / torch.where(ok, nv, one), onehot)
+    u = torch.where(ok, u / torch.where(ok, nu, one), onehot)
+    us, vs = _orthonormalize_pairs(u.contiguous(), v.contiguous(),
+                                   sig.to(acc), dd, ee)
+    return us.transpose(-1, -2).to(dt), vs.to(dt)
+
+
+def bidiag_vectors(d: torch.Tensor, e: torch.Tensor, sig: torch.Tensor, *,
+                   inv_iters: int = 2):
+    """(U, V^T), each (..., n, n), of the bidiagonals (d, e) (..., n) given
+    their singular values ``sig`` (..., n), descending."""
+    lead = d.shape[:-1]
+    n = d.shape[-1]
+    if n == 1:
+        # 1x1: d = u * sigma * v with u = 1, v = sign(d)
+        one = torch.ones((), dtype=d.dtype, device=d.device)
+        sgn = torch.where(d < 0, -one, one)
+        return torch.ones(lead + (1, 1), dtype=d.dtype,
+                          device=d.device), sgn[..., None]
+    u, vt = _vectors_from_sigma(d.reshape(-1, n), e.reshape(-1, n),
+                                sig.reshape(-1, n), inv_iters=inv_iters)
+    return u.reshape(lead + (n, n)), vt.reshape(lead + (n, n))
+
+
+def bidiag_svd(d: torch.Tensor, e: torch.Tensor, *,
+               max_iter: int | None = None, inv_iters: int = 2,
+               backend: str = "auto"):
+    """Full SVD of the upper bidiagonals (d, e) (..., n): (U, sigma, V^T).
+
+    sigma comes from the same :func:`bidiag_singular_values` call as the
+    values path, so it is bit-identical to it; the vectors come from
+    :func:`bidiag_vectors`."""
+    sig = bidiag_singular_values(d, e, max_iter=max_iter, backend=backend)
+    u, vt = bidiag_vectors(d, e, sig, inv_iters=inv_iters)
+    return u, sig, vt

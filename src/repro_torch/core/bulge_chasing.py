@@ -72,22 +72,20 @@ def _cycle_table(n: int, b_in: int, tw: int, fuse: int, T: int, G: int,
 
     Returns ``p_safe (T, G)``: each slot's first band column, pointing an
     inactive slot at its own all-zero dump zone (``n + WK + g*WK``);
-    ``first (T, B*G)``; and, fused, ``act (T, B*G, K)``, the live prefix of
-    each slot's K cycles."""
+    ``first (T, B*G)``; and ``live (T, G, K)``, the live prefix of each
+    slot's K cycles (K = 1 at fuse 1)."""
     wk = fuse * b_in + tw + 1
     t = torch.arange(T, device=device)[:, None]
     g = torch.arange(G, device=device)[None, :]
     _, _, p, on, first = chase_cycle_indices(t, g, n, b_in, tw, fuse)
     p_safe = torch.where(on, p, n + wk + g * wk)
-    act = None
-    if fuse > 1:
-        off = torch.arange(fuse, device=device) * b_in
-        act = (on[..., None] & (p[..., None] + off <= n - 1)).repeat(1, B, 1)
-    return p_safe, first.repeat(1, B), act
+    off = torch.arange(fuse, device=device) * b_in
+    live = on[..., None] & (p[..., None] + off <= n - 1)
+    return p_safe, first.repeat(1, B), live
 
 
-def _chase_loop(bandp: torch.Tensor, p_safe, first, act, *, b_in: int,
-                tw: int, fuse: int, backend: str, config) -> None:
+def _chase_loop(bandp: torch.Tensor, p_safe, first, live, *, b_in: int,
+                tw: int, fuse: int, backend: str, config, tape=None) -> None:
     """Run every (super-)cycle of one stage on the padded band, in place.
 
     The one place a cycle is launched: a CUDA graph or a persistent kernel
@@ -95,11 +93,27 @@ def _chase_loop(bandp: torch.Tensor, p_safe, first, act, *, b_in: int,
 
     Windows of inactive slots come from their dump zones, which are all
     zero; a zero window's reflectors have tau = 0, so the kernel leaves it
-    zero and writing it back changes nothing."""
+    zero and writing it back changes nothing.  ``tape``, when given, is the
+    pair of buffers ``(vs (B, T, G, K, 2, tw+1), taus (B, T, G, K, 2))``;
+    each cycle's reflectors are stored there, with tau set to 0 on inactive
+    slots and cycles, so that their replay is the identity.  The band
+    arithmetic is the same with and without it."""
     from repro_torch.kernels import ops
     B, H, _ = bandp.shape
     T, G = p_safe.shape
     dev = bandp.device
+    with_tape = tape is not None
+    zero = torch.zeros((), dtype=bandp.dtype, device=dev)
+
+    def record(t, res):
+        if with_tape:
+            _, vs, taus = res
+            tape[0][:, t] = vs.reshape(tape[0].shape[:1] + tape[0].shape[2:])
+            taus = taus.reshape(tape[1].shape[:1] + tape[1].shape[2:])
+            tape[1][:, t] = torch.where(live[t][None, :, :, None], taus, zero)
+            return res[0]
+        return res
+
     if fuse == 1:
         W = b_in + tw + 1
         yy = torch.arange(H, device=dev)[:, None]
@@ -113,34 +127,42 @@ def _chase_loop(bandp: torch.Tensor, p_safe, first, act, *, b_in: int,
         for t in range(T):
             p = p_safe[t]
             win = bandp[:, d_gather, p[:, None, None] + ww]       # (B,G,H,W)
-            out = ops.chase_cycle(win.reshape(B * G, H, W), first[t],
-                                  b_in=b_in, tw=tw, backend=backend,
-                                  config=config)
+            out = record(t, ops.chase_cycle(
+                win.reshape(B * G, H, W), first[t], b_in=b_in, tw=tw,
+                backend=backend, config=config, with_tape=with_tape))
             vals = out.reshape(B, G, H * W)[:, :, vcell]
             bandp[:, vd, p[:, None] + vw] = vals
         return
     WK = fuse * b_in + tw + 1
     rows = torch.arange(H, device=dev)[:, None]
     cc = torch.arange(WK, device=dev)
+    act = live.repeat(1, B, 1)                                   # (T,B*G,K)
     for t in range(T):
         cols = p_safe[t][:, None, None] + cc                     # (G,1,WK)
         blocks = bandp[:, rows, cols]                            # (B,G,H,WK)
-        out = ops.chase_cycle(blocks.reshape(B * G, H, WK), first[t],
-                              b_in=b_in, tw=tw, fuse=fuse, active=act[t],
-                              backend=backend, config=config)
+        out = record(t, ops.chase_cycle(
+            blocks.reshape(B * G, H, WK), first[t], b_in=b_in, tw=tw,
+            fuse=fuse, active=act[t], backend=backend, config=config,
+            with_tape=with_tape))
         bandp[:, rows, cols] = out.reshape(B, G, H, WK)
 
 
 def reduce_stage_packed(band: torch.Tensor, *, n: int, b_in: int, tw: int,
                         backend: str = "auto", config=None,
-                        fuse: int | None = None) -> torch.Tensor:
+                        fuse: int | None = None, tape: bool = False):
     """One SBR stage on packed storage (..., b_in + 2*tw + 1, >= n).
 
     Returns a new tensor of the same shape whose bandwidth is ``b_in - tw``.
     All B problems of a batch advance on one wavefront clock: each
     (super-)cycle is one kernel launch over B*G slots.  ``fuse=K`` chases K
     consecutive cycles per launch; the result does not depend on K.
-    Explicit ``backend=``/``fuse=`` win over ``config``."""
+    Explicit ``backend=``/``fuse=`` win over ``config``.
+
+    With ``tape=True`` returns ``(band, vs, taus)``, the stage's reflector
+    tape as the reference records it: ``vs (..., T, G, 2, tw+1)`` and
+    ``taus (..., T, G, 2)`` at fuse 1, ``(..., T, G, K, 2, tw+1)`` and
+    ``(..., T, G, K, 2)`` at fuse K, right reflector first, tau = 0 on
+    inactive slots and cycles.  The band is bit-identical either way."""
     if fuse is None:
         fuse = config.fuse if config is not None else 1
     fuse = max(int(fuse), 1)
@@ -152,28 +174,49 @@ def reduce_stage_packed(band: torch.Tensor, *, n: int, b_in: int, tw: int,
     lead = band.shape[:-2]
     ncols0 = band.shape[-1]
     band3 = band.reshape((-1, H, ncols0))
+    B = band3.shape[0]
     nsweeps, T, G = stage_schedule(n, b_in, tw, fuse)
+    pair = (G, 2) if fuse == 1 else (G, fuse, 2)
     if nsweeps == 0 or T == 0:
-        return band.clone()
+        if not tape:
+            return band.clone()
+        empty = band.new_zeros(lead + (0,) + pair + (tw + 1,))
+        return band.clone(), empty, band.new_zeros(lead + (0,) + pair)
     wk = fuse * b_in + tw + 1
     n_pad = n + wk + G * wk               # dump zones of the G slots at the end
     bandp = bandmod.pad_columns(band3, max(n_pad - ncols0, 0))
-    p_safe, first, act = _cycle_table(n, b_in, tw, fuse, T, G,
-                                      band3.shape[0], band.device)
-    _chase_loop(bandp, p_safe, first, act, b_in=b_in, tw=tw, fuse=fuse,
-                backend=backend, config=config)
-    return bandp[..., :ncols0].reshape(lead + (H, ncols0))
+    p_safe, first, live = _cycle_table(n, b_in, tw, fuse, T, G, B,
+                                       band.device)
+    bufs = None
+    if tape:
+        bufs = (band.new_empty((B, T, G, fuse, 2, tw + 1)),
+                band.new_empty((B, T, G, fuse, 2)))
+    _chase_loop(bandp, p_safe, first, live, b_in=b_in, tw=tw, fuse=fuse,
+                backend=backend, config=config, tape=bufs)
+    out = bandp[..., :ncols0].reshape(lead + (H, ncols0))
+    if not tape:
+        return out
+    return (out, bufs[0].reshape(lead + (T,) + pair + (tw + 1,)),
+            bufs[1].reshape(lead + (T,) + pair))
 
 
 def bidiagonalize_packed(band: torch.Tensor, *, n: int, bw: int, tw: int,
                          backend: str = "auto", config=None,
-                         fuse: int | None = None):
+                         fuse: int | None = None, tape: bool = False):
     """Full SBR bw -> 1 on packed storage; returns (diag, superdiag).
 
     ``band`` is packed with ``tw_0 = min(tw, bw-1)`` sub rows
     (``band.pack(a, bw, min(tw, bw-1))``).  Entering each stage (b_in, tw_i)
     of the plan the storage holds ``tw_i`` sub rows, the diagonal and
-    ``b_in + tw_i`` super rows; between stages it is re-sliced."""
+    ``b_in + tw_i`` super rows; between stages it is re-sliced.  With
+    ``tape=True`` returns ``(diag, superdiag, tapes)``, ``tapes`` a list of
+    :class:`repro_torch.core.transforms.ChaseTape`, one per stage, in
+    order."""
+    if tape:
+        from repro_torch.core import transforms   # transforms imports us
+    if fuse is None:
+        fuse = config.fuse if config is not None else 1
+    fuse = max(int(fuse), 1)
     plan = tuning.stage_plan(bw, tw)
     if not plan:
         h = band.shape[-2]
@@ -181,30 +224,38 @@ def bidiagonalize_packed(band: torch.Tensor, *, n: int, bw: int, tw: int,
         d = bandmod.band_extract_diag(band, tw0, 0, n)
         e = (bandmod.band_extract_diag(band, tw0, 1, n) if bw >= 1
              else torch.zeros_like(d))
-        return d, e
+        return (d, e, []) if tape else (d, e)
     cur = band
     tw_cur = plan[0][1]
     if cur.shape[-2] != plan[0][0] + 2 * tw_cur + 1:
         raise ValueError(f"band has {cur.shape[-2]} rows; the plan {plan} "
                          f"needs {plan[0][0] + 2 * tw_cur + 1}")
+    tapes = []
     for b_in, twi in plan:
         h_i = b_in + 2 * twi + 1
         start = tw_cur - twi
         cur = cur[..., start:start + h_i, :]
         cur = reduce_stage_packed(cur, n=n, b_in=b_in, tw=twi,
-                                  backend=backend, config=config, fuse=fuse)
+                                  backend=backend, config=config, fuse=fuse,
+                                  tape=tape)
+        if tape:
+            cur, tv, tt = cur
+            tapes.append(transforms.ChaseTape(n=n, b_in=b_in, tw=twi, v=tv,
+                                              tau=tt, fuse=fuse))
         tw_cur = twi
     d = bandmod.band_extract_diag(cur, tw_cur, 0, n)
     e = bandmod.band_extract_diag(cur, tw_cur, 1, n)
-    return d, e
+    return (d, e, tapes) if tape else (d, e)
 
 
 def bidiagonalize(a: torch.Tensor, *, bw: int, tw: int,
                   backend: str = "auto", config=None,
-                  fuse: int | None = None):
-    """Dense upper-banded (..., n, n) -> (diag, superdiag), each (..., n)."""
+                  fuse: int | None = None, tape: bool = False):
+    """Dense upper-banded (..., n, n) -> (diag, superdiag), each (..., n);
+    with ``tape=True`` also the per-stage reflector tapes
+    (:func:`bidiagonalize_packed`)."""
     n = a.shape[-1]
     tw0 = min(tw, max(bw - 1, 1))
     packed = bandmod.pack(a, bw, tw0)
     return bidiagonalize_packed(packed, n=n, bw=bw, tw=tw, backend=backend,
-                                config=config, fuse=fuse)
+                                config=config, fuse=fuse, tape=tape)

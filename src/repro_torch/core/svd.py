@@ -1,28 +1,47 @@
-"""Singular values of banded matrices: stage 2 (bulge chasing) and stage 3
-(Sturm bisection), batch-native.
+"""The three-stage SVD pipeline, batch-native:
 
-``banded_singular_values`` is the paper's own use case and this package's
-public entry point.  It runs on the card unless the caller asks for the
-CPU: the config's ``device`` is "cuda" by default, a missing card raises
+  dense --stage 1--> banded --stage 2 (bulge chasing)--> bidiagonal
+        --stage 3 (Sturm bisection)--> singular values
+        [+ U, V^T by reflector-tape replay and inverse iteration]
+
+``banded_singular_values`` enters at stage 2 (the paper's own use case);
+``singular_values`` / ``batched_singular_values`` run all three stages on a
+dense (..., n, n) input; ``svd`` / ``banded_svd`` / ``svd_batched(...,
+compute_uv=True)`` return ``(U, sigma, V^T)``.  For those, stages 1 and 2
+record their reflectors (``tape=True``), ``core/transforms.py`` replays them
+into U and V^T, and stage 3 adds the bidiagonal's vectors; sigma comes from
+the same band arithmetic and the same bisection call as the values path, so
+it is bit-identical to it.
+
+Every entry point runs on the card unless the caller asks for the CPU: the
+config's ``device`` is "cuda" by default, a missing card raises
 ``RuntimeError``, and ``device="cpu"`` runs the plain PyTorch versions.
+Leading axes are a batch that runs on one wavefront.
 """
 
 from __future__ import annotations
+
+import math
 
 import numpy as np
 import torch
 
 from repro_torch.core import bidiag_svd as s3
 from repro_torch.core import bulge_chasing as bc
+from repro_torch.core import stage1 as s1
+from repro_torch.core import transforms
 from repro_torch.core import tuning
+from repro_torch.core.householder import acc_dtype
 
-__all__ = ["NumericalFault", "validate_sigma", "bidiagonal_of",
-           "banded_singular_values"]
+__all__ = ["NumericalFault", "validate_sigma", "validate_uv",
+           "spot_check_svd", "bidiagonal_of", "banded_singular_values",
+           "singular_values", "batched_singular_values", "svd_batched",
+           "svd", "banded_svd"]
 
 
 class NumericalFault(ArithmeticError):
     """A result failed post-solve validation: non-finite, negative or
-    unsorted sigma."""
+    unsorted sigma, non-finite vectors, or a residual too large."""
 
 
 def _sigma_tol(s: torch.Tensor) -> float:
@@ -56,6 +75,38 @@ def validate_sigma(sig, *, name: str = "sigma") -> None:
         if rise > tol:
             raise NumericalFault(f"{name}: not descending (adjacent rise "
                                  f"{rise:.3e} > {tol:.1e})")
+
+
+def validate_uv(u, vt, *, name: str = "uv") -> None:
+    """Every entry of U and V^T finite; raises :class:`NumericalFault`
+    otherwise."""
+    for tag, m in (("U", u), ("V^T", vt)):
+        if m is not None and not bool(torch.isfinite(torch.as_tensor(m)).all()):
+            raise NumericalFault(f"{name}: non-finite entries in {tag}")
+
+
+def spot_check_svd(a, u, sig, vt, *, rtol: float | None = None) -> None:
+    """``||A - U diag(s) V^T||_F / ||A||_F`` of the FIRST matrix of a
+    (possibly batched) full-SVD result, in the accumulation type on U's
+    device; raises :class:`NumericalFault` above ``rtol`` (default
+    ``50 * n * eps`` of the working type)."""
+    u = torch.as_tensor(u)
+    n = u.shape[-1]
+    acc = acc_dtype(u.dtype)
+
+    def first(x, tail):
+        x = torch.as_tensor(x).to(u.device)
+        return x.reshape((-1,) + x.shape[-tail:])[0].to(acc)
+
+    a0, u0, s0, vt0 = first(a, 2), first(u, 2), first(sig, 1), first(vt, 2)
+    if rtol is None:
+        rtol = 50.0 * n * torch.finfo(u.dtype).eps
+    denom = max(float(torch.linalg.norm(a0)), torch.finfo(acc).tiny)
+    resid = float(torch.linalg.norm(a0 - (u0 * s0) @ vt0)) / denom
+    if not math.isfinite(resid) or resid > rtol:
+        raise NumericalFault(
+            f"residual spot-check failed: ||A - USV^T||/||A|| = {resid:.3e} "
+            f"> {rtol:.1e} (n={n})")
 
 
 def _as_tensor(a) -> torch.Tensor:
@@ -130,3 +181,130 @@ def banded_singular_values(a, *, bw: int | None = None,
     if check:
         validate_sigma(sig)
     return sig
+
+
+def singular_values(a, *, bw: int | None = None, tw: int | None = None,
+                    config: tuning.PipelineConfig | None = None,
+                    device: str | None = None,
+                    check: bool = False) -> torch.Tensor:
+    """Singular values of dense (..., n, n), descending: stage 1 to band
+    ``bw`` (32 when neither it nor ``config`` is given), then stages 2 and
+    3.  ``check=True`` runs :func:`validate_sigma` on the result."""
+    a = _as_tensor(a)
+    cfg = _config(a, bw=bw, tw=tw, config=config, device=device)
+    a = _on_device(a, cfg.device)
+    banded = s1.band_reduce(a, nb=cfg.bw, config=cfg)
+    d, e = bc.bidiagonalize(banded, bw=cfg.bw, tw=cfg.tw, config=cfg)
+    sig = s3.bidiag_singular_values(d, e, backend=cfg.backend)
+    if check:
+        validate_sigma(sig)
+    return sig
+
+
+def batched_singular_values(mats, *, bw: int | None = None,
+                            tw: int | None = None,
+                            config: tuning.PipelineConfig | None = None,
+                            device: str | None = None,
+                            check: bool = False) -> torch.Tensor:
+    """(B, n, n) -> (B, n), descending: the B chases share one wavefront,
+    one kernel launch over all B*G windows per cycle."""
+    mats = _as_tensor(mats)
+    if mats.dim() != 3:
+        raise ValueError(f"expected stacked (B, n, n), got "
+                         f"{tuple(mats.shape)}")
+    return singular_values(mats, bw=bw, tw=tw, config=config, device=device,
+                           check=check)
+
+
+def svd_batched(mats, config: tuning.PipelineConfig | None = None, *,
+                compute_uv: bool | None = None, check: bool = False,
+                **overrides):
+    """Config-first batched entry point: ``svd_batched(stacked, cfg)``.
+
+    ``overrides`` are ``bw=``, ``tw=`` and ``device=`` (a conflict with the
+    config raises).  ``compute_uv=True`` (or, when it is None, a config with
+    ``compute_uv=True``) returns ``(U, sigma, V^T)`` in place of sigma
+    alone; sigma is bit-identical between the two.  This is the one entry
+    point that reads ``config.compute_uv``: ``svd`` and ``banded_svd``
+    return the vectors by name, as in the reference."""
+    if compute_uv is None:
+        compute_uv = config.compute_uv if config is not None else False
+    if not compute_uv:
+        return batched_singular_values(mats, config=config, check=check,
+                                       **overrides)
+    mats = _as_tensor(mats)
+    if mats.dim() != 3:
+        raise ValueError(f"expected stacked (B, n, n), got "
+                         f"{tuple(mats.shape)}")
+    return svd(mats, config=config, check=check, **overrides)
+
+
+def _uv_pipeline(a: torch.Tensor, cfg: tuning.PipelineConfig, *,
+                 banded: bool):
+    """(U, sigma, V^T) with ``A = U diag(sigma) V^T``.
+
+    The band arithmetic of stages 1 and 2 is the values path's own (the
+    tapes are recorded beside it, never read by it), so (d, e), and sigma
+    from the same bisection call, are bit-identical to it.  The tapes are
+    replayed into transposed accumulators through ``ops.tape_apply``, and
+    stage 3's bidiagonal vectors are composed on top: A = U2 B V2^T and
+    B = Ub S Vb^T, so U = U2 Ub and V^T = Vb^T V2^T."""
+    n = a.shape[-1]
+    s1_tape = None
+    band_in = a
+    if not banded:
+        band_in, s1_tape = s1.band_reduce(a, nb=cfg.bw, config=cfg, tape=True)
+    d, e, tapes = bc.bidiagonalize(band_in, bw=cfg.bw, tw=cfg.tw, config=cfg,
+                                   tape=True)
+    u2, vt2 = transforms.accumulate_transforms(
+        n, s1_tape=s1_tape, chase_tapes=tapes, lead=a.shape[:-2],
+        dtype=a.dtype, config=cfg, device=a.device)
+    sig = s3.bidiag_singular_values(d, e, backend=cfg.backend)
+    ub, vtb = s3.bidiag_vectors(d, e, sig)
+    return u2 @ ub, sig, vtb @ vt2
+
+
+def _checked_uv(a, out, *, check: bool):
+    """Post-solve guard of a full-SVD result: sigma's invariants, finite
+    U and V^T, and the residual of the first matrix."""
+    if check:
+        u, sig, vt = out
+        validate_sigma(sig)
+        validate_uv(u, vt)
+        spot_check_svd(a, u, sig, vt)
+    return out
+
+
+def svd(a, *, bw: int | None = None, tw: int | None = None,
+        config: tuning.PipelineConfig | None = None,
+        device: str | None = None, compute_uv: bool = True,
+        check: bool = False):
+    """Full SVD of dense (..., n, n): ``(U, sigma, V^T)``, sigma
+    descending, on ``config.device``.
+
+    ``compute_uv=False`` is :func:`singular_values`; sigma is bit-identical
+    either way.  A batch runs batch-native end to end, the replay included
+    (one ``tape_apply`` over all B*G*K slots per super-cycle).
+    ``check=True`` validates sigma, checks U and V^T for non-finite entries
+    and checks the residual of the first matrix (:class:`NumericalFault`).
+    ``config.compute_uv`` is not read here (see :func:`svd_batched`)."""
+    a = _as_tensor(a)
+    cfg = _config(a, bw=bw, tw=tw, config=config, device=device)
+    if not compute_uv:
+        return singular_values(a, config=cfg, check=check)
+    a = _on_device(a, cfg.device)
+    return _checked_uv(a, _uv_pipeline(a, cfg, banded=False), check=check)
+
+
+def banded_svd(a, *, bw: int | None = None, tw: int | None = None,
+               config: tuning.PipelineConfig | None = None,
+               device: str | None = None, compute_uv: bool = True,
+               check: bool = False):
+    """Full SVD of upper-banded (..., n, n) (stages 2 and 3 only);
+    arguments as in :func:`svd`."""
+    a = _as_tensor(a)
+    cfg = _config(a, bw=bw, tw=tw, config=config, device=device)
+    if not compute_uv:
+        return banded_singular_values(a, config=cfg, check=check)
+    a = _on_device(a, cfg.device)
+    return _checked_uv(a, _uv_pipeline(a, cfg, banded=True), check=check)

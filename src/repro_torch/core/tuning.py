@@ -135,17 +135,18 @@ LATER = {
     "fused_small": "the one-dispatch small-n tier comes in a later slice",
     "dc": "divide-and-conquer stage 3 comes in a later slice",
     "auto": "stage3='auto' needs divide-and-conquer, a later slice",
-    "compute_uv": "singular vectors (tape replay) come in a later slice",
 }
 
 
 @dataclasses.dataclass(frozen=True)
 class PipelineConfig:
-    """Resolved configuration of the banded pipeline (stages 2 and 3).
+    """Resolved configuration of the pipeline (stages 1 to 3).
 
     ``backend`` is "ref" (plain PyTorch) or "cuda" (the hand-written
     kernels); ``device`` is where the pipeline runs, the card unless the
-    caller asks for the CPU."""
+    caller asks for the CPU; ``compute_uv`` is the default of
+    ``svd_batched``: singular vectors too (the tapes are recorded and
+    replayed)."""
     bw: int
     tw: int
     backend: str = "cuda"
@@ -153,6 +154,7 @@ class PipelineConfig:
     fuse: int = 1
     stage3: str = "bisect"
     device: str = "cuda"
+    compute_uv: bool = False
 
     @property
     def plan(self) -> tuple[tuple[int, int], ...]:
@@ -162,8 +164,8 @@ class PipelineConfig:
     def resolve(cls, *, bw: int = 32, tw: int | None = None,
                 backend: str = "auto", dtype=torch.float32,
                 n: int | None = None, fuse: int | None = 1,
-                stage3: str = "bisect",
-                device: str = "cuda") -> "PipelineConfig":
+                stage3: str = "bisect", device: str = "cuda",
+                compute_uv: bool = False) -> "PipelineConfig":
         """Resolve every knob to a concrete value.
 
         ``backend="auto"`` follows the requested ``device``: "cuda" on a
@@ -182,4 +184,5 @@ class PipelineConfig:
         if fuse is None:
             fuse = default_fuse_depth(bw, tw, dtype)
         return cls(bw=bw, tw=tw, backend=backend, dtype=dtype_name(dtype),
-                   fuse=max(int(fuse), 1), stage3=stage3, device=str(device))
+                   fuse=max(int(fuse), 1), stage3=stage3, device=str(device),
+                   compute_uv=bool(compute_uv))

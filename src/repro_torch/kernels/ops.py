@@ -19,7 +19,8 @@ import torch
 
 from repro_torch.core.tuning import LATER
 
-__all__ = ["chase_cycle", "sturm_bisect", "register_backend",
+__all__ = ["chase_cycle", "sturm_bisect", "tape_apply", "hh_block_apply",
+           "register_backend",
            "resolve_backend", "backend_names", "launch_counts",
            "reset_launch_counts"]
 
@@ -73,7 +74,18 @@ def _ref_bisect(z, bound, *, n, max_iter):
     return bisect_plain(z, bound, n=n, max_iter=max_iter)
 
 
-register_backend("ref", chase_cycle=_ref_chase, sturm_bisect=_ref_bisect)
+def _ref_tape(v, t, c):
+    from repro_torch.kernels import ref
+    return ref.tape_apply_ref(v, t, c)
+
+
+def _ref_hh(v, t, c):
+    from repro_torch.kernels import ref
+    return ref.hh_block_apply_ref(v, t, c)
+
+
+register_backend("ref", chase_cycle=_ref_chase, sturm_bisect=_ref_bisect,
+                 tape_apply=_ref_tape, hh_block_apply=_ref_hh)
 
 
 # ---- "cuda": the Hopper kernels (built on first use) ----------------------
@@ -93,7 +105,18 @@ def _cuda_bisect(z, bound, *, n, max_iter):
     return bisect.sturm_bisect_cuda(z, bound, n=n, max_iter=max_iter)
 
 
-register_backend("cuda", chase_cycle=_cuda_chase, sturm_bisect=_cuda_bisect)
+def _cuda_tape(v, t, c):
+    from repro_torch.kernels import hh_apply
+    return hh_apply.tape_apply_cuda(v, t, c)
+
+
+def _cuda_hh(v, t, c):
+    from repro_torch.kernels import hh_apply
+    return hh_apply.hh_block_apply_cuda(v, t, c)
+
+
+register_backend("cuda", chase_cycle=_cuda_chase, sturm_bisect=_cuda_bisect,
+                 tape_apply=_cuda_tape, hh_block_apply=_cuda_hh)
 
 
 # ---- public wrappers ------------------------------------------------------
@@ -122,14 +145,36 @@ def sturm_bisect(z: torch.Tensor, bound: torch.Tensor, *, n: int,
     return impl(z, bound, n=n, max_iter=max_iter)
 
 
+def tape_apply(v: torch.Tensor, t: torch.Tensor, c: torch.Tensor, *,
+               backend: str = "auto", config=None) -> torch.Tensor:
+    """Slot-batched compact-WY left apply, per slot s
+    ``C[s] <- (I - V[s] T[s] V[s]^T) C[s]``; v (S, m, k), t (S, k, k),
+    c (S, m, w).  The chase-tape replay passes k = 1 with t = tau, the
+    stage-1 panels k = nb.  The "cuda" backend updates ``c`` in place and
+    returns it; "ref" returns a new tensor."""
+    return _impl("tape_apply", backend, config, c.device)(v, t, c)
+
+
+def hh_block_apply(v: torch.Tensor, t: torch.Tensor, c: torch.Tensor, *,
+                   backend: str = "auto", config=None) -> torch.Tensor:
+    """``C <- (I - V T V^T) C`` for v (..., m, k), t (..., k, k),
+    c (..., m, w): the stage-1 blocked reflector apply, as
+    :func:`tape_apply` with the leading axes as slots.  In place on "cuda",
+    a new tensor on "ref", as :func:`tape_apply`."""
+    return _impl("hh_block_apply", backend, config, c.device)(v, t, c)
+
+
+def _launch_tables():
+    from repro_torch.kernels import bisect, bulge_chase, hh_apply
+    return (bulge_chase.launches, bisect.launches, hh_apply.launches)
+
+
 def launch_counts() -> dict[str, int]:
     """Launches of every CUDA kernel since the last reset."""
-    from repro_torch.kernels import bisect, bulge_chase
-    return {**bulge_chase.launches, **bisect.launches}
+    return {k: v for counts in _launch_tables() for k, v in counts.items()}
 
 
 def reset_launch_counts() -> None:
-    from repro_torch.kernels import bisect, bulge_chase
-    for counts in (bulge_chase.launches, bisect.launches):
+    for counts in _launch_tables():
         for key in counts:
             counts[key] = 0

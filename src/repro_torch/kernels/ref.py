@@ -1,4 +1,5 @@
-"""Plain PyTorch versions of the chase kernels (``csrc/chase.cu``).
+"""Plain PyTorch versions of the chase kernels (``csrc/chase.cu``) and of the
+compact-WY apply (``csrc/hh_apply.cu``).
 
 They run on any device.  The CPU tests hold them against the reference's
 ``kernels/ref.py``, and ``chip_smoke.py`` holds the CUDA kernels against
@@ -26,7 +27,8 @@ import torch
 
 from repro_torch.core.householder import acc_dtype, make_reflector
 
-__all__ = ["chase_cycle_ref", "chase_superstep_ref"]
+__all__ = ["chase_cycle_ref", "chase_superstep_ref", "tape_apply_ref",
+           "hh_block_apply_ref"]
 
 
 def _chase_window(win: torch.Tensor, first: torch.Tensor, *, b_in: int,
@@ -124,3 +126,27 @@ def chase_superstep_ref(blocks: torch.Tensor, is_first: torch.Tensor,
     if with_tape:
         return out, torch.stack(vs, 1), torch.stack(taus, 1)
     return out
+
+
+def tape_apply_ref(v: torch.Tensor, t: torch.Tensor,
+                   c: torch.Tensor) -> torch.Tensor:
+    """Per slot s, ``C[s] <- C[s] - V[s] (T[s] (V[s]^T C[s]))``, as a new
+    tensor.
+
+    v: (S, m, k), t: (S, k, k), c: (S, m, w).  The stage-1 panels use k = nb
+    blocks, the chase tape k = 1 (a Householder reflector, t = tau).  Half
+    types accumulate in float32."""
+    acc = acc_dtype(c.dtype)
+    vv, tt, cc = v.to(acc), t.to(acc), c.to(acc)
+    w1 = vv.transpose(-1, -2) @ cc
+    return (cc - vv @ (tt @ w1)).to(c.dtype)
+
+
+def hh_block_apply_ref(v: torch.Tensor, t: torch.Tensor,
+                       c: torch.Tensor) -> torch.Tensor:
+    """``C <- (I - V T V^T) C`` for v (..., m, k), t (..., k, k),
+    c (..., m, w): :func:`tape_apply_ref` with the leading axes as slots
+    (one slot for a single problem)."""
+    m, k, w = c.shape[-2], v.shape[-1], c.shape[-1]
+    return tape_apply_ref(v.reshape(-1, m, k), t.reshape(-1, k, k),
+                          c.reshape(-1, m, w)).reshape(c.shape)

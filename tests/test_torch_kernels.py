@@ -7,20 +7,26 @@ repository's ``conftest.py``:
     python -m pytest --noconftest tests/test_torch_kernels.py -q
 
 Tolerances are the reference's kernel-test ones (fp32 3e-5, fp64 1e-12,
-bf16 8e-2, times the output's scale); bisection agrees to 1e-13 * sigma_max
-at fp64 and 1e-5 * sigma_max at fp32.
+bf16 8e-2, times the output's scale); the compact-WY apply's are fp32 and
+fp64 times max(1, k // 4) as well, and bf16 1e-2 times the scale, about one
+bf16 ulp (``wy_tol``); bisection agrees to 1e-13 * sigma_max at fp64 and
+1e-5 * sigma_max at fp32.
 """
+
+import dataclasses
 
 import numpy as np
 import pytest
 import torch
-from torch_port_common import DTYPES, close, cuda, torch_dtype, windows  # noqa: F401
+from torch_port_common import (DTYPES, close, cuda, torch_dtype,  # noqa: F401
+                               windows, wy_tol)
 
 from repro_torch.core import bidiag_svd as s3
 from repro_torch.core import svd as tsvd
 from repro_torch.core.tuning import PipelineConfig
 from repro_torch.kernels import bisect as tbisect
 from repro_torch.kernels import bulge_chase as tkern
+from repro_torch.kernels import hh_apply as thh
 from repro_torch.kernels import ops
 from repro_torch.kernels import ref as tref
 
@@ -30,6 +36,20 @@ CHASE_SHAPES = [(4, 2, 3), (6, 2, 4), (8, 3, 5), (12, 4, 3), (16, 8, 2),
                 (32, 8, 2), (5, 4, 6), (2, 1, 8)]
 SUPER_SHAPES = [(4, 2, 3), (8, 3, 4), (5, 4, 3)]
 FUSES = [2, 4]
+# (m, k, w) of the reference's compact-WY tests (tests/test_kernels.py)
+WY_SHAPES = [(64, 8, 100), (128, 16, 64), (33, 4, 7), (256, 32, 512),
+             (16, 1, 5)]
+
+
+def wy_inputs(s, m, k, w, seed, dtype, device):
+    """A unit-lower-trapezoidal V, an upper-triangular T (scaled by 0.2) and
+    a C per slot, as the reference's kernel test makes them."""
+    rng = np.random.default_rng(seed)
+    v = np.tril(rng.standard_normal((s, m, k)), -1)
+    v[:, np.arange(k), np.arange(k)] = 1.0
+    t = np.triu(rng.standard_normal((s, k, k))) * 0.2
+    c = rng.standard_normal((s, m, w))
+    return tuple(torch.from_numpy(x).to(device, dtype) for x in (v, t, c))
 
 
 def _gk(n, b, seed, dtype, device):
@@ -72,7 +92,36 @@ def test_wrappers_on_cpu_tensors_run_the_plain_versions():
         s3.bisect_plain(z, bound, n=9, max_iter=60), rtol=0, atol=0)
     with pytest.raises(ValueError, match="CUDA"):
         tbisect.sturm_bisect_cuda(z, bound, n=9, max_iter=60)
+    v, t, c = wy_inputs(3, 20, 4, 9, 4, torch.float64, "cpu")
+    torch.testing.assert_close(ops.tape_apply(v, t, c),
+                               tref.tape_apply_ref(v, t, c), rtol=0, atol=0)
+    torch.testing.assert_close(ops.hh_block_apply(v[0], t[0], c[0]),
+                               tref.hh_block_apply_ref(v[0], t[0], c[0]),
+                               rtol=0, atol=0)
+    torch.testing.assert_close(ops.hh_block_apply(v, t, c),
+                               tref.tape_apply_ref(v, t, c), rtol=0, atol=0)
     assert ops.launch_counts() == before      # no kernel ran
+
+
+def test_tape_apply_wrapper_takes_cuda_tensors_only():
+    """The compact-WY wrappers raise on CPU tensors, on a k the kernel does
+    not take and on mismatched operands, before any launch."""
+    v, t, c = wy_inputs(2, 12, 3, 5, 0, torch.float64, "cpu")
+    with pytest.raises(ValueError, match="CUDA"):
+        thh.tape_apply_cuda(v, t, c)
+    with pytest.raises(ValueError, match="CUDA"):
+        thh.hh_block_apply_cuda(v[0], t[0], c[0])
+    with pytest.raises(ValueError, match="CUDA"):
+        ops.tape_apply(v, t, c, backend="cuda")
+    with pytest.raises(ValueError, match="k <= 128"):
+        thh.launch_shape(1, 129, 64, torch.float64)
+    with pytest.raises(ValueError, match="dtype"):
+        thh.tape_apply_cuda(v, t, c.to(torch.float16))
+    # stripe widths: k * stripe <= 4096, narrowed to fill the card
+    assert thh.launch_shape(1, 64, 4224, torch.float64)[0] == 32
+    assert thh.launch_shape(128, 1, 4096, torch.float64)[0] == 256
+    assert thh.launch_shape(1, 128, 64, torch.float64) == (
+        32, (64 * 128 + 64 * 32 + 128 * 32) * 8)
 
 
 # ---------------------------------------------------------------------------
@@ -117,6 +166,48 @@ def test_chase_superstep_cuda_matches_plain(cuda, b_in, tw, G, dtype, tol,
 
 
 @pytest.mark.cuda
+@pytest.mark.parametrize("slots", [1, 5])
+@pytest.mark.parametrize("dtype,tol", DTYPES)
+@pytest.mark.parametrize("m,k,w", WY_SHAPES + [(17, 1, 700), (300, 64, 260),
+                                               (140, 128, 40)])
+def test_tape_apply_cuda_matches_plain(cuda, m, k, w, dtype, tol, slots):
+    v, t, c = wy_inputs(slots, m, k, w, m + k + w, torch_dtype(dtype), cuda)
+    want = tref.tape_apply_ref(v, t, c)
+    before = thh.launches["tape_apply_cuda"]
+    got = thh.tape_apply_cuda(v, t, c.clone())
+    torch.cuda.synchronize()
+    assert thh.launches["tape_apply_cuda"] == before + 1
+    close(got, want, wy_tol(dtype, tol, k))
+    one = thh.hh_block_apply_cuda(v[0], t[0], c[0].clone())
+    torch.cuda.synchronize()
+    close(one, tref.hh_block_apply_ref(v[0], t[0], c[0]),
+          wy_tol(dtype, tol, k))
+
+
+@pytest.mark.cuda
+def test_tape_apply_cuda_in_place_and_stripe_invariant(cuda):
+    """The kernel updates C in place, and its sums do not depend on the
+    stripe width it picks: one slot (stripes of 32) and the same slot among
+    200 (stripes of 256) agree bit for bit."""
+    v, t, c = wy_inputs(200, 90, 16, 300, 3, torch.float64, cuda)
+    assert thh.launch_shape(200, 16, 300, torch.float64)[0] == 256
+    assert thh.launch_shape(1, 16, 300, torch.float64)[0] == 32
+    c0 = c.clone()
+    c4 = c.view(20, 10, 90, 300).clone()
+    out = thh.tape_apply_cuda(v, t, c)
+    assert out.data_ptr() == c.data_ptr()
+    one = thh.tape_apply_cuda(v[:1].contiguous(), t[:1].contiguous(),
+                              c0[:1].contiguous())
+    # the block apply takes leading axes as slots, in place on its C
+    blk = thh.hh_block_apply_cuda(v.view(20, 10, 90, 16),
+                                  t.view(20, 10, 16, 16), c4)
+    torch.cuda.synchronize()
+    assert torch.equal(one[0], out[0])
+    assert blk.data_ptr() == c4.data_ptr()
+    assert torch.equal(blk.view(200, 90, 300), out)
+
+
+@pytest.mark.cuda
 @pytest.mark.parametrize("dtype,tol", [("float64", 1e-13), ("float32", 1e-5)])
 @pytest.mark.parametrize("n,b", [(1, 3), (2, 4), (33, 3), (512, 1)])
 def test_sturm_bisect_cuda_matches_plain(cuda, n, b, dtype, tol):
@@ -152,3 +243,23 @@ def test_main_path_on_the_card_matches_the_cpu(cuda, fuse):
     s0 = np.linalg.svd(a, compute_uv=False)
     close(got, want, 1e-12)                 # close() scales by sigma_max
     close(got, s0, 1e-10)
+
+
+@pytest.mark.cuda
+@pytest.mark.parametrize("fuse", [1, 4])
+def test_full_svd_on_the_card_matches_the_cpu(cuda, fuse):
+    n, bw, tw, B = 72, 8, 3, 2
+    a = np.random.default_rng(fuse + 10).standard_normal((B, n, n))
+    cfg = PipelineConfig.resolve(bw=bw, tw=tw, dtype=torch.float64, fuse=fuse)
+    ops.reset_launch_counts()
+    u, s, vt = tsvd.svd(a, config=cfg, check=True)
+    counts = ops.launch_counts()
+    kernel = "chase_cycle_cuda" if fuse == 1 else "chase_superstep_cuda"
+    assert counts[kernel] > 0 and counts["tape_apply_cuda"] > 0
+    assert u.device.type == "cuda"
+    assert torch.equal(s, tsvd.singular_values(a, config=cfg))
+    cpu = dataclasses.replace(cfg, backend="ref", device="cpu")
+    uc, sc, vtc = tsvd.svd(a, config=cpu)
+    close(s, sc, 1e-12)
+    close(u, uc, 1e-9)
+    close(vt, vtc, 1e-9)

@@ -43,9 +43,11 @@ def test_import_leaves_jax_out():
     mods = ["repro_torch", "repro_torch.convert", "repro_torch.core.band",
             "repro_torch.core.householder", "repro_torch.core.tuning",
             "repro_torch.core.bulge_chasing", "repro_torch.core.bidiag_svd",
-            "repro_torch.core.svd", "repro_torch.kernels.ops",
+            "repro_torch.core.svd", "repro_torch.core.stage1",
+            "repro_torch.core.transforms", "repro_torch.kernels.ops",
             "repro_torch.kernels.ref", "repro_torch.kernels.bulge_chase",
-            "repro_torch.kernels.bisect", "repro_torch.kernels._build"]
+            "repro_torch.kernels.bisect", "repro_torch.kernels.hh_apply",
+            "repro_torch.kernels._build"]
     code = ("import importlib, sys\n"
             f"for m in {mods!r}: importlib.import_module(m)\n"
             "bad = [m for m in sys.modules if m.split('.')[0] in "

@@ -171,8 +171,10 @@ def test_convert_round_trip():
     ref_fields = dataclasses.asdict(dataclasses.replace(jcfg, backend="ref"))
     cpu = convert.pipeline_config_from_reference(ref_fields, device="cpu")
     assert (cpu.backend, cpu.device) == ("ref", "cpu")
-    for bad in (dict(compute_uv=True), dict(stage3="dc"),
-                dict(backend="fused_small")):
+    uv = convert.pipeline_config_from_reference(
+        {**ref_fields, "compute_uv": True}, device="cpu")
+    assert uv.compute_uv and not cpu.compute_uv
+    for bad in (dict(stage3="dc"), dict(backend="fused_small")):
         with pytest.raises(NotImplementedError, match="later slice"):
             convert.pipeline_config_from_reference({**ref_fields, **bad},
                                                    device="cpu")

@@ -13,6 +13,14 @@ import torch
 DTYPES = [("float32", 3e-5), ("float64", 1e-12), ("bfloat16", 8e-2)]
 
 
+def wy_tol(dtype: str, tol: float, k: int) -> float:
+    """Tolerance of the compact-WY apply, times the output's scale: the
+    reference's ``tol * max(1, k // 4)`` at fp64 and fp32; at bf16, where
+    both sides accumulate in fp32 and round once at the store, 1e-2 (a
+    bf16 ulp of the scale is at most 2**-7) whatever k."""
+    return 1e-2 if dtype == "bfloat16" else tol * max(1, k // 4)
+
+
 def torch_dtype(name: str) -> torch.dtype:
     return getattr(torch, name)
 
@@ -57,3 +65,24 @@ def windows(b_in, tw, g, seed):
     h, w = b_in + 2 * tw + 1, b_in + tw + 1
     rng = np.random.default_rng(seed)
     return rng.standard_normal((g, h, w)), np.arange(g) % 2 == 0
+
+
+def check_svd(a, u, s, vt, tol):
+    """Reconstruction, orthogonality and descending order, in fp64."""
+    a, u, s, vt = (np.asarray(x, np.float64) for x in (a, u, s, vt))
+    n = a.shape[-1]
+    scale = max(1.0, float(np.max(s)))
+    recon = np.abs(np.einsum("...ij,...j,...jk->...ik", u, s, vt) - a).max()
+    uerr = np.abs(np.einsum("...ji,...jk->...ik", u, u) - np.eye(n)).max()
+    verr = np.abs(np.einsum("...ij,...kj->...ik", vt, vt) - np.eye(n)).max()
+    assert recon < tol * scale, ("reconstruction", recon)
+    assert uerr < tol, ("U orthogonality", uerr)
+    assert verr < tol, ("V orthogonality", verr)
+    assert np.all(np.diff(s, axis=-1) <= 1e-12 * scale), "sigma not descending"
+
+
+def agree(got, want, tol):
+    want = np.asarray(want)
+    np.testing.assert_allclose(got.numpy(), want,
+                               atol=tol * max(1.0, np.abs(want).max()),
+                               rtol=0)
