@@ -8,10 +8,13 @@ Builds the port's CUDA kernels from ``src/repro_torch/kernels/csrc`` (one
 PyTorch version on the card at every shape the main path launches it with,
 then drives the main path: ``banded_singular_values`` (a banded matrix to
 its singular values) at fuse=1 and fuse=4, ``singular_values`` and ``svd``
-of a dense fp64 matrix at n = 4096 (U, sigma, V^T, timed part by part), and
-``svd_batched(..., compute_uv=True)`` on 16 fp32 matrices.  Results are
-checked against ``torch.linalg.svdvals``, which serves here only as a
-yardstick, and U and V^T by reconstruction and orthogonality.  Every phase
+of a dense fp64 matrix at n = 4096 (U, sigma, V^T, timed part by part),
+``svd_batched(..., compute_uv=True)`` on 16 fp32 matrices, and the fused
+small-n tier (``backend="fused_small"``, one launch per batch) on 64 fp64
+matrices of n = 64 and 64 fp32 matrices of n = 256, each timed against the
+staged pipeline on the same batch.  Results are checked against
+``torch.linalg.svdvals``, which serves here only as a yardstick, and U and
+V^T by reconstruction and orthogonality.  Every phase
 prints one JSON line; the line before the last two is the ``kernels``
 summary, then the card's name and power limit as ``nvidia-smi`` gives them,
 then ``{"ok": true, "device": ...}``.
@@ -212,6 +215,31 @@ def tape_apply_shapes(bc, runs):
     return sorted(shapes)
 
 
+def fused_bound(b, n, bw, max_iter, dtype, itemsize):
+    """Values mode: the matrices read once and sigma written once; per
+    reflector of the walk (support L) 3L flops to build it and 5L per
+    nonzero row or column it meets (dot products 2, update 3); 3 flops per
+    step of the bisection's pivot recurrences.
+
+    The nonzeros a reflector meets: a right one on row k over columns
+    [lo, hi] meets rows [k, hi] (above k the band ends before lo); a left
+    one on column lo over rows [lo, hi] meets columns [lo, min(hi + bw,
+    n - 1)] (the band, and the bulge, end there).  This holds for both
+    phases.  The kernel does more work than this: like the reference, it
+    applies every reflector across all n rows or columns."""
+    from repro_torch.kernels.ref import effective_bw, fused_walk
+    bw = effective_bw(n, bw)
+    flops = 3 * b * n * max_iter * (2 * n - 1)
+    for right, k, lo, hi in fused_walk(n, bw):
+        meets = hi - k + 1 if right else min(hi + bw, n - 1) - lo + 1
+        flops += b * (3 + 5 * meets) * (hi - lo + 1)
+    nbytes = (b * n * n + b * n) * itemsize
+    t_bytes = nbytes / HBM_BYTES_PER_S
+    t_ops = flops / PEAK_FLOPS[dtype]
+    return (max(t_bytes, t_ops) * 1e3,
+            "bytes" if t_bytes >= t_ops else "operations", nbytes, flops)
+
+
 def wy_inputs(torch, s, m, k, w, dtype, rng, orthogonal=False):
     """V (unit lower trapezoidal), T and C of a compact-WY apply, made from
     ``rng`` on the card.  ``orthogonal``: T from Householder taus, so that
@@ -306,8 +334,8 @@ def run(args, torch) -> int:
     from repro_torch.core import bulge_chasing as bc
     from repro_torch.core import svd as tsvd
     from repro_torch.core.tuning import PipelineConfig
-    from repro_torch.kernels import (_build, bisect, bulge_chase, hh_apply,
-                                     ops, ref)
+    from repro_torch.kernels import (_build, bisect, bulge_chase,
+                                     fused_small, hh_apply, ops, ref)
 
     torch.backends.cuda.matmul.allow_tf32 = False
     torch.backends.cudnn.allow_tf32 = False
@@ -350,6 +378,8 @@ def run(args, torch) -> int:
     cd = PipelineConfig.resolve(bw=bwd, dtype=f64, n=nd, fuse=4)
     c7 = PipelineConfig.resolve(bw=bw7, dtype=f32, n=n7, fuse=4)
     tw4 = c1.tw
+    # the fused small-n tier: (B, n, bw, dtype) of its two runs
+    fused_main = [(64, 64, 8, "float64"), (64, 256, 32, "float32")]
     runs = [((), n3, cfg1), ((), n3, cfg4), ((), n3, cfg32), ((), n4, c1),
             ((), n4, c4), ((b5,), n5, c5), ((), nd, cd), ((b7,), n7, c7)]
     main_cycle, main_super, main_sturm = main_path_shapes(bc, runs)
@@ -370,7 +400,8 @@ def run(args, torch) -> int:
                            for d in TOLS} | {
         s[:4] + (d,) for s in main_super for d in TOLS})
     worst = {"chase_cycle_cuda": 0.0, "chase_superstep_cuda": 0.0,
-             "sturm_bisect_cuda": 0.0, "tape_apply_cuda": 0.0}
+             "sturm_bisect_cuda": 0.0, "tape_apply_cuda": 0.0,
+             "fused_small_svd_cuda": 0.0}
     main_err = dict.fromkeys(worst, 0.0)
     n_cmp = 0
 
@@ -456,12 +487,79 @@ def run(args, torch) -> int:
     compare("tape_apply_cuda", [got],
             [ref.hh_block_apply_ref(one[0][0], one[1][0], one[2][0])],
             TOLS["float64"] * 2, "hh_block_apply (64, 8, 100)", False)
+    # the fused kernel: the reference's shapes and the main path's, each in
+    # fp64 and fp32, in values and in uv mode (tolerances: fused_small's
+    # CHECK_TOLS and ENTRY_TOL_FP64).  At the main path's shapes a witness
+    # of how far the plain version's own (d, e, U2, V2^T) move: on the CPU
+    # against on the card, and on the card when each entry of A moves by
+    # about one ulp.
+    fused_errs, witness = {}, {}
+
+    def fused_err(kind, dname, err):
+        fused_errs[f"{kind} {dname}"] = max(
+            fused_errs.get(f"{kind} {dname}", 0.0), err)
+
+    def rel(got_, want_):
+        err, scale = max_err(torch, got_, want_)
+        return err / scale
+
+    fused_cases = sorted({sh + (d,) for sh in fused_small.CHECK_SHAPES
+                          for d in fused_small.CHECK_TOLS} | {
+        sh[:3] + (d,) for sh in fused_main for d in fused_small.CHECK_TOLS})
+    name = "fused_small_svd_cuda"
+    for b, n, bw, dname in fused_cases:
+        a = torch.from_numpy(rng.standard_normal((b, n, n))).to(
+            dev, dtypes[dname])
+        tol, tol_uv = fused_small.CHECK_TOLS[dname]
+        key = (b, n, bw, dname)
+        want = ref.fused_small_svd_ref(a, bw=bw)
+        got = fused_small.fused_small_svd_cuda(a, bw=bw)
+        torch.cuda.synchronize()
+        compare(name, [got], [want], tol, key, key in fused_main)
+        fused_err("sigma", dname, rel(got, want))
+        got = fused_small.fused_small_svd_cuda(a, bw=bw, compute_uv=True)
+        want = ref.fused_small_svd_ref(a, bw=bw, compute_uv=True)
+        torch.cuda.synchronize()
+        sg, sw = (s3.bidiag_singular_values(x[0], x[1]) for x in (got, want))
+        compare(name, [sg], [sw], tol, key + ("uv sigma of (d, e)",), False)
+        inv = fused_small.uv_invariants(a, *got)
+        worst[name] = max(worst[name], max(inv) / tol_uv)
+        fused_err("uv invariants", dname, max(inv))
+        check(max(inv) <= tol_uv, f"{name} at {key}: uv factors' "
+              f"(recon, orth U2, orth V2) {inv} > {tol_uv:.1e}")
+        n_cmp += 1
+        entries = fused_small.entry_error(got, want)
+        fused_err("uv entries", dname, entries)
+        if dname == "float64":
+            tol_e = fused_small.ENTRY_TOL_FP64
+            worst[name] = max(worst[name], entries / tol_e)
+            check(entries <= tol_e, f"{name} at {key}: uv entries "
+                  f"{entries:.3e} > {tol_e:.1e} of the scale")
+            n_cmp += 1
+        if key in fused_main:
+            eps = torch.finfo(a.dtype).eps
+            moved = (a.double() * (1 + eps * torch.from_numpy(
+                rng.standard_normal((b, n, n))).to(dev))).to(a.dtype)
+            witness[f"B={b} n={n} bw={bw} {dname}"] = {
+                "kernel_vs_plain": entries,
+                "plain_card_vs_cpu": fused_small.entry_error(
+                    want, ref.fused_small_svd_ref(a.cpu(), bw=bw,
+                                                  compute_uv=True)),
+                "plain_one_ulp_move_of_a": fused_small.entry_error(
+                    ref.fused_small_svd_ref(moved, bw=bw, compute_uv=True),
+                    want)}
+            del moved
+        del a, got, want
     emit({"phase": "kernels_vs_plain", "ok": True, "comparisons": n_cmp,
           "main_path_shapes": {
               "chase_cycle_cuda (b_in, tw, slots, dtype)": main_cycle,
               "chase_superstep_cuda (b_in, tw, slots, K, dtype)": main_super,
               "sturm_bisect_cuda (B, n, dtype)": main_sturm,
-              "tape_apply_cuda (S, m, k, w, dtype)": main_tape},
+              "tape_apply_cuda (S, m, k, w, dtype)": main_tape,
+              "fused_small_svd_cuda (B, n, bw, dtype)": fused_main},
+          "fused_cases": len(fused_cases),
+          "fused_worst_err_over_scale": fused_errs,
+          "fused_uv_entries_witness": witness,
           "tape_apply_cases": len(tape_cases),
           "sturm_steps_at_main_path_shapes": STURM_CHECK_STEPS,
           "worst_err_over_tol": {k: round(v, 6) for k, v in worst.items()},
@@ -471,6 +569,10 @@ def run(args, torch) -> int:
                          "tape_apply fp64/fp32": "chase's, times "
                                                  "max(1, k // 4)",
                          "tape_apply bf16": WY_TOL_BF16,
+                         "fused fp64/fp32 (sigma, uv invariants)":
+                             [fused_small.CHECK_TOLS["float64"],
+                              fused_small.CHECK_TOLS["float32"]],
+                         "fused uv entries fp64": fused_small.ENTRY_TOL_FP64,
                          "scale": "max(1, max|plain|)"}})
 
     # ---- per-kernel times at the main path's shapes ----------------------
@@ -553,6 +655,22 @@ def run(args, torch) -> int:
             library=lambda v=v, t=t, c=c: torch.baddbmm(
                 c, v, torch.bmm(t, torch.bmm(v.mT, c)), alpha=-1))
         del v, t, c
+    # the fused kernel at both main-path shapes, values mode; the library
+    # yardstick is one cuSOLVER call for the singular values of the batch
+    for i, (b, n, bw, dname) in enumerate(fused_main):
+        a = torch.from_numpy(rng.standard_normal((b, n, n))).to(
+            dev, dtypes[dname])
+        iters = s3.default_bisect_iters(dtypes[dname])
+        time_kernel(
+            "fused_small_svd_cuda" + ("" if i == 0 else " (second shape)"),
+            "fused_small_kernel",
+            lambda a=a, bw=bw: fused_small.fused_small_svd_cuda(a, bw=bw),
+            lambda a=a, bw=bw: ref.fused_small_svd_ref(a, bw=bw),
+            20 if i == 0 else 10, 1, f"B={b}, n={n}, bw={bw} {dname}, "
+            f"values", fused_bound(b, n, bw, iters, dname,
+                                   a.element_size()),
+            library=lambda a=a: torch.linalg.svdvals(a))
+        del a
     emit({"phase": "kernel_times", "ok": True, "card": smi_line,
           "kernels": {k: {kk: (vv if kk != "bound" else
                                {"ms": vv[0], "by": vv[1], "bytes": vv[2],
@@ -751,6 +869,96 @@ def run(args, torch) -> int:
     check(ok7, "phase 7: batched fp32 full SVD off its bounds")
     del a7, a7d, u7, vt7, res7
 
+    # ---- 8 and 9. the fused small-n tier against the staged pipeline ----
+    def one_fused_launch(label, run, also=()):
+        """The fused call launched the fused kernel once and, of the other
+        kernels, only those in ``also``."""
+        got = {k: v for k, v in run["launches"].items() if k not in also}
+        want = {k: int(k == "fused_small_svd_cuda") for k in got}
+        check(got == want,
+              f"{label}: launches {run['launches']}, expected one "
+              f"fused_small_svd_cuda and no chase or bisection launch")
+
+    def fused_vs_staged(a, cfg, staged, iters):
+        """Seconds per call of the fused tier and of the staged pipeline on
+        the same batch, CUDA events around back-to-back calls after a
+        warm-up call, and matrices per second."""
+        t_f = gpu_ms(torch, lambda: tsvd.svd_batched(a, cfg), iters=iters,
+                     warmup=1) / 1e3
+        t_s = gpu_ms(torch, lambda: tsvd.svd_batched(a, staged), iters=1,
+                     warmup=1) / 1e3
+        b = a.shape[0]
+        return {"fused_s": t_f, "staged_s": t_s,
+                "fused_matrices_per_s": b / t_f,
+                "staged_matrices_per_s": b / t_s,
+                "staged_over_fused": t_s / t_f, "fused_iters": iters}
+
+    def rel_err(s, want):
+        return float(((s.double() - want.double()).abs().amax(-1)
+                      / want.double().amax(-1)).max())
+
+    staged_path = ["chase_cycle_cuda", "sturm_bisect_cuda", "tape_apply_cuda"]
+    (bf, nf, bwf, _), (bg, ng, bwg, _) = fused_main
+    cf = PipelineConfig.resolve(bw=bwf, dtype=f64, n=nf,
+                                backend="fused_small")
+    cs = PipelineConfig.resolve(bw=bwf, dtype=f64, n=nf)
+    af = torch.randn((bf, nf, nf), generator=gen, dtype=f64, device="cuda")
+    sig_f, rf = drive(f"fp64 B={bf} n={nf} fused svd_batched",
+                      lambda: tsvd.svd_batched(af, cf, check=True),
+                      ["fused_small_svd_cuda"])
+    one_fused_launch("fused fp64 values", rf)
+    sig_s, rs = drive(f"fp64 B={bf} n={nf} staged svd_batched",
+                      lambda: tsvd.svd_batched(af, cs), staged_path)
+    svf = torch.linalg.svdvals(af)
+    err_fs, err_fl = rel_err(sig_f, sig_s), rel_err(sig_f, svf)
+    (uf, suf, vtf), ruv = drive(
+        f"fp64 B={bf} n={nf} fused svd_batched(compute_uv=True)",
+        lambda: tsvd.svd_batched(af, cf, compute_uv=True, check=True),
+        ["fused_small_svd_cuda", "sturm_bisect_cuda"])
+    one_fused_launch("fused fp64 uv", ruv, also=("sturm_bisect_cuda",))
+    eyef = torch.eye(nf, dtype=f64, device="cuda")
+    res_f = (af - (uf * suf[..., None, :]) @ vtf).abs().amax((-2, -1))
+    recon_f = float((res_f / suf.amax(-1)).max())
+    orth_uf = float((uf.mT @ uf - eyef).abs().max())
+    orth_vf = float((vtf @ vtf.mT - eyef).abs().max())
+    err_uv = rel_err(suf, sig_f)
+    ok_f = (tuple(sig_f.shape) == (bf, nf) and err_fs <= 1e-12
+            and err_fl <= 1e-12 and recon_f <= 1e-11 and orth_uf <= 1e-11
+            and orth_vf <= 1e-11 and err_uv <= 1e-13)
+    times_f = fused_vs_staged(af, cf, cs, 10)
+    emit({"phase": f"fused_fp64_B{bf}_n{nf}", "ok": ok_f, "B": bf, "n": nf,
+          "bw": bwf, "staged_tw": cs.tw,
+          "err_vs_staged_over_sigma_max": err_fs,
+          "err_vs_svdvals_over_sigma_max": err_fl, "tol_sigma": 1e-12,
+          "uv_recon_max_over_sigma_max": recon_f, "uv_orth_u": orth_uf,
+          "uv_orth_v": orth_vf, "tol_uv": 1e-11,
+          "uv_sigma_vs_values_over_sigma_max": err_uv, "tol_uv_sigma": 1e-13,
+          **times_f, "runs": [rf, rs, ruv]})
+    check(ok_f, "phase 8: fused fp64 sigma or vectors off their bounds")
+    del af, uf, vtf
+
+    cg = PipelineConfig.resolve(bw=bwg, dtype=f32, n=ng,
+                                backend="fused_small")
+    csg = PipelineConfig.resolve(bw=bwg, dtype=f32, n=ng)
+    ag = torch.randn((bg, ng, ng), generator=gen, dtype=f32, device="cuda")
+    sig_g, rg = drive(f"fp32 B={bg} n={ng} fused svd_batched",
+                      lambda: tsvd.svd_batched(ag, cg, check=True),
+                      ["fused_small_svd_cuda"])
+    one_fused_launch("fused fp32 values", rg)
+    sig_gs, rgs = drive(f"fp32 B={bg} n={ng} staged svd_batched",
+                        lambda: tsvd.svd_batched(ag, csg), staged_path)
+    svg = torch.linalg.svdvals(ag.double())
+    err_gl = rel_err(sig_g, svg)
+    ok_g = tuple(sig_g.shape) == (bg, ng) and err_gl <= 5e-4
+    times_g = fused_vs_staged(ag, cg, csg, 5)
+    emit({"phase": f"fused_fp32_B{bg}_n{ng}", "ok": ok_g, "B": bg, "n": ng,
+          "bw": bwg, "staged_tw": csg.tw,
+          "err_vs_fp64_svdvals_over_sigma_max": err_gl, "tol_sigma": 5e-4,
+          "staged_err_vs_fp64_svdvals_over_sigma_max": rel_err(sig_gs, svg),
+          **times_g, "runs": [rg, rgs]})
+    check(ok_g, "phase 9: fused fp32 sigma off the fp64 yardstick")
+    del ag
+
     # ---- where stage 2's time goes: torch.profiler over one stage ------
     from torch.profiler import ProfilerActivity, profile
 
@@ -803,14 +1011,18 @@ def run(args, torch) -> int:
     sources = {"chase_cycle_cuda": "src/repro_torch/kernels/csrc/chase.cu",
                "chase_superstep_cuda": "src/repro_torch/kernels/csrc/chase.cu",
                "sturm_bisect_cuda": "src/repro_torch/kernels/csrc/sturm.cu",
-               "tape_apply_cuda": "src/repro_torch/kernels/csrc/hh_apply.cu"}
+               "tape_apply_cuda": "src/repro_torch/kernels/csrc/hh_apply.cu",
+               "fused_small_svd_cuda":
+                   "src/repro_torch/kernels/csrc/fused_small.cu"}
     replaces = {
         "chase_cycle_cuda": "src/repro/kernels/bulge_chase.py:126",
         "chase_superstep_cuda": "src/repro/kernels/bulge_chase.py:225",
         "sturm_bisect_cuda": "src/repro/core/bidiag_svd.py:97 (jnp "
                              "fori_loop; no pallas_call)",
         "tape_apply_cuda": "src/repro/kernels/hh_apply.py:56 (and "
-                           "hh_block_apply_pallas :33)"}
+                           "hh_block_apply_pallas :33)",
+        "fused_small_svd_cuda": "src/repro/kernels/fused_small.py:266 "
+                                "(pallas_call :298)"}
     kernels = []
     for name in sources:
         t = timing[name]
@@ -827,11 +1039,15 @@ def run(args, torch) -> int:
             row.update(main_path_ms=t["main_path_ms"],
                        main_path_shape=t["main_path_shape"],
                        main_path_bound_ms=t["main_path_bound"][0])
-        second = timing.get(f"{name} (replay)")
-        if second is not None:
-            row["replay_shape"] = {
+        for suffix, field in ((" (replay)", "replay_shape"),
+                              (" (second shape)", "second_shape")):
+            second = timing.get(f"{name}{suffix}")
+            if second is None:
+                continue
+            row[field] = {
                 "shape": second["shape"], "ms": second["ms"],
-                "ms_from": second["ms_from"], "plain_ms": second["plain_ms"],
+                "ms_from": second["ms_from"],
+                "plain_ms": second["plain_ms"],
                 "library_ms": second["library_ms"],
                 "bound_ms": second["bound"][0],
                 "bound_by": second["bound"][1]}

@@ -14,7 +14,7 @@ from repro_torch.core import tuning
 
 __all__ = ["pipeline_config_from_reference", "band_from_numpy"]
 
-_BACKENDS = {"pallas": "cuda", "ref": "ref"}
+_BACKENDS = {"pallas": "cuda", "ref": "ref", "fused_small": "fused_small"}
 _KEPT = ("bw", "tw", "fuse", "dtype", "compute_uv")
 
 
@@ -23,12 +23,14 @@ def pipeline_config_from_reference(fields: dict, device: str = "cuda"
     """This package's config from ``dataclasses.asdict`` of a reference
     ``PipelineConfig``.
 
-    "pallas" becomes "cuda" and "ref" stays "ref"; ``bw``, ``tw``, ``fuse``,
-    ``dtype`` and ``compute_uv`` are kept.  ``interpret`` is dropped, and
-    so are ``max_batch`` (serving's bucket size) and ``unroll`` (the
-    reference's loop unrolling), which nothing in this package reads yet.
+    "pallas" becomes "cuda"; "ref" and "fused_small" keep their names (the
+    fused tier runs its kernel on the card and its plain version on the
+    CPU); ``bw``, ``tw``, ``fuse``, ``dtype`` and ``compute_uv`` are kept.
+    ``interpret`` is dropped, and so are ``max_batch`` (serving's bucket
+    size) and ``unroll`` (the reference's loop unrolling), which nothing in
+    this package reads yet.
     What this package lacks raises ``NotImplementedError``: a stage 3 other
-    than bisection, the fused small-n backend."""
+    than bisection."""
     stage3 = fields.get("stage3", "bisect")
     if stage3 != "bisect":
         raise NotImplementedError(tuning.LATER.get(stage3, stage3))

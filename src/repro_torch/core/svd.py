@@ -13,6 +13,11 @@ into U and V^T, and stage 3 adds the bidiagonal's vectors; sigma comes from
 the same band arithmetic and the same bisection call as the values path, so
 it is bit-identical to it.
 
+A config with ``backend="fused_small"`` sends every entry point through
+``_fused_path`` in place of the staged pipeline: the one-launch small-n
+tier (``ops.fused_svd``), whose in-kernel stage 1 is an exact no-op on a
+banded input.
+
 Every entry point runs on the card unless the caller asks for the CPU: the
 config's ``device`` is "cuda" by default, a missing card raises
 ``RuntimeError``, and ``device="cpu"`` runs the plain PyTorch versions.
@@ -32,6 +37,7 @@ from repro_torch.core import stage1 as s1
 from repro_torch.core import transforms
 from repro_torch.core import tuning
 from repro_torch.core.householder import acc_dtype
+from repro_torch.kernels import ops
 
 __all__ = ["NumericalFault", "validate_sigma", "validate_uv",
            "spot_check_svd", "bidiagonal_of", "banded_singular_values",
@@ -137,7 +143,6 @@ def _config(a: torch.Tensor, *, bw, tw, config, device
     if config.stage3 != "bisect":
         raise NotImplementedError(tuning.LATER.get(config.stage3,
                                                    config.stage3))
-    from repro_torch.kernels import ops
     ops.resolve_backend(config.backend, config.device)
     return config
 
@@ -149,6 +154,41 @@ def _on_device(a: torch.Tensor, device: str) -> torch.Tensor:
             "this call runs on a CUDA device and torch.cuda.is_available() "
             "is False; pass device='cpu' to run on the CPU")
     return a.to(dev)
+
+
+def _fused_path(a: torch.Tensor, cfg: tuning.PipelineConfig, *,
+                compute_uv: bool):
+    """The one-launch small-n tier, for any entry point whose config says
+    ``backend="fused_small"``.
+
+    Values mode is one ``ops.fused_svd`` call.  uv mode is the fused
+    reduction to (d, e, U2, V2^T), then stage 3 on the bidiagonal:
+    A = U2 B V2^T and B = Ub S Vb^T, so U = U2 Ub and V^T = Vb^T V2^T."""
+    lead, n = a.shape[:-2], a.shape[-1]
+    mats = a.reshape((-1, n, n)).contiguous()
+    if not compute_uv:
+        sig = ops.fused_svd(mats, bw=cfg.bw, compute_uv=False, config=cfg)
+        return sig.reshape(lead + (n,))
+    d, e, u2, vt2 = ops.fused_svd(mats, bw=cfg.bw, compute_uv=True,
+                                  config=cfg)
+    ub, sig, vtb = s3.bidiag_svd(d, e, backend=cfg.backend)
+    return ((u2 @ ub).reshape(lead + (n, n)), sig.reshape(lead + (n,)),
+            (vtb @ vt2).reshape(lead + (n, n)))
+
+
+def _solve(a: torch.Tensor, cfg: tuning.PipelineConfig, *, banded: bool,
+           compute_uv: bool):
+    """sigma, or (U, sigma, V^T), of a dense or (``banded``) upper-banded
+    input through the fused tier or the staged pipeline, as the config
+    says: the one place every entry point routes."""
+    if cfg.backend == "fused_small":
+        return _fused_path(a, cfg, compute_uv=compute_uv)
+    if compute_uv:
+        return _uv_pipeline(a, cfg, banded=banded)
+    if not banded:
+        a = s1.band_reduce(a, nb=cfg.bw, config=cfg)
+    d, e = bc.bidiagonalize(a, bw=cfg.bw, tw=cfg.tw, config=cfg)
+    return s3.bidiag_singular_values(d, e, backend=cfg.backend)
 
 
 def bidiagonal_of(a, *, bw: int | None = None, tw: int | None = None,
@@ -175,9 +215,8 @@ def banded_singular_values(a, *, bw: int | None = None,
     ``check=True`` runs :func:`validate_sigma` on the result."""
     a = _as_tensor(a)
     cfg = _config(a, bw=bw, tw=tw, config=config, device=device)
-    a = _on_device(a, cfg.device)
-    d, e = bc.bidiagonalize(a, bw=cfg.bw, tw=cfg.tw, config=cfg)
-    sig = s3.bidiag_singular_values(d, e, backend=cfg.backend)
+    sig = _solve(_on_device(a, cfg.device), cfg, banded=True,
+                 compute_uv=False)
     if check:
         validate_sigma(sig)
     return sig
@@ -192,10 +231,8 @@ def singular_values(a, *, bw: int | None = None, tw: int | None = None,
     3.  ``check=True`` runs :func:`validate_sigma` on the result."""
     a = _as_tensor(a)
     cfg = _config(a, bw=bw, tw=tw, config=config, device=device)
-    a = _on_device(a, cfg.device)
-    banded = s1.band_reduce(a, nb=cfg.bw, config=cfg)
-    d, e = bc.bidiagonalize(banded, bw=cfg.bw, tw=cfg.tw, config=cfg)
-    sig = s3.bidiag_singular_values(d, e, backend=cfg.backend)
+    sig = _solve(_on_device(a, cfg.device), cfg, banded=False,
+                 compute_uv=False)
     if check:
         validate_sigma(sig)
     return sig
@@ -293,7 +330,8 @@ def svd(a, *, bw: int | None = None, tw: int | None = None,
     if not compute_uv:
         return singular_values(a, config=cfg, check=check)
     a = _on_device(a, cfg.device)
-    return _checked_uv(a, _uv_pipeline(a, cfg, banded=False), check=check)
+    return _checked_uv(a, _solve(a, cfg, banded=False, compute_uv=True),
+                       check=check)
 
 
 def banded_svd(a, *, bw: int | None = None, tw: int | None = None,
@@ -307,4 +345,5 @@ def banded_svd(a, *, bw: int | None = None, tw: int | None = None,
     if not compute_uv:
         return banded_singular_values(a, config=cfg, check=check)
     a = _on_device(a, cfg.device)
-    return _checked_uv(a, _uv_pipeline(a, cfg, banded=True), check=check)
+    return _checked_uv(a, _solve(a, cfg, banded=True, compute_uv=True),
+                       check=check)

@@ -23,7 +23,8 @@ from repro_torch.core.householder import acc_dtype
 __all__ = [
     "SMEM_PER_BLOCK", "default_tilewidth", "sweep_separation",
     "max_concurrent_sweeps", "smem_bytes", "check_smem_budget",
-    "default_fuse_depth", "stage_plan", "PipelineConfig",
+    "fused_smem_bytes", "check_fused_smem_budget", "default_fuse_depth",
+    "stage_plan", "PipelineConfig",
 ]
 
 SMEM_PER_BLOCK = 232_448     # H100: shared memory one block may hold, bytes
@@ -108,6 +109,39 @@ def check_smem_budget(b_in: int, tw: int, dtype=torch.float32,
     return need
 
 
+def fused_smem_bytes(n: int, dtype=torch.float32, *,
+                     compute_uv: bool = False) -> int:
+    """Dynamic shared memory of one block of the fused small-n kernel, in
+    bytes.
+
+    The (n, n) matrix and, in uv mode, U and V^T stay in device memory; the
+    block holds O(n) words in the accumulation type: the reflector (which
+    is first the row or column it reduces), the dot products w of the
+    matrix, two scalars (tau, beta), and either the dot products of the
+    transform being accumulated (uv mode) or the Golub–Kahan z of length
+    2n - 1 (values mode)."""
+    n = max(int(n), 1)
+    words = 2 * n + 2 + (n if compute_uv else 2 * n - 1)
+    return words * _itemsize(acc_dtype(dtype_of(dtype)))
+
+
+def check_fused_smem_budget(n: int, dtype=torch.float32, *,
+                            compute_uv: bool = False) -> int:
+    """Raise when one block of the fused kernel would not fit Hopper's
+    shared memory; return the bytes it needs.
+
+    The fused tier has no tiled fallback, so such an n belongs on the
+    staged pipeline."""
+    need = fused_smem_bytes(n, dtype, compute_uv=compute_uv)
+    if need > SMEM_PER_BLOCK:
+        raise ValueError(
+            f"fused_small kernel for n={n}, dtype={dtype_name(dtype)} "
+            f"(compute_uv={compute_uv}) needs {need} B of shared memory per "
+            f"block; the H100 gives {SMEM_PER_BLOCK} B. Route this size to "
+            f"the staged pipeline instead.")
+    return need
+
+
 def default_fuse_depth(b_in: int, tw: int, dtype=torch.float32, *,
                        cap: int = 4) -> int:
     """Fuse depth K for ``fuse=None``: the cap, once ``check_smem_budget``
@@ -132,7 +166,6 @@ def stage_plan(bw: int, tw: int) -> tuple[tuple[int, int], ...]:
 
 
 LATER = {
-    "fused_small": "the one-dispatch small-n tier comes in a later slice",
     "dc": "divide-and-conquer stage 3 comes in a later slice",
     "auto": "stage3='auto' needs divide-and-conquer, a later slice",
 }
@@ -142,11 +175,12 @@ LATER = {
 class PipelineConfig:
     """Resolved configuration of the pipeline (stages 1 to 3).
 
-    ``backend`` is "ref" (plain PyTorch) or "cuda" (the hand-written
-    kernels); ``device`` is where the pipeline runs, the card unless the
-    caller asks for the CPU; ``compute_uv`` is the default of
-    ``svd_batched``: singular vectors too (the tapes are recorded and
-    replayed)."""
+    ``backend`` is "ref" (plain PyTorch), "cuda" (the hand-written
+    kernels) or "fused_small" (the one-launch small-n tier: the fused
+    kernel on a CUDA device, its plain version on the CPU); ``device`` is
+    where the pipeline runs, the card unless the caller asks for the CPU;
+    ``compute_uv`` is the default of ``svd_batched``: singular vectors too
+    (the tapes are recorded and replayed)."""
     bw: int
     tw: int
     backend: str = "cuda"
@@ -170,7 +204,9 @@ class PipelineConfig:
 
         ``backend="auto"`` follows the requested ``device``: "cuda" on a
         CUDA device, "ref" on the CPU.  It never looks at what the machine
-        has.  ``fuse=None`` asks ``default_fuse_depth``."""
+        has.  ``fuse=None`` asks ``default_fuse_depth``.  With
+        ``backend="fused_small"`` and a known ``n``, an n whose fused block
+        would not fit shared memory raises (``check_fused_smem_budget``)."""
         from repro_torch.kernels import ops   # deferred: ops imports tuning
         if stage3 != "bisect":
             raise NotImplementedError(LATER.get(stage3, f"stage3={stage3!r}"))
@@ -181,6 +217,8 @@ class PipelineConfig:
         tw = tw if tw is not None else default_tilewidth(bw, dtype_of(dtype))
         tw = max(1, min(tw, max(bw - 1, 1)))
         check_smem_budget(bw, tw, dtype)
+        if backend == "fused_small" and n is not None:
+            check_fused_smem_budget(n, dtype, compute_uv=compute_uv)
         if fuse is None:
             fuse = default_fuse_depth(bw, tw, dtype)
         return cls(bw=bw, tw=tw, backend=backend, dtype=dtype_name(dtype),

@@ -3,8 +3,11 @@
 Backends are entries in a small registry (``register_backend``) that maps a
 name to per-op implementations:
 
-  "ref"   the plain PyTorch versions, on any device;
-  "cuda"  the hand-written Hopper kernels, on CUDA tensors only.
+  "ref"          the plain PyTorch versions, on any device;
+  "cuda"         the hand-written Hopper kernels, on CUDA tensors only;
+  "fused_small"  the one-launch small-n tier: every op runs the "cuda"
+                 implementation on a CUDA tensor and the "ref" one on a CPU
+                 tensor, so a fused config can still run any staged op.
 
 ``resolve_backend`` turns "auto" into a concrete name from the *requested
 device*, never from what the machine has: "cuda" for a CUDA device, "ref"
@@ -20,7 +23,7 @@ import torch
 from repro_torch.core.tuning import LATER
 
 __all__ = ["chase_cycle", "sturm_bisect", "tape_apply", "hh_block_apply",
-           "register_backend",
+           "fused_svd", "register_backend",
            "resolve_backend", "backend_names", "launch_counts",
            "reset_launch_counts"]
 
@@ -84,8 +87,15 @@ def _ref_hh(v, t, c):
     return ref.hh_block_apply_ref(v, t, c)
 
 
+def _ref_fused(mats, *, bw, compute_uv, max_iter):
+    from repro_torch.kernels import ref
+    return ref.fused_small_svd_ref(mats, bw=bw, compute_uv=compute_uv,
+                                   max_iter=max_iter)
+
+
 register_backend("ref", chase_cycle=_ref_chase, sturm_bisect=_ref_bisect,
-                 tape_apply=_ref_tape, hh_block_apply=_ref_hh)
+                 tape_apply=_ref_tape, hh_block_apply=_ref_hh,
+                 fused_svd=_ref_fused)
 
 
 # ---- "cuda": the Hopper kernels (built on first use) ----------------------
@@ -115,8 +125,29 @@ def _cuda_hh(v, t, c):
     return hh_apply.hh_block_apply_cuda(v, t, c)
 
 
+def _cuda_fused(mats, *, bw, compute_uv, max_iter):
+    from repro_torch.kernels import fused_small
+    return fused_small.fused_small_svd_cuda(mats, bw=bw,
+                                            compute_uv=compute_uv,
+                                            max_iter=max_iter)
+
+
 register_backend("cuda", chase_cycle=_cuda_chase, sturm_bisect=_cuda_bisect,
-                 tape_apply=_cuda_tape, hh_block_apply=_cuda_hh)
+                 tape_apply=_cuda_tape, hh_block_apply=_cuda_hh,
+                 fused_svd=_cuda_fused)
+
+
+# ---- "fused_small": by the device of the op's first tensor ----------------
+
+def _fused_small_delegate(op: str) -> Callable:
+    def impl(x, *args, **kwargs):
+        name = "cuda" if x.device.type == "cuda" else "ref"
+        return _REGISTRY[name][op](x, *args, **kwargs)
+    return impl
+
+
+register_backend("fused_small", **{op: _fused_small_delegate(op)
+                                   for op in _REGISTRY["cuda"]})
 
 
 # ---- public wrappers ------------------------------------------------------
@@ -164,9 +195,21 @@ def hh_block_apply(v: torch.Tensor, t: torch.Tensor, c: torch.Tensor, *,
     return _impl("hh_block_apply", backend, config, c.device)(v, t, c)
 
 
+def fused_svd(mats: torch.Tensor, *, bw: int, compute_uv: bool = False,
+              max_iter: int | None = None, backend: str = "auto",
+              config=None):
+    """The whole per-matrix SVD of a (B, n, n) stack: sigma (B, n),
+    descending, or with ``compute_uv`` ``(d, e, U2, V2^T)`` with
+    ``A = U2 B V2^T``.  On a CUDA tensor one launch of the fused kernel;
+    on the CPU its plain version."""
+    impl = _impl("fused_svd", backend, config, mats.device)
+    return impl(mats, bw=bw, compute_uv=compute_uv, max_iter=max_iter)
+
+
 def _launch_tables():
-    from repro_torch.kernels import bisect, bulge_chase, hh_apply
-    return (bulge_chase.launches, bisect.launches, hh_apply.launches)
+    from repro_torch.kernels import bisect, bulge_chase, fused_small, hh_apply
+    return (bulge_chase.launches, bisect.launches, hh_apply.launches,
+            fused_small.launches)
 
 
 def launch_counts() -> dict[str, int]:

@@ -1,5 +1,6 @@
-"""Plain PyTorch versions of the chase kernels (``csrc/chase.cu``) and of the
-compact-WY apply (``csrc/hh_apply.cu``).
+"""Plain PyTorch versions of the chase kernels (``csrc/chase.cu``), of the
+compact-WY apply (``csrc/hh_apply.cu``) and of the fused small-n SVD
+(``csrc/fused_small.cu``).
 
 They run on any device.  The CPU tests hold them against the reference's
 ``kernels/ref.py``, and ``chip_smoke.py`` holds the CUDA kernels against
@@ -25,10 +26,12 @@ from __future__ import annotations
 
 import torch
 
+from repro_torch.core.bidiag_svd import bidiag_singular_values
 from repro_torch.core.householder import acc_dtype, make_reflector
 
 __all__ = ["chase_cycle_ref", "chase_superstep_ref", "tape_apply_ref",
-           "hh_block_apply_ref"]
+           "hh_block_apply_ref", "effective_bw", "fused_walk",
+           "fused_small_svd_ref"]
 
 
 def _chase_window(win: torch.Tensor, first: torch.Tensor, *, b_in: int,
@@ -150,3 +153,136 @@ def hh_block_apply_ref(v: torch.Tensor, t: torch.Tensor,
     m, k, w = c.shape[-2], v.shape[-1], c.shape[-1]
     return tape_apply_ref(v.reshape(-1, m, k), t.reshape(-1, k, k),
                           c.reshape(-1, m, w)).reshape(c.shape)
+
+
+# ---------------------------------------------------------------------------
+# The fused small-n SVD: the whole per-matrix pipeline (dense -> band(bw),
+# one SBR stage bw -> 1, then Sturm bisection).  The reflector bounds are
+# Python ints, so each reflector works on its support slice [lo, hi].
+# ---------------------------------------------------------------------------
+
+def effective_bw(n: int, bw: int) -> int:
+    """Clamp a requested bandwidth to the fused kernel's valid range: 0
+    ("pick for me") becomes 1, and more than n - 1 becomes n - 1."""
+    return int(max(1, min(int(bw), max(int(n) - 1, 1))))
+
+
+def fused_walk(n: int, bw: int):
+    """The reflectors of the fused reduction of an (n, n) matrix, in order,
+    as ``(right, k, lo, hi)``: a right reflector on row k over columns
+    [lo, hi], or a left one on column k (= lo) over rows [lo, hi].
+
+    Phase 1 (dense -> upper band bw): for j < n - 1, left on column j, rows
+    [j, n-1], then right on row j, columns [j+bw, n-1].  Phase 2 (one SBR
+    stage b_in = bw, tw = bw - 1, when bw >= 2 and n >= 3): for sweep
+    R < n - 2 and cycle jc < (n-2)//bw + 1, pivot p = R + 1 + jc*bw, row
+    r = R on a sweep's first cycle and p - bw after, hi = min(p+bw-1, n-1):
+    right on row r over [p, hi], then left on column p over [p, hi].
+    Supports of one entry or none (``tau = 0``, no-ops in the reference) are
+    left out; the kernel walks the same list."""
+    bw = effective_bw(n, bw)
+    for j in range(n - 1):
+        yield False, j, j, n - 1
+        if j + bw < n - 1:
+            yield True, j, j + bw, n - 1
+    if bw < 2 or n < 3:
+        return
+    ncyc = (n - 2) // bw + 1
+    for sweep in range(n - 2):
+        for jc in range(ncyc):
+            p = sweep + 1 + jc * bw
+            if p >= n - 1:
+                break
+            r = sweep if jc == 0 else p - bw
+            hi = min(p + bw - 1, n - 1)
+            yield True, r, p, hi
+            yield False, p, p, hi
+
+
+def _fixed(seg: torch.Tensor, beta: torch.Tensor, tau: torch.Tensor):
+    """``seg`` (B, L) with beta at 0 and exact zeros after it, where
+    ``tau != 0``; unchanged where ``tau == 0``."""
+    fix = torch.zeros_like(seg)
+    fix[:, 0] = beta
+    return torch.where((tau != 0)[:, None], fix, seg)
+
+
+def _fix_row(a, r, lo, hi, beta, tau) -> None:
+    """After a right reflector: row r gets beta at lo and exact zeros on
+    (lo, hi], gated on ``tau != 0`` (in place)."""
+    a[:, r, lo:hi + 1] = _fixed(a[:, r, lo:hi + 1], beta, tau)
+
+
+def _fix_col(a, c, lo, hi, beta, tau) -> None:
+    """After a left reflector: column c gets beta at row lo and exact zeros
+    on (lo, hi], gated on ``tau != 0`` (in place)."""
+    a[:, lo:hi + 1, c] = _fixed(a[:, lo:hi + 1, c], beta, tau)
+
+
+def _reduce(a: torch.Tensor, *, bw: int, compute_uv: bool):
+    """Phases 1 and 2 on a batch (B, n, n) in the accumulation type.
+
+    Returns ``(d, e, u, vt)``: the bidiagonal (e[..., 0] = 0) and, with
+    ``compute_uv``, U2 and V2^T with ``A = U2 B V2^T`` (else None).  A right
+    reflector H updates every row of the columns [lo, hi] and V <- V H (the
+    rows [lo, hi] of V^T); a left one every column of the rows [lo, hi] and
+    U <- U H."""
+    b, n, _ = a.shape
+    a = a.clone()
+    u = vt = None
+    if compute_uv:
+        eye = torch.eye(n, dtype=a.dtype, device=a.device).expand(b, n, n)
+        u, vt = eye.clone(), eye.clone()
+    for right, k, lo, hi in fused_walk(n, bw):
+        s = slice(lo, hi + 1)
+        if right:
+            v, tau, beta = make_reflector(a[:, k, s])
+            blk = a[:, :, s]
+            w = (blk @ v[:, :, None])[..., 0]
+            a[:, :, s] = blk - tau[:, None, None] * (w[:, :, None]
+                                                     * v[:, None, :])
+            _fix_row(a, k, lo, hi, beta, tau)
+            if compute_uv:
+                blk = vt[:, s, :]
+                w2 = (v[:, None, :] @ blk)[:, 0, :]
+                vt[:, s, :] = blk - tau[:, None, None] * (v[:, :, None]
+                                                          * w2[:, None, :])
+        else:
+            v, tau, beta = make_reflector(a[:, s, k])
+            blk = a[:, s, :]
+            w = (v[:, None, :] @ blk)[:, 0, :]
+            a[:, s, :] = blk - tau[:, None, None] * (v[:, :, None]
+                                                     * w[:, None, :])
+            _fix_col(a, k, lo, hi, beta, tau)
+            if compute_uv:
+                blk = u[:, :, s]
+                w2 = (blk @ v[:, :, None])[..., 0]
+                u[:, :, s] = blk - tau[:, None, None] * (w2[:, :, None]
+                                                         * v[:, None, :])
+    d = a.diagonal(0, -2, -1).clone()
+    e = torch.zeros_like(d)
+    e[:, 1:] = a.diagonal(1, -2, -1)
+    return d, e, u, vt
+
+
+def fused_small_svd_ref(mats: torch.Tensor, *, bw: int,
+                        compute_uv: bool = False,
+                        max_iter: int | None = None):
+    """Plain version of ``fused_small_svd_cuda`` on a (B, n, n) stack.
+
+    Values mode returns sigma (B, n), descending: phases 1 and 2, then the
+    port's stage 3 (``bidiag_singular_values`` on ``backend="ref"``).
+    ``compute_uv=True`` returns ``(d, e, U2, V2^T)`` with ``e[..., 0] = 0``
+    and ``A = U2 B V2^T``.  bw goes through :func:`effective_bw`.  Half
+    types work in float32 and are rounded once, at the end."""
+    if mats.dim() != 3 or mats.shape[-1] != mats.shape[-2]:
+        raise ValueError(f"expected stacked (B, n, n), got "
+                         f"{tuple(mats.shape)}")
+    n = mats.shape[-1]
+    dt = mats.dtype
+    d, e, u, vt = _reduce(mats.to(acc_dtype(dt)), bw=effective_bw(n, bw),
+                          compute_uv=compute_uv)
+    if compute_uv:
+        return d.to(dt), e.to(dt), u.to(dt), vt.to(dt)
+    return bidiag_singular_values(d, e, max_iter=max_iter,
+                                  backend="ref").to(dt)

@@ -26,6 +26,7 @@ from repro_torch.core import svd as tsvd
 from repro_torch.core.tuning import PipelineConfig
 from repro_torch.kernels import bisect as tbisect
 from repro_torch.kernels import bulge_chase as tkern
+from repro_torch.kernels import fused_small as tfused
 from repro_torch.kernels import hh_apply as thh
 from repro_torch.kernels import ops
 from repro_torch.kernels import ref as tref
@@ -39,6 +40,9 @@ FUSES = [2, 4]
 # (m, k, w) of the reference's compact-WY tests (tests/test_kernels.py)
 WY_SHAPES = [(64, 8, 100), (128, 16, 64), (33, 4, 7), (256, 32, 512),
              (16, 1, 5)]
+# the fused kernel: the reference's shapes and the two main-path runs of
+# chip_smoke.py, held to fused_small's CHECK_TOLS and ENTRY_TOL_FP64
+FUSED_SHAPES = tfused.CHECK_SHAPES + [(64, 64, 8), (64, 256, 32)]
 
 
 def wy_inputs(s, m, k, w, seed, dtype, device):
@@ -101,6 +105,24 @@ def test_wrappers_on_cpu_tensors_run_the_plain_versions():
     torch.testing.assert_close(ops.hh_block_apply(v, t, c),
                                tref.tape_apply_ref(v, t, c), rtol=0, atol=0)
     assert ops.launch_counts() == before      # no kernel ran
+
+
+def test_fused_small_wrapper_takes_cuda_tensors_only():
+    """On the CPU ``ops.fused_svd`` runs the plain version and launches
+    nothing; the kernel's wrapper raises on a CPU tensor."""
+    a = torch.from_numpy(np.random.default_rng(4).standard_normal((2, 9, 9)))
+    before = ops.launch_counts()
+    torch.testing.assert_close(ops.fused_svd(a, bw=3),
+                               tref.fused_small_svd_ref(a, bw=3),
+                               rtol=0, atol=0)
+    torch.testing.assert_close(ops.fused_svd(a, bw=3, backend="fused_small"),
+                               tref.fused_small_svd_ref(a, bw=3),
+                               rtol=0, atol=0)
+    assert ops.launch_counts() == before
+    with pytest.raises(ValueError, match="CUDA"):
+        tfused.fused_small_svd_cuda(a, bw=3)
+    with pytest.raises(ValueError, match="CUDA"):
+        ops.fused_svd(a, bw=3, backend="cuda")
 
 
 def test_tape_apply_wrapper_takes_cuda_tensors_only():
@@ -263,3 +285,78 @@ def test_full_svd_on_the_card_matches_the_cpu(cuda, fuse):
     close(s, sc, 1e-12)
     close(u, uc, 1e-9)
     close(vt, vtc, 1e-9)
+
+
+@pytest.mark.cuda
+@pytest.mark.parametrize("compute_uv", [False, True])
+@pytest.mark.parametrize("dtype", ["float64", "float32"])
+@pytest.mark.parametrize("B,n,bw", FUSED_SHAPES)
+def test_fused_small_svd_cuda_matches_plain(cuda, B, n, bw, dtype,
+                                            compute_uv):
+    a = torch.from_numpy(np.random.default_rng(n * 7 + bw).standard_normal(
+        (B, n, n))).to(cuda, torch_dtype(dtype))
+    want = tref.fused_small_svd_ref(a, bw=bw, compute_uv=compute_uv)
+    got = tfused.fused_small_svd_cuda(a, bw=bw, compute_uv=compute_uv)
+    torch.cuda.synchronize()
+    tol, tol_uv = tfused.CHECK_TOLS[dtype]
+    if not compute_uv:
+        close(got, want, tol)
+        assert bool((got[:, 1:] <= got[:, :-1]).all())
+        return
+    (d, e, u, vt), (d0, e0) = got, want[:2]
+    assert bool((e[:, 0] == 0).all())
+    close(s3.bidiag_singular_values(d, e), s3.bidiag_singular_values(d0, e0),
+          tol)
+    assert max(tfused.uv_invariants(a, d, e, u, vt)) <= tol_uv
+    if dtype == "float64":
+        assert tfused.entry_error(got, want) <= tfused.ENTRY_TOL_FP64
+
+
+@pytest.mark.cuda
+@pytest.mark.parametrize("B,n,bw", FUSED_SHAPES)
+def test_fused_small_svd_cuda_bf16(cuda, B, n, bw):
+    """bf16 works in fp32 and is rounded once, at the store: sigma within a
+    bf16 ulp of the scale (2**-7 at most) of the plain version's."""
+    a = torch.from_numpy(np.random.default_rng(n * 5 + bw).standard_normal(
+        (B, n, n))).to(cuda, torch.bfloat16)
+    got = tfused.fused_small_svd_cuda(a, bw=bw)
+    assert got.dtype == torch.bfloat16
+    close(got, tref.fused_small_svd_ref(a, bw=bw), 1e-2)
+    d, e, u, vt = tfused.fused_small_svd_cuda(a, bw=bw, compute_uv=True)
+    assert u.dtype == torch.bfloat16 and bool((e[:, 0] == 0).all())
+    close(s3.bidiag_singular_values(d, e),
+          tref.fused_small_svd_ref(a, bw=bw), 1e-2)
+
+
+@pytest.mark.cuda
+def test_fused_small_values_is_one_launch(cuda):
+    n, bw = 48, 8
+    a = torch.from_numpy(np.random.default_rng(5).standard_normal(
+        (5, n, n))).to(cuda)
+    cfg = PipelineConfig.resolve(bw=bw, dtype=torch.float64, n=n,
+                                 backend="fused_small")
+    ops.reset_launch_counts()
+    sig = tsvd.svd_batched(a, cfg, check=True)
+    counts = ops.launch_counts()
+    assert counts.pop("fused_small_svd_cuda") == 1
+    assert not any(counts.values()), counts
+    assert sig.device.type == "cuda" and sig.shape == (5, n)
+
+
+@pytest.mark.cuda
+@pytest.mark.parametrize("compute_uv", [False, True])
+def test_fused_small_on_the_card_matches_the_cpu(cuda, compute_uv):
+    n, bw, B = 40, 8, 3
+    a = np.random.default_rng(6).standard_normal((B, n, n))
+    cfg = PipelineConfig.resolve(bw=bw, dtype=torch.float64, n=n,
+                                 backend="fused_small")
+    got = tsvd.svd_batched(a, cfg, compute_uv=compute_uv, check=True)
+    want = tsvd.svd_batched(a, dataclasses.replace(cfg, device="cpu"),
+                            compute_uv=compute_uv)
+    if not compute_uv:
+        close(got, want, 1e-12)
+        return
+    assert got[0].device.type == "cuda"
+    close(got[1], want[1], 1e-12)
+    close(got[0], want[0], 1e-9)       # stage 3's vectors, as in the staged
+    close(got[2], want[2], 1e-9)       # full-SVD test above

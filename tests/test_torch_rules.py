@@ -47,7 +47,7 @@ def test_import_leaves_jax_out():
             "repro_torch.core.transforms", "repro_torch.kernels.ops",
             "repro_torch.kernels.ref", "repro_torch.kernels.bulge_chase",
             "repro_torch.kernels.bisect", "repro_torch.kernels.hh_apply",
-            "repro_torch.kernels._build"]
+            "repro_torch.kernels.fused_small", "repro_torch.kernels._build"]
     code = ("import importlib, sys\n"
             f"for m in {mods!r}: importlib.import_module(m)\n"
             "bad = [m for m in sys.modules if m.split('.')[0] in "

@@ -174,10 +174,12 @@ def test_convert_round_trip():
     uv = convert.pipeline_config_from_reference(
         {**ref_fields, "compute_uv": True}, device="cpu")
     assert uv.compute_uv and not cpu.compute_uv
-    for bad in (dict(stage3="dc"), dict(backend="fused_small")):
-        with pytest.raises(NotImplementedError, match="later slice"):
-            convert.pipeline_config_from_reference({**ref_fields, **bad},
-                                                   device="cpu")
+    with pytest.raises(NotImplementedError, match="later slice"):
+        convert.pipeline_config_from_reference(
+            {**ref_fields, "stage3": "dc"}, device="cpu")
+    fused = convert.pipeline_config_from_reference(
+        {**ref_fields, "backend": "fused_small"}, device="cpu")
+    assert (fused.backend, fused.device) == ("fused_small", "cpu")
     # the same packed state gives the same bidiagonal in both packages
     n, bw, tw = 40, 8, 3
     a = banded((), n, bw, 11)
@@ -195,7 +197,9 @@ def test_later_slices_and_conflicts_raise():
     with pytest.raises(NotImplementedError, match="later slice"):
         PipelineConfig.resolve(bw=4, stage3="dc", device="cpu")
     with pytest.raises(NotImplementedError, match="later slice"):
-        PipelineConfig.resolve(bw=4, backend="fused_small", device="cpu")
+        PipelineConfig.resolve(bw=4, stage3="auto", device="cpu")
+    assert PipelineConfig.resolve(bw=4, backend="fused_small",
+                                  device="cpu").backend == "fused_small"
     cfg = cpu_config(4, 2)
     with pytest.raises(ValueError, match="conflicts"):
         tsvd.banded_singular_values(a, config=cfg, bw=6)
