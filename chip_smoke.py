@@ -1,7 +1,7 @@
 #!/usr/bin/env python3
 """Drive the PyTorch/CUDA port's main path on one NVIDIA H100 and check it.
 
-    python3 chip_smoke.py [--seed N]
+    python3 chip_smoke.py [--seed N] [--lm-planted-faults]
 
 Builds the port's CUDA kernels from ``src/repro_torch/kernels/csrc`` (one
 ``nvcc`` per source, all at once), holds each kernel against its plain
@@ -14,8 +14,14 @@ small-n tier (``backend="fused_small"``, one launch per batch) on 64 fp64
 matrices of n = 64 and 64 fp32 matrices of n = 256, each timed against the
 staged pipeline on the same batch.  Results are checked against
 ``torch.linalg.svdvals``, which serves here only as a yardstick, and U and
-V^T by reconstruction and orthogonality.  Every phase
-prints one JSON line; the line before the last two is the ``kernels``
+V^T by reconstruction and orthogonality.  Then the LM serving path with
+phi3-medium-14b at full width: a four-layer fp32 prefill (b = 2, s = 2048)
+with attention through the flash kernel, held to the same prefill through
+the kernel's plain version and to one-token decode; then all 40 layers in
+bf16, a timed prefill held to the same through the plain version, beside
+a witness of bf16 rounding (the plain path's bf16 logits against its fp32
+logits), and 8 requests answered by the token ``Engine`` through
+``repro_torch.launch.serve``.  Every phase prints one JSON line; the line before the last two is the ``kernels``
 summary, then the card's name and power limit as ``nvidia-smi`` gives them,
 then ``{"ok": true, "device": ...}``.
 
@@ -55,7 +61,28 @@ PEAK_FLOPS = {"float64": 34e12, "float32": 67e12, "bfloat16": 67e12}
 # matrix products (the compact-WY apply): fp64 on the tensor cores, 67
 # TFLOP/s; fp32 at fp32 precision has no tensor-core route (TF32 is not
 # fp32), 67 TFLOP/s; bf16 with fp32 sums on the tensor cores, 989 TFLOP/s
-PEAK_MATMUL_FLOPS = {"float64": 67e12, "float32": 67e12, "bfloat16": 989e12}
+PEAK_MATMUL_FLOPS = {"float64": 67e12, "float32": 67e12, "bfloat16": 989e12,
+                     "float16": 989e12}
+# causal flash attention: (BH, S, D) of the reference's kernel test
+# (tests/test_kernels.py), a ragged S and D = 64, each in fp32, bf16 and
+# fp16, and the main path's shape (phi3-medium-14b prefill at b = 2,
+# s = 2048: 2 x 40 heads of 128) in bf16 (the serving run) and fp32 (the
+# fp32 check); tolerances flash_attention.CHECK_TOLS
+FLASH_SHAPES = [(4, 256, 64), (2, 128, 32), (1, 64, 16), (3, 192, 64),
+                (80, 1000, 64), (80, 2047, 128)]
+FLASH_MAIN = (80, 2048, 128)
+# phi3-medium-14b: the prefill batch, the fp32 check's depth, and the
+# Engine's requests (the reference launcher's prompts of 2-8 tokens)
+LM_ARCH, LM_B, LM_S, LM_CHECK_LAYERS = "phi3-medium-14b", 2, 2048, 4
+LM_REQUESTS, LM_NEW_TOKENS, LM_MAX_BATCH, LM_MAX_SEQ = 8, 16, 4, 128
+# Under the reference's init (std 1/sqrt(L) for every stacked layer weight)
+# the scores q.k/sqrt(128) are of order 1e2: each softmax is nearly
+# one-hot and amplifies rounding.  The LM checks hold the kernel-backed
+# logits (and, at fp32, decode) to the plain-backed ones within
+# flash_attention.PREFILL_TOLS, placed by planted faults
+# (--lm-planted-faults).  The witnesses beside them are reports: the plain
+# path on the card against it on the CPU (fp32), and the plain path's bf16
+# logits against its fp32 logits (bf16).
 
 
 class PhaseFailed(RuntimeError):
@@ -74,6 +101,10 @@ def check(cond: bool, what: str) -> None:
 def main() -> int:
     ap = argparse.ArgumentParser(description=__doc__.split("\n")[0])
     ap.add_argument("--seed", type=int, default=0)
+    ap.add_argument("--lm-planted-faults", action="store_true",
+                    help="only read how far planted attention faults move "
+                    "the phi3 logits (the readings behind LM_TOLS), then "
+                    "exit")
     args = ap.parse_args()
 
     import torch
@@ -87,6 +118,8 @@ def main() -> int:
         return 1
     sys.path.insert(0, str(ROOT / "src"))
     try:
+        if args.lm_planted_faults:
+            return lm_planted_faults(args, torch)
         return run(args, torch)
     except PhaseFailed as exc:
         print(f"chip_smoke: FAILED: {exc}", file=sys.stderr)
@@ -240,6 +273,28 @@ def fused_bound(b, n, bw, max_iter, dtype, itemsize):
             "bytes" if t_bytes >= t_ops else "operations", nbytes, flops)
 
 
+def flash_bound(bh, s, d, dtype, itemsize):
+    """q, k, v read once and o written once; 4*D flops per (query, key)
+    pair on or below the diagonal (two products), at the card's peak for
+    matrix products of the type (bf16/fp16 on the tensor cores)."""
+    nbytes = 4 * bh * s * d * itemsize
+    flops = 4 * bh * d * s * (s + 1) // 2
+    t_bytes = nbytes / HBM_BYTES_PER_S
+    t_ops = flops / PEAK_MATMUL_FLOPS[dtype]
+    return (max(t_bytes, t_ops) * 1e3,
+            "bytes" if t_bytes >= t_ops else "operations", nbytes, flops)
+
+
+def logit_err(torch, got, want) -> float:
+    """max |got - want| over max(1, max |want|), in chunks along the
+    sequence (each logits tensor is 1.6 GB at b = 2, s = 2048)."""
+    err, scale = 0.0, 1.0
+    for g, w in zip(got.split(256, dim=1), want.split(256, dim=1)):
+        err = max(err, float((g - w).abs().max()))
+        scale = max(scale, float(w.abs().max()))
+    return err / scale
+
+
 def wy_inputs(torch, s, m, k, w, dtype, rng, orthogonal=False):
     """V (unit lower trapezoidal), T and C of a compact-WY apply, made from
     ``rng`` on the card.  ``orthogonal``: T from Householder taus, so that
@@ -324,6 +379,253 @@ def banded_matrix(torch, lead, n, bw, dtype, gen):
 
 
 # ---------------------------------------------------------------------------
+# the LM serving path
+# ---------------------------------------------------------------------------
+
+def lm_phases(args, torch, rng, drive, gen) -> None:
+    """phi3-medium-14b at full width.  ``lm_phi3_fp32_check``: four layers
+    in fp32, the kernel-backed prefill against the plain-backed one and
+    against one-token decode at every position.  ``lm_phi3_serve``: all
+    40 layers in bf16, a timed prefill against the plain-backed one, the
+    bf16 witness, and the Engine.  Each model is freed before the next
+    phase."""
+    import dataclasses
+
+    from repro_torch.configs import get_config
+    from repro_torch.kernels.flash_attention import PREFILL_TOLS
+    from repro_torch.launch import serve as lserve
+    from repro_torch.models import build
+    from repro_torch.serve import ServeConfig
+
+    phi3 = get_config(LM_ARCH)
+    toks = torch.from_numpy(rng.integers(0, phi3.vocab, (LM_B, LM_S))).cuda()
+    batch = {"tokens": toks}
+
+    # ---- 10. four layers in fp32: kernel against plain, decode ---------
+    torch.cuda.reset_peak_memory_stats()
+    cfg4 = dataclasses.replace(phi3, n_layers=LM_CHECK_LAYERS,
+                               dtype="float32")
+    m4 = build(cfg4).init_params(gen)
+    m4.prefill({"tokens": toks[:, :64]})          # warm-up: cuBLAS, kernel
+    got, run_k = drive(f"{LM_ARCH} fp32 {LM_CHECK_LAYERS} layers prefill "
+                       f"b={LM_B} s={LM_S} (flash kernel)",
+                       lambda: m4.prefill(batch), ["flash_attention"])
+    t0 = time.perf_counter()
+    want = m4.prefill(batch, backend="ref")
+    torch.cuda.synchronize()
+    plain_s = time.perf_counter() - t0
+    err = logit_err(torch, got, want)
+    finite = bool(torch.isfinite(got).all())
+    # the witness: the plain path on the CPU against it on the card
+    host = build(cfg4, device="cpu")
+    host.load_state_dict(m4.state_dict())
+    t0 = time.perf_counter()
+    want_cpu = host.prefill({"tokens": toks[:1].cpu()})
+    cpu_s = time.perf_counter() - t0
+    witness = logit_err(torch, want[:1].cpu(), want_cpu)
+    del host, want_cpu
+    caches = m4.init_caches(LM_B, LM_S)
+    step_err, step_err_plain = [], []
+    torch.cuda.synchronize()
+    t0 = time.perf_counter()
+    for t in range(LM_S):
+        logits, caches = m4.decode_step(toks[:, t:t + 1], caches, t)
+        step_err.append((logits[:, 0] - got[:, t]).abs().amax())
+        step_err_plain.append((logits[:, 0] - want[:, t]).abs().amax())
+    torch.cuda.synchronize()
+    decode_s = time.perf_counter() - t0
+    scale = max(1.0, float(got.abs().max()))
+    step_err = torch.stack(step_err).cpu().numpy() / scale
+    dec_plain = float(torch.stack(step_err_plain).max()) / scale
+    del want
+    dec_all, dec_last8 = float(step_err.max()), float(step_err[-8:].max())
+    tol = PREFILL_TOLS["float32"]
+    ok10 = (finite and err <= tol and dec_all <= tol
+            and tuple(got.shape) == (LM_B, LM_S, phi3.padded_vocab))
+    emit({"phase": "lm_phi3_fp32_check", "ok": ok10, "arch": LM_ARCH,
+          "layers": LM_CHECK_LAYERS, "dtype": "float32", "tf32": False,
+          "b": LM_B, "s": LM_S, "params": sum(p.numel()
+                                             for p in m4.parameters()),
+          "kernel_vs_plain_err_over_scale": err,
+          "tol": tol, "witness_plain_card_vs_cpu_row0": witness,
+          "cpu_prefill_s": cpu_s,
+          "logit_scale": scale,
+          "decode_vs_prefill_err_over_scale": dec_all,
+          "decode_vs_prefill_last8": dec_last8,
+          "decode_vs_plain_prefill": dec_plain,
+          "prefill_kernel_s": run_k["wall_s"], "prefill_plain_s": plain_s,
+          "decode_steps": LM_S, "decode_ms_per_step": decode_s / LM_S * 1e3,
+          "peak_gib": torch.cuda.max_memory_allocated() / 2**30,
+          "runs": [run_k]})
+    check(ok10, f"phase 10: phi3 fp32 prefill beyond {tol:.0e} of its "
+          "plain version or of decode")
+    del m4, got, caches, logits
+    torch.cuda.empty_cache()
+
+    # ---- 11. all 40 layers in bf16: prefill, witness, the Engine -------
+    torch.cuda.reset_peak_memory_stats()
+    t0 = time.perf_counter()
+    m = build(phi3).init_params(gen)
+    torch.cuda.synchronize()
+    init_s = time.perf_counter() - t0
+    m.prefill(batch)                                   # warm-up
+    got, run_p = drive(f"{LM_ARCH} bf16 prefill b={LM_B} s={LM_S} "
+                       f"(flash kernel)", lambda: m.prefill(batch),
+                       ["flash_attention"])
+    prefill_s = run_p["device_ms"] / 1e3
+    got = got.cpu()
+    t0 = time.perf_counter()
+    plain = m.prefill(batch, backend="ref")
+    torch.cuda.synchronize()
+    plain_prefill_s = time.perf_counter() - t0
+    plain = plain.cpu()
+    reqs = lserve.make_requests(phi3, LM_REQUESTS, LM_NEW_TOKENS, args.seed)
+    stats, run_e = drive(
+        f"{LM_ARCH} bf16 Engine: {LM_REQUESTS} requests x {LM_NEW_TOKENS} "
+        f"new tokens", lambda: lserve.serve(
+            m, reqs, ServeConfig(max_batch=LM_MAX_BATCH,
+                                 max_seq=LM_MAX_SEQ)), [])
+    peak_bf16 = torch.cuda.max_memory_allocated() / 2**30
+    m.to_dtype(torch.float32)                          # the same weights
+    ref32 = m.prefill(batch, backend="ref").cpu()
+    peak_fp32 = torch.cuda.max_memory_allocated() / 2**30
+    del m
+    torch.cuda.empty_cache()
+    finite = bool(torch.isfinite(got).all())
+    kern_err = logit_err(torch, got, ref32)
+    witness = logit_err(torch, plain, ref32)
+    kern_vs_plain = logit_err(torch, got, plain)
+    v = phi3.vocab
+    top1 = ref32[..., :v].argmax(-1)
+    agree_k = float((got[..., :v].argmax(-1) == top1).float().mean())
+    agree_p = float((plain[..., :v].argmax(-1) == top1).float().mean())
+    served = stats["done"]
+    tol = PREFILL_TOLS["bfloat16"]
+    ok11 = (finite and kern_vs_plain <= tol
+            and len(served) == LM_REQUESTS
+            and all(len(r.output) == LM_NEW_TOKENS
+                    and all(0 <= t < v for t in r.output) for r in served))
+    emit({"phase": "lm_phi3_serve", "ok": ok11, "arch": LM_ARCH,
+          "layers": phi3.n_layers, "d_model": phi3.d_model,
+          "heads": [phi3.n_heads, phi3.n_kv, phi3.head_dim],
+          "d_ff": phi3.d_ff, "vocab": phi3.vocab, "dtype": phi3.dtype,
+          "params": phi3.total_params(), "init_s": init_s,
+          "prefill": {"b": LM_B, "s": LM_S, "seconds": prefill_s,
+                      "wall_s": run_p["wall_s"],
+                      "tokens_per_s": LM_B * LM_S / prefill_s,
+                      "plain_attention_wall_s": plain_prefill_s,
+                      "launches": run_p["launches"]},
+          "kernel_vs_plain_bf16": kern_vs_plain, "tol": tol,
+          "witness": {"kernel_bf16_vs_fp32": kern_err,
+                      "plain_bf16_vs_fp32": witness,
+                      "top1_agreement_with_fp32_kernel": agree_k,
+                      "top1_agreement_with_fp32_plain": agree_p,
+                      "scale": "max(1, max|fp32 logit|)"},
+          "engine": {"requests": stats["requests"], "tokens": stats["tokens"],
+                     "rounds": stats["rounds"], "seconds": stats["seconds"],
+                     "tokens_per_s": stats["tokens_per_s"],
+                     "max_batch": LM_MAX_BATCH, "max_seq": LM_MAX_SEQ,
+                     "launches": run_e["launches"],
+                     "first_outputs": [r.output for r in served[:2]]},
+          "peak_gib_bf16": peak_bf16, "peak_gib_with_fp32_copy": peak_fp32,
+          "runs": [run_p, run_e]})
+    check(ok11, f"phase 11: phi3 bf16 prefill beyond {tol} of its plain "
+          "version, or the Engine did not answer every request")
+    del got, plain, ref32, top1
+
+
+@contextlib.contextmanager
+def planted_fault(torch, ops, fault: str, cfg):
+    """Swap a faulty attention op in for ``ops.flash_attention``:
+    ``"mask_off_by_one"``, plain causal attention in which row i also sees
+    key i + 1; ``"gqa_group_order"``, the kernel with the repeated KV heads
+    in tiled order (query head h reads KV head h % n_kv, not h // g)."""
+    orig = ops.flash_attention
+    nh, nkv = cfg.n_heads, cfg.n_kv
+    perm = [(h % nkv) * (nh // nkv) for h in range(nh)]
+
+    def faulty(q, k, v, **kw):
+        if fault == "mask_off_by_one":
+            s_len, d = q.shape[1], q.shape[2]
+            sc = torch.einsum("bsd,btd->bst", q.float(), k.float())
+            sc.mul_(d ** -0.5)
+            ahead = torch.ones((s_len, s_len), dtype=torch.bool,
+                               device=q.device).triu(2)
+            w = torch.softmax(sc.masked_fill_(ahead, -1e30), dim=-1)
+            return torch.einsum("bst,btd->bsd", w, v.float()).to(q.dtype)
+        bh, s_len, d = k.shape
+        k, v = (t.view(bh // nh, nh, s_len, d)[:, perm].reshape(bh, s_len, d)
+                for t in (k, v))
+        return orig(q, k, v, **kw)
+
+    ops.flash_attention = faulty
+    try:
+        yield
+    finally:
+        ops.flash_attention = orig
+
+
+def lm_planted_faults(args, torch) -> int:
+    """How far a planted attention fault moves the phi3 logits, beside the
+    sound kernel's error, at the shapes the LM checks hold: phase 10's
+    (four layers fp32, b = 2, s = 2048, kernel against plain), the card
+    test's (two layers fp32, b = 1, s = 70, kernel on the card against
+    plain on the CPU) and phase 11's (40 layers bf16, kernel against
+    plain).  One JSON line each; these readings place LM_TOLS."""
+    import dataclasses
+
+    import numpy as np
+
+    from repro_torch.configs import get_config
+    from repro_torch.kernels import _build, ops
+    from repro_torch.models import build
+
+    torch.backends.cuda.matmul.allow_tf32 = False
+    _build.build_all()
+    phi3 = get_config(LM_ARCH)
+    faults = ("mask_off_by_one", "gqa_group_order")
+    gen = torch.Generator(device="cuda")
+    gen.manual_seed(args.seed)
+    toks = torch.from_numpy(np.random.default_rng(args.seed).integers(
+        0, phi3.vocab, (LM_B, LM_S))).cuda()
+
+    def readings(label, model, batch, want):
+        out = {"case": label,
+               "sound": logit_err(torch, model.prefill(batch).cpu(), want)}
+        for fault in faults:
+            with planted_fault(torch, ops, fault, phi3):
+                out[fault] = logit_err(torch, model.prefill(batch).cpu(),
+                                       want)
+        emit(out)
+
+    cfg4 = dataclasses.replace(phi3, n_layers=LM_CHECK_LAYERS,
+                               dtype="float32")
+    m = build(cfg4).init_params(gen)
+    readings("fp32 4 layers b=2 s=2048, kernel vs plain on the card", m,
+             {"tokens": toks}, m.prefill({"tokens": toks},
+                                         backend="ref").cpu())
+    del m
+    torch.cuda.empty_cache()
+
+    cfg2 = dataclasses.replace(phi3, n_layers=2, dtype="float32")
+    m = build(cfg2).init_params(torch.Generator(device="cuda").manual_seed(0))
+    host = build(cfg2, device="cpu")
+    host.load_state_dict(m.state_dict())
+    t2 = np.random.default_rng(3).integers(0, cfg2.vocab, (1, 70))
+    readings("fp32 2 layers b=1 s=70, card kernel vs CPU plain "
+             "(test_phi3_width_prefill_on_the_card_matches_the_cpu)", m,
+             {"tokens": t2}, host.prefill({"tokens": t2}))
+    del m, host
+    torch.cuda.empty_cache()
+
+    m = build(phi3).init_params(gen)
+    readings("bf16 40 layers b=2 s=2048, kernel vs plain on the card", m,
+             {"tokens": toks}, m.prefill({"tokens": toks},
+                                         backend="ref").cpu())
+    return 0
+
+
+# ---------------------------------------------------------------------------
 # the run
 # ---------------------------------------------------------------------------
 
@@ -335,7 +637,8 @@ def run(args, torch) -> int:
     from repro_torch.core import svd as tsvd
     from repro_torch.core.tuning import PipelineConfig
     from repro_torch.kernels import (_build, bisect, bulge_chase,
-                                     fused_small, hh_apply, ops, ref)
+                                     flash_attention, fused_small, hh_apply,
+                                     ops, ref)
 
     torch.backends.cuda.matmul.allow_tf32 = False
     torch.backends.cudnn.allow_tf32 = False
@@ -401,7 +704,7 @@ def run(args, torch) -> int:
         s[:4] + (d,) for s in main_super for d in TOLS})
     worst = {"chase_cycle_cuda": 0.0, "chase_superstep_cuda": 0.0,
              "sturm_bisect_cuda": 0.0, "tape_apply_cuda": 0.0,
-             "fused_small_svd_cuda": 0.0}
+             "fused_small_svd_cuda": 0.0, "flash_attention_cuda": 0.0}
     main_err = dict.fromkeys(worst, 0.0)
     n_cmp = 0
 
@@ -550,13 +853,31 @@ def run(args, torch) -> int:
                     want)}
             del moved
         del a, got, want
+    # causal flash attention: FLASH_SHAPES in fp32, bf16 and fp16, and the
+    # main path's shape in its two dtypes
+    flash_cases = [sh + (d,) for sh in FLASH_SHAPES
+                   for d in flash_attention.CHECK_TOLS] + [
+        FLASH_MAIN + ("bfloat16",), FLASH_MAIN + ("float32",)]
+    dtypes["float16"] = torch.float16
+    for bh, sl, d, dname in flash_cases:
+        q, k, v = (torch.from_numpy(rng.standard_normal((bh, sl, d))).to(
+            dev, dtypes[dname]) for _ in range(3))
+        want = ref.flash_attention_ref(q, k, v)
+        got = flash_attention.flash_attention_cuda(q, k, v)
+        torch.cuda.synchronize()
+        compare("flash_attention_cuda", [got], [want],
+                flash_attention.CHECK_TOLS[dname], (bh, sl, d, dname),
+                (bh, sl, d) == FLASH_MAIN)
+        del q, k, v, want, got
     emit({"phase": "kernels_vs_plain", "ok": True, "comparisons": n_cmp,
           "main_path_shapes": {
               "chase_cycle_cuda (b_in, tw, slots, dtype)": main_cycle,
               "chase_superstep_cuda (b_in, tw, slots, K, dtype)": main_super,
               "sturm_bisect_cuda (B, n, dtype)": main_sturm,
               "tape_apply_cuda (S, m, k, w, dtype)": main_tape,
-              "fused_small_svd_cuda (B, n, bw, dtype)": fused_main},
+              "fused_small_svd_cuda (B, n, bw, dtype)": fused_main,
+              "flash_attention_cuda (BH, S, D)": FLASH_MAIN},
+          "flash_cases": flash_cases,
           "fused_cases": len(fused_cases),
           "fused_worst_err_over_scale": fused_errs,
           "fused_uv_entries_witness": witness,
@@ -573,6 +894,8 @@ def run(args, torch) -> int:
                              [fused_small.CHECK_TOLS["float64"],
                               fused_small.CHECK_TOLS["float32"]],
                          "fused uv entries fp64": fused_small.ENTRY_TOL_FP64,
+                         "flash fp32/bf16/fp16":
+                             list(flash_attention.CHECK_TOLS.values()),
                          "scale": "max(1, max|plain|)"}})
 
     # ---- per-kernel times at the main path's shapes ----------------------
@@ -671,6 +994,22 @@ def run(args, torch) -> int:
                                    a.element_size()),
             library=lambda a=a: torch.linalg.svdvals(a))
         del a
+    # causal flash attention at the main path's shape in bf16; the library
+    # yardstick is PyTorch's fused attention, scaled_dot_product_attention
+    # with is_causal=True, on the same tensors
+    import torch.nn.functional as tnf
+    bh, sl, d = FLASH_MAIN
+    q, k, v = (torch.from_numpy(rng.standard_normal((bh, sl, d))).to(
+        dev, torch.bfloat16) for _ in range(3))
+    time_kernel(
+        "flash_attention_cuda", "flash_attn_kernel",
+        lambda: flash_attention.flash_attention_cuda(q, k, v),
+        lambda: ref.flash_attention_ref(q, k, v), 20, 5,
+        f"q, k, v ({bh},{sl},{d}) bf16, causal",
+        flash_bound(bh, sl, d, "bfloat16", 2),
+        library=lambda: tnf.scaled_dot_product_attention(
+            q[None], k[None], v[None], is_causal=True))
+    del q, k, v
     emit({"phase": "kernel_times", "ok": True, "card": smi_line,
           "kernels": {k: {kk: (vv if kk != "bound" else
                                {"ms": vv[0], "by": vv[1], "bytes": vv[2],
@@ -959,6 +1298,9 @@ def run(args, torch) -> int:
     check(ok_g, "phase 9: fused fp32 sigma off the fp64 yardstick")
     del ag
 
+    # ---- 10 and 11. the LM serving path: phi3-medium-14b ---------------
+    lm_phases(args, torch, rng, drive, gen)
+
     # ---- where stage 2's time goes: torch.profiler over one stage ------
     from torch.profiler import ProfilerActivity, profile
 
@@ -1013,7 +1355,9 @@ def run(args, torch) -> int:
                "sturm_bisect_cuda": "src/repro_torch/kernels/csrc/sturm.cu",
                "tape_apply_cuda": "src/repro_torch/kernels/csrc/hh_apply.cu",
                "fused_small_svd_cuda":
-                   "src/repro_torch/kernels/csrc/fused_small.cu"}
+                   "src/repro_torch/kernels/csrc/fused_small.cu",
+               "flash_attention_cuda":
+                   "src/repro_torch/kernels/csrc/flash_attn.cu"}
     replaces = {
         "chase_cycle_cuda": "src/repro/kernels/bulge_chase.py:126",
         "chase_superstep_cuda": "src/repro/kernels/bulge_chase.py:225",
@@ -1022,13 +1366,19 @@ def run(args, torch) -> int:
         "tape_apply_cuda": "src/repro/kernels/hh_apply.py:56 (and "
                            "hh_block_apply_pallas :33)",
         "fused_small_svd_cuda": "src/repro/kernels/fused_small.py:266 "
-                                "(pallas_call :298)"}
+                                "(pallas_call :298)",
+        "flash_attention_cuda": "src/repro/kernels/flash_attention.py:64 "
+                                "(pallas_call :74)"}
+    # the flash kernel's counter keeps the op's name, under which
+    # ops.launch_counts() reports it; the others are named after their kernel
+    count_key = {"flash_attention_cuda": "flash_attention"}
     kernels = []
     for name in sources:
         t = timing[name]
         bound = t["bound"]
         row = {"name": name, "route": "cuda", "source": sources[name],
-               "replaces": replaces[name], "launches": main_counts[name],
+               "replaces": replaces[name],
+               "launches": main_counts[count_key.get(name, name)],
                "max_abs_err": main_err[name], "ms": t["ms"],
                "plain_ms": t["plain_ms"], "bound_ms": bound[0],
                "bound_by": bound[1], "library_ms": t["library_ms"],

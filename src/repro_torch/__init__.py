@@ -1,4 +1,11 @@
-"""PyTorch and CUDA port of the banded SVD pipeline, for the NVIDIA H100.
+"""PyTorch and CUDA port of the JAX package ``repro``, for the NVIDIA H100.
+
+It holds the banded SVD pipeline (the entry points below) and the LM
+serving path: the dense decoders (``repro_torch.models``, configs in
+``repro_torch.configs``), their prefill through the causal flash-attention
+kernel, and the token ``Engine`` (``repro_torch.serve``, driven by
+``python -m repro_torch.launch.serve``).  Those modules are imported only
+when asked for, so importing this package stays light.
 
 The JAX package ``repro`` is the reference; this package imports nothing of
 it and nothing of JAX.  Entry points run on the card unless the caller asks

@@ -1,0 +1,5 @@
+"""Model configurations of the port: the reference's dense decoders."""
+from repro_torch.configs.base import (ModelConfig, get_config, list_configs,
+                                      smoke_of)
+
+__all__ = ["ModelConfig", "get_config", "list_configs", "smoke_of"]

@@ -148,12 +148,7 @@ def _config(a: torch.Tensor, *, bw, tw, config, device
 
 
 def _on_device(a: torch.Tensor, device: str) -> torch.Tensor:
-    dev = torch.device(device)
-    if dev.type == "cuda" and not torch.cuda.is_available():
-        raise RuntimeError(
-            "this call runs on a CUDA device and torch.cuda.is_available() "
-            "is False; pass device='cpu' to run on the CPU")
-    return a.to(dev)
+    return a.to(ops.check_device(device))
 
 
 def _fused_path(a: torch.Tensor, cfg: tuning.PipelineConfig, *,

@@ -1,3 +1,3 @@
-"""Hand-written CUDA kernels of the pipeline, their wrappers, their plain
-PyTorch versions and the backend registry.  Sources are built on first use
-on a CUDA tensor, never on import."""
+"""Hand-written CUDA kernels of the SVD pipeline and of the LM's attention,
+their wrappers, their plain PyTorch versions and the backend registry.
+Sources are built on first use on a CUDA tensor, never on import."""

@@ -1,4 +1,5 @@
-"""Backend registry and the dispatching wrappers of the pipeline's kernels.
+"""Backend registry and the dispatching wrappers of the port's kernels: the
+SVD pipeline's and the LM's causal flash attention.
 
 Backends are entries in a small registry (``register_backend``) that maps a
 name to per-op implementations:
@@ -23,7 +24,7 @@ import torch
 from repro_torch.core.tuning import LATER
 
 __all__ = ["chase_cycle", "sturm_bisect", "tape_apply", "hh_block_apply",
-           "fused_svd", "register_backend",
+           "fused_svd", "flash_attention", "register_backend", "check_device",
            "resolve_backend", "backend_names", "launch_counts",
            "reset_launch_counts"]
 
@@ -37,6 +38,17 @@ def register_backend(name: str, **impls: Callable) -> None:
 
 def backend_names() -> tuple[str, ...]:
     return tuple(sorted(_REGISTRY))
+
+
+def check_device(device) -> torch.device:
+    """``device`` as a ``torch.device``; a CUDA device on a machine without
+    a card raises, naming the CPU option.  Nothing falls back."""
+    dev = torch.device(device)
+    if dev.type == "cuda" and not torch.cuda.is_available():
+        raise RuntimeError(
+            "this call runs on a CUDA device and torch.cuda.is_available() "
+            "is False; pass device='cpu' to run on the CPU")
+    return dev
 
 
 def resolve_backend(backend: str = "auto", device="cuda") -> str:
@@ -93,9 +105,14 @@ def _ref_fused(mats, *, bw, compute_uv, max_iter):
                                    max_iter=max_iter)
 
 
+def _ref_flash(q, k, v):
+    from repro_torch.kernels import ref
+    return ref.flash_attention_ref(q, k, v)
+
+
 register_backend("ref", chase_cycle=_ref_chase, sturm_bisect=_ref_bisect,
                  tape_apply=_ref_tape, hh_block_apply=_ref_hh,
-                 fused_svd=_ref_fused)
+                 fused_svd=_ref_fused, flash_attention=_ref_flash)
 
 
 # ---- "cuda": the Hopper kernels (built on first use) ----------------------
@@ -132,9 +149,14 @@ def _cuda_fused(mats, *, bw, compute_uv, max_iter):
                                             max_iter=max_iter)
 
 
+def _cuda_flash(q, k, v):
+    from repro_torch.kernels import flash_attention
+    return flash_attention.flash_attention_cuda(q, k, v)
+
+
 register_backend("cuda", chase_cycle=_cuda_chase, sturm_bisect=_cuda_bisect,
                  tape_apply=_cuda_tape, hh_block_apply=_cuda_hh,
-                 fused_svd=_cuda_fused)
+                 fused_svd=_cuda_fused, flash_attention=_cuda_flash)
 
 
 # ---- "fused_small": by the device of the op's first tensor ----------------
@@ -206,10 +228,22 @@ def fused_svd(mats: torch.Tensor, *, bw: int, compute_uv: bool = False,
     return impl(mats, bw=bw, compute_uv=compute_uv, max_iter=max_iter)
 
 
+def flash_attention(q: torch.Tensor, k: torch.Tensor, v: torch.Tensor, *,
+                    backend: str = "auto", block_q: int = 128,
+                    block_k: int = 128) -> torch.Tensor:
+    """Causal attention on q, k, v (BH, S, D), scale 1/sqrt(D), the result
+    in ``q.dtype``.  On a CUDA tensor one launch of the flash kernel; on the
+    CPU its plain version.  ``block_q``/``block_k`` are the reference's
+    keywords; the kernel's tile is its own, so both are ignored."""
+    del block_q, block_k
+    return _impl("flash_attention", backend, None, q.device)(q, k, v)
+
+
 def _launch_tables():
-    from repro_torch.kernels import bisect, bulge_chase, fused_small, hh_apply
+    from repro_torch.kernels import (bisect, bulge_chase, flash_attention,
+                                     fused_small, hh_apply)
     return (bulge_chase.launches, bisect.launches, hh_apply.launches,
-            fused_small.launches)
+            fused_small.launches, flash_attention.launches)
 
 
 def launch_counts() -> dict[str, int]:

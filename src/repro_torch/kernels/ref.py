@@ -1,6 +1,7 @@
 """Plain PyTorch versions of the chase kernels (``csrc/chase.cu``), of the
-compact-WY apply (``csrc/hh_apply.cu``) and of the fused small-n SVD
-(``csrc/fused_small.cu``).
+compact-WY apply (``csrc/hh_apply.cu``), of the fused small-n SVD
+(``csrc/fused_small.cu``) and of causal flash attention
+(``csrc/flash_attn.cu``).
 
 They run on any device.  The CPU tests hold them against the reference's
 ``kernels/ref.py``, and ``chip_smoke.py`` holds the CUDA kernels against
@@ -31,7 +32,7 @@ from repro_torch.core.householder import acc_dtype, make_reflector
 
 __all__ = ["chase_cycle_ref", "chase_superstep_ref", "tape_apply_ref",
            "hh_block_apply_ref", "effective_bw", "fused_walk",
-           "fused_small_svd_ref"]
+           "fused_small_svd_ref", "flash_attention_ref"]
 
 
 def _chase_window(win: torch.Tensor, first: torch.Tensor, *, b_in: int,
@@ -286,3 +287,18 @@ def fused_small_svd_ref(mats: torch.Tensor, *, bw: int,
         return d.to(dt), e.to(dt), u.to(dt), vt.to(dt)
     return bidiag_singular_values(d, e, max_iter=max_iter,
                                   backend="ref").to(dt)
+
+
+def flash_attention_ref(q: torch.Tensor, k: torch.Tensor,
+                        v: torch.Tensor) -> torch.Tensor:
+    """Plain causal softmax attention, the reference's
+    ``flash_attention_ref``: q, k, v (BH, S, D), computed in fp32 with scale
+    1/sqrt(D) (the softmax weights stay fp32 for the product with v), the
+    result in ``q.dtype``."""
+    s_len = q.shape[1]
+    scale = 1.0 / (q.shape[-1] ** 0.5)
+    scores = torch.einsum("bsd,btd->bst", q.float(), k.float()).mul_(scale)
+    future = torch.ones((s_len, s_len), dtype=torch.bool,
+                        device=q.device).triu(1)
+    w = torch.softmax(scores.masked_fill_(future, -1e30), dim=-1)
+    return torch.einsum("bst,btd->bsd", w, v.float()).to(q.dtype)

@@ -10,7 +10,9 @@ Tolerances are the reference's kernel-test ones (fp32 3e-5, fp64 1e-12,
 bf16 8e-2, times the output's scale); the compact-WY apply's are fp32 and
 fp64 times max(1, k // 4) as well, and bf16 1e-2 times the scale, about one
 bf16 ulp (``wy_tol``); bisection agrees to 1e-13 * sigma_max at fp64 and
-1e-5 * sigma_max at fp32.
+1e-5 * sigma_max at fp32; causal flash attention to the reference's
+flash-test tolerances (``flash_attention.CHECK_TOLS``: fp32 3e-6, bf16 and
+fp16 3e-2, times the output's scale).
 """
 
 import dataclasses
@@ -26,6 +28,7 @@ from repro_torch.core import svd as tsvd
 from repro_torch.core.tuning import PipelineConfig
 from repro_torch.kernels import bisect as tbisect
 from repro_torch.kernels import bulge_chase as tkern
+from repro_torch.kernels import flash_attention as tflash
 from repro_torch.kernels import fused_small as tfused
 from repro_torch.kernels import hh_apply as thh
 from repro_torch.kernels import ops
@@ -360,3 +363,101 @@ def test_fused_small_on_the_card_matches_the_cpu(cuda, compute_uv):
     close(got[1], want[1], 1e-12)
     close(got[0], want[0], 1e-9)       # stage 3's vectors, as in the staged
     close(got[2], want[2], 1e-9)       # full-SVD test above
+
+
+# ---------------------------------------------------------------------------
+# causal flash attention (tolerances: flash_attention.CHECK_TOLS)
+# ---------------------------------------------------------------------------
+
+def _flash_inputs(bh, s, d, seed, dtype, device):
+    rng = np.random.default_rng(seed)
+    return tuple(torch.from_numpy(rng.standard_normal((bh, s, d))).to(
+        device, dtype) for _ in range(3))
+
+
+@pytest.mark.cuda
+@pytest.mark.parametrize("dtype", ["float32", "bfloat16", "float16"])
+@pytest.mark.parametrize("s", [64, 100, 2048])
+@pytest.mark.parametrize("d", [16, 64, 128])
+def test_flash_attention_cuda_matches_plain(cuda, d, s, dtype):
+    torch.backends.cuda.matmul.allow_tf32 = False
+    q, k, v = _flash_inputs(3, s, d, s + d, torch_dtype(dtype), cuda)
+    got = tflash.flash_attention_cuda(q, k, v)
+    torch.cuda.synchronize()
+    assert got.dtype == q.dtype and got.shape == q.shape
+    close(got, tref.flash_attention_ref(q, k, v), tflash.CHECK_TOLS[dtype])
+
+
+@pytest.mark.cuda
+def test_flash_attention_cuda_is_causal(cuda):
+    """Perturbing future tokens must not change earlier outputs."""
+    q, k, v = _flash_inputs(1, 128, 32, 0, torch.float32, cuda)
+    o1 = tflash.flash_attention_cuda(q, k, v)
+    k2, v2 = k.clone(), v.clone()
+    k2[:, 96:] += 5.0
+    v2[:, 96:] += 5.0
+    o2 = tflash.flash_attention_cuda(q, k2, v2)
+    torch.cuda.synchronize()
+    assert torch.equal(o1[:, :96], o2[:, :96])
+    assert float((o1[:, 96:] - o2[:, 96:]).abs().max()) > 1e-3
+
+
+@pytest.mark.cuda
+def test_flash_attention_cuda_rejects_what_it_does_not_take(cuda):
+    q, k, v = _flash_inputs(2, 64, 32, 1, torch.float32, cuda)
+    with pytest.raises(ValueError, match="contiguous"):
+        tflash.flash_attention_cuda(q[:, ::2], k[:, ::2], v[:, ::2])
+    with pytest.raises(ValueError, match="dtype"):
+        tflash.flash_attention_cuda(q.double(), k.double(), v.double())
+    with pytest.raises(ValueError, match="expected q's"):
+        tflash.flash_attention_cuda(q, k.half(), v)
+    for d in (20, 264):
+        x = torch.zeros((1, 8, d), device=cuda)
+        with pytest.raises(ValueError, match="head dim"):
+            tflash.flash_attention_cuda(x, x, x)
+
+
+@pytest.mark.cuda
+def test_flash_attention_counts_its_launches(cuda):
+    q, k, v = _flash_inputs(2, 70, 64, 2, torch.bfloat16, cuda)
+    before = ops.launch_counts()["flash_attention"]
+    ops.flash_attention(q, k, v)
+    assert ops.launch_counts()["flash_attention"] == before + 1
+    ops.flash_attention(q, k, v, backend="ref")
+    assert ops.launch_counts()["flash_attention"] == before + 1
+
+
+@pytest.mark.cuda
+def test_phi3_width_prefill_on_the_card_matches_the_cpu(cuda):
+    """phi3-medium-14b at full width, two layers, fp32 (no TF32): the
+    kernel-backed prefill on the card against the plain one on the CPU,
+    and two kernel launches.
+
+    Under the reference's init the scores q.k/sqrt(128) are of order 1e2,
+    so each softmax is nearly one-hot and amplifies fp32 rounding: the
+    plain path on the card and on the CPU, which differ only in the order
+    of their sums, disagree by far more than 1e-4 of max|logit|.  The
+    limit is ``PREFILL_TOLS["float32"]``, which sits between the sound
+    reading at this shape (2.3e-4) and a planted fault's (1.08 or more,
+    ``chip_smoke.py --lm-planted-faults`` on an H100 80GB HBM3)."""
+    from repro_torch.configs import get_config
+    from repro_torch.models import build
+    torch.backends.cuda.matmul.allow_tf32 = False
+    cfg = dataclasses.replace(get_config("phi3-medium-14b"), n_layers=2,
+                              dtype="float32")
+    card = build(cfg, device=cuda).init_params(
+        torch.Generator(device=cuda).manual_seed(0))
+    host = build(cfg, device="cpu")
+    host.load_state_dict(card.state_dict())
+    toks = np.random.default_rng(3).integers(0, cfg.vocab, (1, 70))
+    before = ops.launch_counts()["flash_attention"]
+    got = card.prefill({"tokens": toks})
+    torch.cuda.synchronize()
+    assert ops.launch_counts()["flash_attention"] == before + 2
+    plain = card.prefill({"tokens": toks}, backend="ref").cpu()
+    want = host.prefill({"tokens": toks})
+    assert bool(torch.isfinite(got).all())
+    scale = max(1.0, float(want.abs().max()))
+    witness = float((plain - want).abs().max()) / scale
+    err = float((got.cpu() - want).abs().max()) / scale
+    assert err <= tflash.PREFILL_TOLS["float32"], (err, witness)

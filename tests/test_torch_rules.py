@@ -47,7 +47,16 @@ def test_import_leaves_jax_out():
             "repro_torch.core.transforms", "repro_torch.kernels.ops",
             "repro_torch.kernels.ref", "repro_torch.kernels.bulge_chase",
             "repro_torch.kernels.bisect", "repro_torch.kernels.hh_apply",
-            "repro_torch.kernels.fused_small", "repro_torch.kernels._build"]
+            "repro_torch.kernels.fused_small", "repro_torch.kernels._build",
+            "repro_torch.kernels.flash_attention", "repro_torch.configs",
+            "repro_torch.configs.base", "repro_torch.configs.phi3_medium_14b",
+            "repro_torch.configs.llama3_8b", "repro_torch.configs.granite_3_2b",
+            "repro_torch.configs.codeqwen15_7b",
+            "repro_torch.configs.pixtral_12b", "repro_torch.models",
+            "repro_torch.models.modules", "repro_torch.models.attention",
+            "repro_torch.models.transformer", "repro_torch.models.zoo",
+            "repro_torch.serve", "repro_torch.serve.engine",
+            "repro_torch.launch", "repro_torch.launch.serve"]
     code = ("import importlib, sys\n"
             f"for m in {mods!r}: importlib.import_module(m)\n"
             "bad = [m for m in sys.modules if m.split('.')[0] in "
@@ -74,6 +83,23 @@ def test_entry_point_defaults_to_the_card():
     assert repro_torch.PipelineConfig.resolve(bw=3).backend == "cuda"
     sig = repro_torch.banded_singular_values(a, bw=3, device="cpu")
     assert sig.device.type == "cpu"
+
+
+def test_model_and_engine_default_to_the_card():
+    from repro_torch.configs import smoke_of
+    from repro_torch.launch import serve
+    from repro_torch.models import Model, build
+    cfg = smoke_of("phi3-medium-14b")
+    if torch.cuda.is_available():
+        assert build(cfg).device.type == "cuda"
+        return
+    with pytest.raises(RuntimeError, match="device='cpu'"):
+        Model(cfg)
+    with pytest.raises(RuntimeError, match="device='cpu'"):
+        build(cfg, device="cuda")
+    with pytest.raises(RuntimeError, match="device='cpu'"):
+        serve.main(["--arch", "phi3-medium-14b", "--requests", "1"])
+    assert build(cfg, device="cpu").device.type == "cpu"
 
 
 def test_cuda_backend_on_cpu_tensor_raises():

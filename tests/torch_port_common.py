@@ -86,3 +86,55 @@ def agree(got, want, tol):
     np.testing.assert_allclose(got.numpy(), want,
                                atol=tol * max(1.0, np.abs(want).max()),
                                rtol=0)
+
+
+def flat_params(tree, prefix: str = "") -> dict:
+    """A nested dict of arrays (the reference's parameter tree) as
+    ``{path: numpy array}``, the path its keys joined by "."."""
+    out = {}
+    for key, val in tree.items():
+        if isinstance(val, dict):
+            out.update(flat_params(val, f"{prefix}{key}."))
+        else:
+            out[f"{prefix}{key}"] = np.asarray(val)
+    return out
+
+
+# the reference's dense decoders, whose smoke configs the LM tests compare
+LM_ARCHS = ["llama3-8b", "granite-3-2b", "codeqwen1.5-7b", "phi3-medium-14b",
+            "pixtral-12b"]
+
+
+def _perturbed(tree, rng):
+    """The tree with every norm gain and bias (constant at init) moved by
+    N(0, 0.1)."""
+    import jax.numpy as jnp
+    out = {}
+    for key, val in tree.items():
+        if isinstance(val, dict):
+            out[key] = _perturbed(val, rng)
+        elif key.startswith(("ln", "final_norm", "b")):
+            out[key] = val + jnp.asarray(
+                0.1 * rng.standard_normal(val.shape), val.dtype)
+        else:
+            out[key] = val
+    return out
+
+
+@functools.lru_cache(maxsize=None)
+def lm_models(arch: str):
+    """(reference model, its params, the port's model holding them) of the
+    smoke config of ``arch``, on the CPU.  The norm gains and QKV biases are
+    moved off their constant inits, so that those paths count."""
+    import jax
+
+    from repro.configs.base import smoke_of as jsmoke_of
+    from repro.models import build as jbuild
+    from repro_torch.configs import smoke_of
+    from repro_torch.convert import model_params_from_reference
+    jm = jbuild(jsmoke_of(arch))
+    params = _perturbed(jm.init(jax.random.PRNGKey(1)),
+                        np.random.default_rng(2))
+    tm = model_params_from_reference(flat_params(params), smoke_of(arch),
+                                     device="cpu")
+    return jm, params, tm
