@@ -1,7 +1,8 @@
 #!/usr/bin/env python3
 """Drive the PyTorch/CUDA port's main path on one NVIDIA H100 and check it.
 
-    python3 chip_smoke.py [--seed N] [--lm-planted-faults]
+    python3 chip_smoke.py [--seed N] [--lm-planted-faults |
+                           --flash-planted-faults]
 
 Builds the port's CUDA kernels from ``src/repro_torch/kernels/csrc`` (one
 ``nvcc`` per source, all at once), holds each kernel against its plain
@@ -16,9 +17,11 @@ staged pipeline on the same batch.  Results are checked against
 ``torch.linalg.svdvals``, which serves here only as a yardstick, and U and
 V^T by reconstruction and orthogonality.  Then the LM serving path with
 phi3-medium-14b at full width: a four-layer fp32 prefill (b = 2, s = 2048)
-with attention through the flash kernel, held to the same prefill through
-the kernel's plain version and to one-token decode; then all 40 layers in
-bf16, a timed prefill held to the same through the plain version, beside
+with attention through the fp32 flash kernel (``flash_attn.cu``), held to
+the same prefill through the kernels' plain version and to one-token
+decode; then all 40 layers in bf16, a timed prefill through the
+tensor-core flash kernel (``flash_attn_wgmma.cu``, the KV heads grouped)
+held to the same through the plain version, beside
 a witness of bf16 rounding (the plain path's bf16 logits against its fp32
 logits), and 8 requests answered by the token ``Engine`` through
 ``repro_torch.launch.serve``.  Every phase prints one JSON line; the line before the last two is the ``kernels``
@@ -64,13 +67,52 @@ PEAK_FLOPS = {"float64": 34e12, "float32": 67e12, "bfloat16": 67e12}
 PEAK_MATMUL_FLOPS = {"float64": 67e12, "float32": 67e12, "bfloat16": 989e12,
                      "float16": 989e12}
 # causal flash attention: (BH, S, D) of the reference's kernel test
-# (tests/test_kernels.py), a ragged S and D = 64, each in fp32, bf16 and
-# fp16, and the main path's shape (phi3-medium-14b prefill at b = 2,
-# s = 2048: 2 x 40 heads of 128) in bf16 (the serving run) and fp32 (the
-# fp32 check); tolerances flash_attention.CHECK_TOLS
+# (tests/test_kernels.py), a ragged S and D = 64, and the main path's shape
+# (phi3-medium-14b prefill at b = 2, s = 2048: 2 x 40 query heads of 128,
+# 2 x 10 KV heads, g = 4) in bf16 (the serving run, the wgmma kernel) and
+# fp32 (the fp32 check, flash_attn.cu); the wgmma kernel also at the short
+# lengths FLASH_SHORT_S around its 128-row tile; tolerances
+# flash_attention.CHECK_TOLS
 FLASH_SHAPES = [(4, 256, 64), (2, 128, 32), (1, 64, 16), (3, 192, 64),
                 (80, 1000, 64), (80, 2047, 128)]
+FLASH_SHORT_S = (1, 63, 65, 129)
 FLASH_MAIN = (80, 2048, 128)
+FLASH_GROUP = 4                    # phi3-medium-14b: 40 query, 10 KV heads
+# the lengths of the card tests of the wgmma kernel (2 * g query rows)
+FLASH_CARD_S = (1, 2, 63, 64, 65, 127, 128, 129, 1000, 2047, 2048)
+# Faults planted in copies of the flash kernels (--flash-planted-faults):
+# fault -> (source, the dtype it is read in, [(text, replacement, times it
+# occurs)]).  Faults confined to late key tiles, whose moves are small
+# beside the first rows' outputs, and arithmetic a step coarser than the
+# dtype's.
+FLASH_FAULTS = {
+    # a ring stage read stale: the last two key tiles hold the K and V of
+    # the tile two before, what the stage held one round earlier
+    "stale_stage_last_two_tiles": ("flash_attn_wgmma", "bfloat16", [(
+        "kt * kBK, bkv);",
+        "(kt >= n_tiles - 2 && kt >= 2 ? kt - 2 : kt) * kBK, bkv);", 2)]),
+    # the last query tile's diagonal takes V (only) of the tile two before
+    "stale_v_last_diagonal": ("flash_attn_wgmma", "bfloat16", [(
+        "&vmap, bar_full(bar, s),\n                   h * kBoxCols, "
+        "kt * kBK, bkv);",
+        "&vmap, bar_full(bar, s), h * kBoxCols, (kt == tile && tile == "
+        "n_tiles - 1 && kt >= 2 ? kt - 2 : kt) * kBK, bkv);", 1)]),
+    # fp16 at bf16 precision: P and the output rounded through bf16
+    "fp16_at_bf16_precision": ("flash_attn_wgmma", "float16", [(
+        "__half2 h = __floats2half2_rn(lo, hi);",
+        "__half2 h = __floats2half2_rn(__bfloat162float(__float2bfloat16("
+        "lo)), __bfloat162float(__float2bfloat16(hi)));", 1)]),
+    # flash_attn.cu: the last two key tiles take V of the tile two before
+    "fp32_stale_v_last_two_tiles": ("flash_attn", "float32", [(
+        "load_tile<T, DP>(v + kv_base, S, D, k0, 1.0f, vs, DP);",
+        "load_tile<T, DP>(v + kv_base, S, D, kt >= n_tiles - 2 && kt >= 2 "
+        "? k0 - 2 * kBK : k0, 1.0f, vs, DP);", 1)]),
+    # flash_attn.cu at TF32 precision: Q, K and V truncated to TF32's 10
+    # mantissa bits as they are staged
+    "fp32_at_tf32_precision": ("flash_attn", "float32", [(
+        "? to_f(x[(size_t)row * D + c]) * mul : 0.0f;",
+        "? __uint_as_float(__float_as_uint(to_f(x[(size_t)row * D + c]) "
+        "* mul) & 0xffffe000u) : 0.0f;", 1)])}
 # phi3-medium-14b: the prefill batch, the fp32 check's depth, and the
 # Engine's requests (the reference launcher's prompts of 2-8 tokens)
 LM_ARCH, LM_B, LM_S, LM_CHECK_LAYERS = "phi3-medium-14b", 2, 2048, 4
@@ -103,8 +145,12 @@ def main() -> int:
     ap.add_argument("--seed", type=int, default=0)
     ap.add_argument("--lm-planted-faults", action="store_true",
                     help="only read how far planted attention faults move "
-                    "the phi3 logits (the readings behind LM_TOLS), then "
-                    "exit")
+                    "the phi3 logits (the readings behind PREFILL_TOLS), "
+                    "then exit")
+    ap.add_argument("--flash-planted-faults", action="store_true",
+                    help="only read how far faults planted in copies of "
+                    "the flash kernels move their output (the readings "
+                    "behind flash_attention.CHECK_TOLS), then exit")
     args = ap.parse_args()
 
     import torch
@@ -120,6 +166,8 @@ def main() -> int:
     try:
         if args.lm_planted_faults:
             return lm_planted_faults(args, torch)
+        if args.flash_planted_faults:
+            return flash_planted_faults(args, torch)
         return run(args, torch)
     except PhaseFailed as exc:
         print(f"chip_smoke: FAILED: {exc}", file=sys.stderr)
@@ -273,16 +321,46 @@ def fused_bound(b, n, bw, max_iter, dtype, itemsize):
             "bytes" if t_bytes >= t_ops else "operations", nbytes, flops)
 
 
-def flash_bound(bh, s, d, dtype, itemsize):
-    """q, k, v read once and o written once; 4*D flops per (query, key)
-    pair on or below the diagonal (two products), at the card's peak for
-    matrix products of the type (bf16/fp16 on the tensor cores)."""
-    nbytes = 4 * bh * s * d * itemsize
+def flash_bound(bh, bh_kv, s, d, dtype, itemsize):
+    """q (bh rows) and the grouped k, v (bh_kv rows) read once and o
+    written once; 4*D flops per (query, key) pair on or below the diagonal
+    (two products), at the card's peak for matrix products of the type
+    (bf16/fp16 on the tensor cores; fp32 at fp32 precision, 67 TFLOP/s)."""
+    nbytes = 2 * (bh + bh_kv) * s * d * itemsize
     flops = 4 * bh * d * s * (s + 1) // 2
     t_bytes = nbytes / HBM_BYTES_PER_S
     t_ops = flops / PEAK_MATMUL_FLOPS[dtype]
     return (max(t_bytes, t_ops) * 1e3,
             "bytes" if t_bytes >= t_ops else "operations", nbytes, flops)
+
+
+def flash_check_cases(wgmma_d) -> dict:
+    """Cases (BH, S, D, g, dtype) that hold each flash kernel to the plain
+    version, k and v of BH / g rows.  The wgmma kernel: the FLASH_SHAPES of
+    D in ``wgmma_d`` and (8, S, D) at FLASH_SHORT_S, in bf16 and fp16, at
+    g = 1 and 4 (where 4 divides BH), and the serving run's shape.
+    flash_attn.cu: every FLASH_SHAPE in fp32, those of the D it alone takes
+    in bf16 and fp16, one more grouped case and the fp32 check's shape."""
+    wg_shapes = [sh for sh in FLASH_SHAPES if sh[2] in wgmma_d] + [
+        (8, sl, d) for sl in FLASH_SHORT_S for d in wgmma_d]
+    return {
+        "flash_attention_wgmma_cuda": [
+            (bh, sl, d, g, dn) for bh, sl, d in wg_shapes
+            for g in (1, FLASH_GROUP) if bh % g == 0
+            for dn in ("bfloat16", "float16")] + [
+            FLASH_MAIN + (FLASH_GROUP, "bfloat16")],
+        "flash_attention_cuda": [
+            sh + (1, "float32") for sh in FLASH_SHAPES] + [
+            sh + (1, dn) for sh in FLASH_SHAPES if sh[2] not in wgmma_d
+            for dn in ("bfloat16", "float16")] + [
+            (8, 300, 32, FLASH_GROUP, "float32"),
+            FLASH_MAIN + (FLASH_GROUP, "float32")]}
+
+
+def flash_inputs(torch, rng, bh, s, d, g, dname):
+    """Standard normal q (bh, s, d) and k, v (bh / g, s, d) on the card."""
+    return tuple(torch.from_numpy(rng.standard_normal((rows, s, d))).to(
+        "cuda", getattr(torch, dname)) for rows in (bh, bh // g, bh // g))
 
 
 def logit_err(torch, got, want) -> float:
@@ -408,8 +486,12 @@ def lm_phases(args, torch, rng, drive, gen) -> None:
     m4 = build(cfg4).init_params(gen)
     m4.prefill({"tokens": toks[:, :64]})          # warm-up: cuBLAS, kernel
     got, run_k = drive(f"{LM_ARCH} fp32 {LM_CHECK_LAYERS} layers prefill "
-                       f"b={LM_B} s={LM_S} (flash kernel)",
+                       f"b={LM_B} s={LM_S} (flash_attn.cu)",
                        lambda: m4.prefill(batch), ["flash_attention"])
+    check(run_k["launches"]["flash_attention"] == LM_CHECK_LAYERS
+          and run_k["launches"]["flash_attention_wgmma"] == 0,
+          f"phase 10: expected {LM_CHECK_LAYERS} launches of flash_attn.cu "
+          f"and none of the wgmma kernel, got {run_k['launches']}")
     t0 = time.perf_counter()
     want = m4.prefill(batch, backend="ref")
     torch.cuda.synchronize()
@@ -470,9 +552,14 @@ def lm_phases(args, torch, rng, drive, gen) -> None:
     init_s = time.perf_counter() - t0
     m.prefill(batch)                                   # warm-up
     got, run_p = drive(f"{LM_ARCH} bf16 prefill b={LM_B} s={LM_S} "
-                       f"(flash kernel)", lambda: m.prefill(batch),
-                       ["flash_attention"])
+                       f"(flash_attn_wgmma.cu)", lambda: m.prefill(batch),
+                       ["flash_attention_wgmma"])
+    check(run_p["launches"]["flash_attention_wgmma"] == phi3.n_layers
+          and run_p["launches"]["flash_attention"] == 0,
+          f"phase 11: expected {phi3.n_layers} launches of the wgmma kernel "
+          f"and none of flash_attn.cu, got {run_p['launches']}")
     prefill_s = run_p["device_ms"] / 1e3
+    split = prefill_split(torch, m, batch)
     got = got.cpu()
     t0 = time.perf_counter()
     plain = m.prefill(batch, backend="ref")
@@ -514,7 +601,7 @@ def lm_phases(args, torch, rng, drive, gen) -> None:
                       "wall_s": run_p["wall_s"],
                       "tokens_per_s": LM_B * LM_S / prefill_s,
                       "plain_attention_wall_s": plain_prefill_s,
-                      "launches": run_p["launches"]},
+                      "launches": run_p["launches"], "split": split},
           "kernel_vs_plain_bf16": kern_vs_plain, "tol": tol,
           "witness": {"kernel_bf16_vs_fp32": kern_err,
                       "plain_bf16_vs_fp32": witness,
@@ -534,28 +621,63 @@ def lm_phases(args, torch, rng, drive, gen) -> None:
     del got, plain, ref32, top1
 
 
+def prefill_split(torch, model, batch) -> dict:
+    """Where one prefill's device time goes, from one torch.profiler trace:
+    device busy time, the wgmma attention kernel, the fp32 logits product
+    (the prefill's one fp32 GEMM, found by cuBLAS's kernel names), the rest
+    (the layer products, norms, RoPE and elementwise work), and the largest
+    kernels by name."""
+    from torch.profiler import ProfilerActivity, profile
+
+    torch.cuda.synchronize()
+    with profile(activities=[ProfilerActivity.CUDA]) as prof:
+        model.prefill(batch)
+        torch.cuda.synchronize()
+    kern = [ev for ev in prof.key_averages() if ev.device_time_total > 0]
+
+    def ms(evs):
+        return sum(ev.device_time_total for ev in evs) / 1e3
+
+    attn = [ev for ev in kern if "attn_wgmma_kernel" in ev.key]
+    logits = [ev for ev in kern if "gemm" in ev.key
+              and ("f32f32" in ev.key or "sgemm" in ev.key)]
+    busy = ms(kern)
+    top = sorted(kern, key=lambda ev: ev.device_time_total, reverse=True)[:6]
+    return {"profiled_busy_ms": busy, "attention_kernel_ms": ms(attn),
+            "attention_launches": sum(ev.count for ev in attn),
+            "logits_product_ms": ms(logits),
+            "logits_kernels": [[ev.key[:80], ev.count] for ev in logits],
+            "rest_ms": busy - ms(attn) - ms(logits),
+            "top_device_kernels": [
+                {"kernel": ev.key[:80], "count": ev.count,
+                 "device_ms": ev.device_time_total / 1e3} for ev in top]}
+
+
 @contextlib.contextmanager
 def planted_fault(torch, ops, fault: str, cfg):
     """Swap a faulty attention op in for ``ops.flash_attention``:
     ``"mask_off_by_one"``, plain causal attention in which row i also sees
-    key i + 1; ``"gqa_group_order"``, the kernel with the repeated KV heads
-    in tiled order (query head h reads KV head h % n_kv, not h // g)."""
+    key i + 1; ``"gqa_group_order"``, the kernel with the KV heads expanded
+    to the query heads in tiled order (query head h reads KV head h % n_kv,
+    not h // g) and handed over with g = 1."""
     orig = ops.flash_attention
     nh, nkv = cfg.n_heads, cfg.n_kv
-    perm = [(h % nkv) * (nh // nkv) for h in range(nh)]
+    tiled = [h % nkv for h in range(nh)]
 
     def faulty(q, k, v, **kw):
         if fault == "mask_off_by_one":
             s_len, d = q.shape[1], q.shape[2]
+            g = q.shape[0] // k.shape[0]
+            k, v = k.repeat_interleave(g, 0), v.repeat_interleave(g, 0)
             sc = torch.einsum("bsd,btd->bst", q.float(), k.float())
             sc.mul_(d ** -0.5)
             ahead = torch.ones((s_len, s_len), dtype=torch.bool,
                                device=q.device).triu(2)
             w = torch.softmax(sc.masked_fill_(ahead, -1e30), dim=-1)
             return torch.einsum("bst,btd->bsd", w, v.float()).to(q.dtype)
-        bh, s_len, d = k.shape
-        k, v = (t.view(bh // nh, nh, s_len, d)[:, perm].reshape(bh, s_len, d)
-                for t in (k, v))
+        bkv, s_len, d = k.shape
+        k, v = (t.view(bkv // nkv, nkv, s_len, d)[:, tiled].reshape(
+            bkv // nkv * nh, s_len, d).contiguous() for t in (k, v))
         return orig(q, k, v, **kw)
 
     ops.flash_attention = faulty
@@ -622,6 +744,99 @@ def lm_planted_faults(args, torch) -> int:
     readings("bf16 40 layers b=2 s=2048, kernel vs plain on the card", m,
              {"tokens": toks}, m.prefill({"tokens": toks},
                                          backend="ref").cpu())
+    return 0
+
+
+def flash_planted_faults(args, torch) -> int:
+    """How far the faults of FLASH_FAULTS, each built into its own copy of
+    its kernel's source in a temporary directory, move the kernel's output
+    from the plain version, beside the sound kernels' readings: at every
+    case of flash_check_cases and of the wgmma kernel's card tests, as
+    ``flash_attention.row_error`` (what CHECK_TOLS holds) and as the former
+    whole-output measure max|err| / max(1, max|o|).  The late-tile faults
+    are read where S spans more than two 128-row tiles.  One JSON line per
+    kernel and dtype; these readings place CHECK_TOLS."""
+    import ctypes
+    import tempfile
+
+    import numpy as np
+
+    from repro_torch.kernels import _build, flash_attention, ref
+
+    rng = np.random.default_rng(args.seed)
+    tmp = tempfile.TemporaryDirectory()
+    procs = {}
+    for fault, (source, _, edits) in FLASH_FAULTS.items():
+        text = (_build.CSRC / _build.SOURCES[source]).read_text()
+        for old, new, times in edits:
+            check(text.count(old) == times, f"{fault}: {old!r} occurs "
+                  f"{text.count(old)} times, expected {times}")
+            text = text.replace(old, new)
+        cu, so = (Path(tmp.name) / f"{fault}{ext}" for ext in (".cu", ".so"))
+        cu.write_text(text)
+        procs[fault] = (subprocess.Popen(
+            _build.nvcc_command(cu, so), stdout=subprocess.PIPE,
+            stderr=subprocess.STDOUT, text=True), so)
+    libs = {}
+    for fault, (proc, so) in procs.items():
+        log, _ = proc.communicate()
+        check(proc.returncode == 0, f"{fault}: nvcc failed:\n{log}")
+        libs[fault] = ctypes.CDLL(str(so))
+
+    def planted(fault, q, k, v):
+        bh, s_len, d = q.shape
+        suffix = {torch.float32: "f32", torch.bfloat16: "bf16",
+                  torch.float16: "f16"}[q.dtype]
+        fn = getattr(libs[fault], f"{FLASH_FAULTS[fault][0]}_{suffix}")
+        out = torch.empty_like(q)
+        err = fn(*(ctypes.c_void_p(x.data_ptr()) for x in (q, k, v, out)),
+                 bh, k.shape[0], s_len, d, ctypes.c_float(1.0 / d ** 0.5),
+                 ctypes.c_void_p(torch.cuda.current_stream().cuda_stream))
+        check(err == 0, f"{fault}: error {err}")
+        return out
+
+    def whole(got, want):
+        err, scale = max_err(torch, got, want)
+        return err / scale
+
+    cases = flash_check_cases(flash_attention.WGMMA_D)
+    cases["flash_attention_wgmma_cuda"] += [
+        (2 * g, sl, d, g, dn) for sl in FLASH_CARD_S
+        for d in flash_attention.WGMMA_D for g in (1, FLASH_GROUP)
+        for dn in ("bfloat16", "float16")]
+    sources = {"flash_attention_wgmma_cuda": "flash_attn_wgmma",
+               "flash_attention_cuda": "flash_attn"}
+    for name, kcases in cases.items():
+        fn = getattr(flash_attention, name)
+        for dname in ("float32", "bfloat16", "float16"):
+            sound, faults = [], {}
+            for case in (c for c in kcases if c[4] == dname):
+                q, k, v = flash_inputs(torch, rng, *case)
+                want = ref.flash_attention_ref(q, k, v)
+                got = fn(q, k, v)
+                sound.append((flash_attention.row_error(got, want),
+                              whole(got, want), case))
+                here = [f for f, (src, dn, _) in FLASH_FAULTS.items()
+                        if src == sources[name] and dn == dname
+                        and ("stale" not in f or case[1] > 2 * 128)]
+                for fault in here:
+                    got = planted(fault, q, k, v)
+                    faults.setdefault(fault, []).append(
+                        (flash_attention.row_error(got, want),
+                         whole(got, want), case))
+                del q, k, v, want, got
+            if not sound:
+                continue
+            emit({"kernel": name, "dtype": dname, "cases": len(sound),
+                  "tol": flash_attention.CHECK_TOLS[dname],
+                  "sound_row_error_max": max(sound),
+                  "sound_whole_max": max(x[1] for x in sound),
+                  "faults": {f: {"cases": len(r),
+                                 "row_error_min": min(r),
+                                 "whole_min": min(x[1] for x in r),
+                                 "whole_max": max(x[1] for x in r)}
+                             for f, r in faults.items()}})
+    tmp.cleanup()
     return 0
 
 
@@ -696,7 +911,8 @@ def run(args, torch) -> int:
     # and at n = 512 for its full step count.
     rng = np.random.default_rng(args.seed)
     dev = torch.device("cuda")
-    dtypes = {"float64": f64, "float32": f32, "bfloat16": torch.bfloat16}
+    dtypes = {"float64": f64, "float32": f32, "bfloat16": torch.bfloat16,
+              "float16": torch.float16}
     cycle_shapes = sorted({s + (d,) for s in CHASE_SHAPES for d in TOLS} | {
         s[:3] + (d,) for s in main_cycle for d in TOLS})
     super_shapes = sorted({s + (k, d) for s in CHASE_SHAPES for k in (2, 4)
@@ -704,19 +920,23 @@ def run(args, torch) -> int:
         s[:4] + (d,) for s in main_super for d in TOLS})
     worst = {"chase_cycle_cuda": 0.0, "chase_superstep_cuda": 0.0,
              "sturm_bisect_cuda": 0.0, "tape_apply_cuda": 0.0,
-             "fused_small_svd_cuda": 0.0, "flash_attention_cuda": 0.0}
+             "fused_small_svd_cuda": 0.0, "flash_attention_cuda": 0.0,
+             "flash_attention_wgmma_cuda": 0.0}
     main_err = dict.fromkeys(worst, 0.0)
     n_cmp = 0
 
-    def compare(name, got, want, tol, key, main):
-        """Hold ``got`` to ``want``; ``main``: a main-path shape in the
-        main path's dtype, whose error goes into the kernels line."""
+    def compare(name, got, want, tol, key, main, err_of=None):
+        """Hold ``got`` to ``want``: max |got - want| within ``tol`` times
+        max(1, max|want|), or ``err_of(got, want)`` within ``tol``;
+        ``main``: a main-path shape in the main path's dtype, whose max
+        |got - want| goes into the kernels line."""
         nonlocal n_cmp
         for g_, w_ in zip(got, want):
-            err, scale = max_err(torch, g_, w_)
+            err, scale = (max_err(torch, g_, w_) if err_of is None
+                          else (err_of(g_, w_), 1.0))
             ratio = err / (tol * scale)
             worst[name] = max(worst[name], ratio)
-            check(ratio <= 1.0, f"{name} at {key}: |err| {err:.3e} > "
+            check(ratio <= 1.0, f"{name} at {key}: err {err:.3e} > "
                   f"{tol:.1e} * {scale:.3g}")
             n_cmp += 1
         if main:
@@ -853,22 +1073,24 @@ def run(args, torch) -> int:
                     want)}
             del moved
         del a, got, want
-    # causal flash attention: FLASH_SHAPES in fp32, bf16 and fp16, and the
-    # main path's shape in its two dtypes
-    flash_cases = [sh + (d,) for sh in FLASH_SHAPES
-                   for d in flash_attention.CHECK_TOLS] + [
-        FLASH_MAIN + ("bfloat16",), FLASH_MAIN + ("float32",)]
-    dtypes["float16"] = torch.float16
-    for bh, sl, d, dname in flash_cases:
-        q, k, v = (torch.from_numpy(rng.standard_normal((bh, sl, d))).to(
-            dev, dtypes[dname]) for _ in range(3))
-        want = ref.flash_attention_ref(q, k, v)
-        got = flash_attention.flash_attention_cuda(q, k, v)
-        torch.cuda.synchronize()
-        compare("flash_attention_cuda", [got], [want],
-                flash_attention.CHECK_TOLS[dname], (bh, sl, d, dname),
-                (bh, sl, d) == FLASH_MAIN)
-        del q, k, v, want, got
+    # causal flash attention (flash_check_cases), each query row held to
+    # its own size (flash_attention.row_error)
+    flash_cases = flash_check_cases(flash_attention.WGMMA_D)
+    flash_main = {"flash_attention_wgmma_cuda": "bfloat16",
+                  "flash_attention_cuda": "float32"}
+    for name, cases in flash_cases.items():
+        fn = getattr(flash_attention, name)
+        for bh, sl, d, g, dname in cases:
+            q, k, v = flash_inputs(torch, rng, bh, sl, d, g, dname)
+            want = ref.flash_attention_ref(q, k, v)
+            got = fn(q, k, v)
+            torch.cuda.synchronize()
+            compare(name, [got], [want], flash_attention.CHECK_TOLS[dname],
+                    (bh, sl, d, g, dname),
+                    (bh, sl, d) == FLASH_MAIN and g == FLASH_GROUP
+                    and dname == flash_main[name],
+                    err_of=flash_attention.row_error)
+            del q, k, v, want, got
     emit({"phase": "kernels_vs_plain", "ok": True, "comparisons": n_cmp,
           "main_path_shapes": {
               "chase_cycle_cuda (b_in, tw, slots, dtype)": main_cycle,
@@ -876,7 +1098,10 @@ def run(args, torch) -> int:
               "sturm_bisect_cuda (B, n, dtype)": main_sturm,
               "tape_apply_cuda (S, m, k, w, dtype)": main_tape,
               "fused_small_svd_cuda (B, n, bw, dtype)": fused_main,
-              "flash_attention_cuda (BH, S, D)": FLASH_MAIN},
+              "flash_attention_wgmma_cuda (BH, S, D, g, dtype)":
+                  FLASH_MAIN + (FLASH_GROUP, "bfloat16"),
+              "flash_attention_cuda (BH, S, D, g, dtype)":
+                  FLASH_MAIN + (FLASH_GROUP, "float32")},
           "flash_cases": flash_cases,
           "fused_cases": len(fused_cases),
           "fused_worst_err_over_scale": fused_errs,
@@ -894,7 +1119,8 @@ def run(args, torch) -> int:
                              [fused_small.CHECK_TOLS["float64"],
                               fused_small.CHECK_TOLS["float32"]],
                          "fused uv entries fp64": fused_small.ENTRY_TOL_FP64,
-                         "flash fp32/bf16/fp16":
+                         "flash fp32/bf16/fp16 (per query row: "
+                         "|got - plain| / |plain|)":
                              list(flash_attention.CHECK_TOLS.values()),
                          "scale": "max(1, max|plain|)"}})
 
@@ -907,7 +1133,7 @@ def run(args, torch) -> int:
     g2 = bc.stage_schedule(n4, bw4, tw4, 4)[2]
 
     def time_kernel(name, symbol, call, plain, iters, plain_iters, shape,
-                    bound, library=None):
+                    bound, library=None, library_iters=5):
         events = gpu_ms(torch, call, iters=iters, warmup=2)
         prof = profiler_ms(torch, call, symbol, min(iters, 50))
         timing[name] = dict(
@@ -916,8 +1142,8 @@ def run(args, torch) -> int:
             events_ms=events, profiler_ms=prof,
             plain_ms=gpu_ms(torch, plain, iters=plain_iters,
                             warmup=1 if plain_iters > 1 else 0),
-            library_ms=(gpu_ms(torch, library, iters=5, warmup=1)
-                        if library is not None else None),
+            library_ms=(gpu_ms(torch, library, iters=library_iters,
+                               warmup=1) if library is not None else None),
             bound=bound)
 
     win = torch.from_numpy(rng.standard_normal(
@@ -994,22 +1220,32 @@ def run(args, torch) -> int:
                                    a.element_size()),
             library=lambda a=a: torch.linalg.svdvals(a))
         del a
-    # causal flash attention at the main path's shape in bf16; the library
-    # yardstick is PyTorch's fused attention, scaled_dot_product_attention
-    # with is_causal=True, on the same tensors
+    # causal flash attention at the main path's shape with grouped KV
+    # heads: the wgmma kernel in bf16 (the serving run), flash_attn.cu in
+    # fp32 (the fp32 check).  The library yardstick is PyTorch's fused
+    # attention, scaled_dot_product_attention with is_causal=True, on q and
+    # the KV heads repeated to the query heads (built outside the timing)
     import torch.nn.functional as tnf
     bh, sl, d = FLASH_MAIN
-    q, k, v = (torch.from_numpy(rng.standard_normal((bh, sl, d))).to(
-        dev, torch.bfloat16) for _ in range(3))
-    time_kernel(
-        "flash_attention_cuda", "flash_attn_kernel",
-        lambda: flash_attention.flash_attention_cuda(q, k, v),
-        lambda: ref.flash_attention_ref(q, k, v), 20, 5,
-        f"q, k, v ({bh},{sl},{d}) bf16, causal",
-        flash_bound(bh, sl, d, "bfloat16", 2),
-        library=lambda: tnf.scaled_dot_product_attention(
-            q[None], k[None], v[None], is_causal=True))
-    del q, k, v
+    bkv = bh // FLASH_GROUP
+    for name, symbol, dname, iters, plain_iters in (
+            ("flash_attention_wgmma_cuda", "attn_wgmma_kernel", "bfloat16",
+             50, 5),
+            ("flash_attention_cuda", "flash_attn_kernel", "float32", 10, 3)):
+        fn = getattr(flash_attention, name)
+        q, k, v = (torch.from_numpy(rng.standard_normal((rows, sl, d))).to(
+            dev, dtypes[dname]) for rows in (bh, bkv, bkv))
+        kr, vr = (x.repeat_interleave(FLASH_GROUP, 0) for x in (k, v))
+        time_kernel(
+            name, symbol, lambda fn=fn, q=q, k=k, v=v: fn(q, k, v),
+            lambda q=q, k=k, v=v: ref.flash_attention_ref(q, k, v), iters,
+            plain_iters, f"q ({bh},{sl},{d}), k and v ({bkv},{sl},{d}) "
+            f"{dname}, causal",
+            flash_bound(bh, bkv, sl, d, dname, q.element_size()),
+            library=lambda q=q, kr=kr, vr=vr: tnf.scaled_dot_product_attention(
+                q[None], kr[None], vr[None], is_causal=True),
+            library_iters=iters)
+        del q, k, v, kr, vr
     emit({"phase": "kernel_times", "ok": True, "card": smi_line,
           "kernels": {k: {kk: (vv if kk != "bound" else
                                {"ms": vv[0], "by": vv[1], "bytes": vv[2],
@@ -1357,7 +1593,9 @@ def run(args, torch) -> int:
                "fused_small_svd_cuda":
                    "src/repro_torch/kernels/csrc/fused_small.cu",
                "flash_attention_cuda":
-                   "src/repro_torch/kernels/csrc/flash_attn.cu"}
+                   "src/repro_torch/kernels/csrc/flash_attn.cu",
+               "flash_attention_wgmma_cuda":
+                   "src/repro_torch/kernels/csrc/flash_attn_wgmma.cu"}
     replaces = {
         "chase_cycle_cuda": "src/repro/kernels/bulge_chase.py:126",
         "chase_superstep_cuda": "src/repro/kernels/bulge_chase.py:225",
@@ -1368,10 +1606,15 @@ def run(args, torch) -> int:
         "fused_small_svd_cuda": "src/repro/kernels/fused_small.py:266 "
                                 "(pallas_call :298)",
         "flash_attention_cuda": "src/repro/kernels/flash_attention.py:64 "
-                                "(pallas_call :74)"}
-    # the flash kernel's counter keeps the op's name, under which
-    # ops.launch_counts() reports it; the others are named after their kernel
-    count_key = {"flash_attention_cuda": "flash_attention"}
+                                "(pallas_call :74), fp32 and other D",
+        "flash_attention_wgmma_cuda": "src/repro/kernels/flash_attention.py:"
+                                      "64 (pallas_call :74), bf16/fp16 at "
+                                      "D in {64, 128}"}
+    # the flash kernels' counters keep the op's name, under which
+    # ops.launch_counts() reports them; the others are named after their
+    # kernel
+    count_key = {"flash_attention_cuda": "flash_attention",
+                 "flash_attention_wgmma_cuda": "flash_attention_wgmma"}
     kernels = []
     for name in sources:
         t = timing[name]

@@ -18,12 +18,13 @@ import shutil
 import subprocess
 from pathlib import Path
 
-__all__ = ["SOURCES", "FLAGS", "build_all", "load", "LOGS"]
+__all__ = ["SOURCES", "FLAGS", "build_all", "load", "nvcc_command", "LOGS"]
 
 CSRC = Path(__file__).resolve().parent / "csrc"
 BUILD = Path(__file__).resolve().parent / "build"
 SOURCES = {"chase": "chase.cu", "sturm": "sturm.cu", "hh_apply": "hh_apply.cu",
-           "fused_small": "fused_small.cu", "flash_attn": "flash_attn.cu"}
+           "fused_small": "fused_small.cu", "flash_attn": "flash_attn.cu",
+           "flash_attn_wgmma": "flash_attn_wgmma.cu"}
 # No --use_fast_math: the kernels need IEEE division, sqrt and subnormals.
 FLAGS = ["-gencode", "arch=compute_90a,code=sm_90a", "-std=c++17", "-O3",
          "-shared", "-Xcompiler", "-fPIC", "-Xptxas", "-v"]
@@ -40,6 +41,11 @@ def _nvcc() -> str:
     if os.path.exists(default):
         return default
     raise RuntimeError("nvcc not found: the CUDA kernels cannot be built")
+
+
+def nvcc_command(source: Path, target: Path) -> list[str]:
+    """The command that builds one source into a shared library."""
+    return [_nvcc(), *FLAGS, "-o", str(target), str(source)]
 
 
 def _target(name: str) -> Path:
@@ -61,7 +67,7 @@ def build_all(names=None) -> dict[str, Path]:
         if target.exists():
             continue
         tmp = target.with_name(f"{target.name}.{os.getpid()}.tmp")
-        cmd = [_nvcc(), *FLAGS, "-o", str(tmp), str(CSRC / SOURCES[name])]
+        cmd = nvcc_command(CSRC / SOURCES[name], tmp)
         procs[name] = (subprocess.Popen(cmd, stdout=subprocess.PIPE,
                                         stderr=subprocess.STDOUT, text=True),
                        tmp, target)

@@ -1,20 +1,26 @@
 // Causal flash attention (forward) for Hopper (sm_90a):
 //
-//     o[bh, i] = sum_{j <= i} softmax_j(q[bh, i] . k[bh, j] / sqrt(D)) v[bh, j],
-//     q, k, v, o (BH, S, D), contiguous, one storage type (fp32, bf16, fp16).
+//     o[bh, i] = sum_{j <= i} softmax_j(q[bh, i] . k[bh / g, j] / sqrt(D))
+//                v[bh / g, j],
+//     q, o (BH, S, D); k, v (BH / g, S, D); contiguous, one storage type
+//     (fp32, bf16, fp16).
 //
 // Replaces the TPU kernel flash_attention_pallas
 // (src/repro/kernels/flash_attention.py:64, pallas_call :74).  Plain version:
 // flash_attention_ref in src/repro_torch/kernels/ref.py.  Caller: the LM's
 // full-sequence attention (src/repro_torch/models/attention.py), through
-// ops.flash_attention, with the KV heads repeated to the query heads.
+// ops.flash_attention, for fp32 and for the head widths other than 64 and
+// 128 (bf16 and fp16 at D in {64, 128} go to flash_attn_wgmma.cu).  Query
+// row bh reads KV row bh / g: g query heads share one KV head, with no
+// repeated copy of k and v.
 //
-// What bounds it on the H100.  At the main-path shape (BH = 80, S = 2048,
-// D = 128, bf16: phi3-medium-14b prefill at b = 2) the causal products are
-// 4*BH*D*S(S+1)/2 = 85.9 GFLOP, 87 us on the bf16 tensor cores at
-// 989 TFLOP/s, against 168 MB of q, k, v and o, 50 us at 3.35 TB/s: the bound
-// is 87 us, set by operations.  This first version is simple and right, not
-// fast:
+// What bounds it on the H100.  At its main-path shape (BH = 80, S = 2048,
+// D = 128, fp32, g = 4: the four-layer fp32 check of phi3-medium-14b at
+// b = 2) the causal products are 4*BH*D*S(S+1)/2 = 85.9 GFLOP, 1.28 ms at
+// the 67 TFLOP/s of fp32 (fp32 has no tensor-core route at fp32 precision),
+// against 210 MB of q, o and the grouped k, v, 63 us at 3.35 TB/s: the bound
+// is 1.28 ms, set by operations.  This first version is simple and right,
+// not fast:
 //   * one block of 256 threads per (bh, 64-row query tile); grid x walks the
 //     query tiles heaviest first (the last tile has the most KV tiles), grid
 //     y is bh;
@@ -31,10 +37,9 @@
 //     are computed on zeros and not stored);
 //   * everything is fp32 FMA, p stays fp32 for P V (as the TPU kernel), and
 //     the output is rounded once to the storage type.
-// fp32 FMA on the CUDA cores peaks at 67 TFLOP/s, so this design cannot go
-// below ~1.3 ms at the main-path shape, and its shared-memory reads (about
-// one per two FMAs) hold it lower still.  wgmma on bf16 tiles fed by TMA,
-// with the GQA head mapping in place of the repeat, is later work.
+// Its shared-memory reads (about one per two FMAs) hold it well below the
+// 67 TFLOP/s of fp32 FMA.  For bf16 and fp16 at D = 64 and
+// 128, flash_attn_wgmma.cu runs the same function on the tensor cores.
 
 #include <cuda_runtime.h>
 #include <cuda_bf16.h>
@@ -87,7 +92,7 @@ template <typename T, int DP>
 __global__ void __launch_bounds__(kThreads)
 flash_attn_kernel(const T* __restrict__ q, const T* __restrict__ k,
                   const T* __restrict__ v, T* __restrict__ o, int S, int D,
-                  float scale, int n_tiles) {
+                  int group, float scale, int n_tiles) {
   constexpr int LD = DP + 1;     // Q and K row stride: rows on distinct banks
   constexpr int NJ = DP / 16;    // accumulator columns per thread
   extern __shared__ float smem[];
@@ -97,6 +102,7 @@ flash_attn_kernel(const T* __restrict__ q, const T* __restrict__ k,
 
   const int tile = n_tiles - 1 - blockIdx.x;     // heaviest first
   const size_t base = (size_t)blockIdx.y * S * D;
+  const size_t kv_base = (size_t)(blockIdx.y / group) * S * D;
   const int q0 = tile * kBQ;
   const int tr = threadIdx.x >> 4, tc = threadIdx.x & 15;
 
@@ -114,8 +120,8 @@ flash_attn_kernel(const T* __restrict__ q, const T* __restrict__ k,
   for (int kt = 0; kt <= tile; ++kt) {
     const int k0 = kt * kBK;
     __syncthreads();             // the previous tile's P V is done
-    load_tile<T, DP>(k + base, S, D, k0, 1.0f, kp, LD);
-    load_tile<T, DP>(v + base, S, D, k0, 1.0f, vs, DP);
+    load_tile<T, DP>(k + kv_base, S, D, k0, 1.0f, kp, LD);
+    load_tile<T, DP>(v + kv_base, S, D, k0, 1.0f, vs, DP);
     __syncthreads();
 
     float s[4][4];
@@ -198,7 +204,7 @@ flash_attn_kernel(const T* __restrict__ q, const T* __restrict__ k,
 
 template <typename T, int DP>
 int launch_dp(const void* q, const void* k, const void* v, void* o, int BH,
-              int S, int D, float scale, void* stream) {
+              int BHKV, int S, int D, float scale, void* stream) {
   const int bytes = smem_floats<DP>() * (int)sizeof(float);
   if (bytes > 48 * 1024) {
     cudaError_t err = cudaFuncSetAttribute(
@@ -209,32 +215,38 @@ int launch_dp(const void* q, const void* k, const void* v, void* o, int BH,
   const int n_tiles = (S + kBQ - 1) / kBQ;
   const dim3 grid(n_tiles, BH);
   flash_attn_kernel<T, DP><<<grid, kThreads, bytes, (cudaStream_t)stream>>>(
-      (const T*)q, (const T*)k, (const T*)v, (T*)o, S, D, scale, n_tiles);
+      (const T*)q, (const T*)k, (const T*)v, (T*)o, S, D, BH / BHKV, scale,
+      n_tiles);
   return (int)cudaGetLastError();
 }
 
 template <typename T>
 int launch(const void* q, const void* k, const void* v, void* o, int BH,
-           int S, int D, float scale, void* stream) {
-  if (D <= 32) return launch_dp<T, 32>(q, k, v, o, BH, S, D, scale, stream);
-  if (D <= 64) return launch_dp<T, 64>(q, k, v, o, BH, S, D, scale, stream);
-  if (D <= 128) return launch_dp<T, 128>(q, k, v, o, BH, S, D, scale, stream);
-  if (D <= 256) return launch_dp<T, 256>(q, k, v, o, BH, S, D, scale, stream);
+           int BHKV, int S, int D, float scale, void* stream) {
+  if (D <= 32)
+    return launch_dp<T, 32>(q, k, v, o, BH, BHKV, S, D, scale, stream);
+  if (D <= 64)
+    return launch_dp<T, 64>(q, k, v, o, BH, BHKV, S, D, scale, stream);
+  if (D <= 128)
+    return launch_dp<T, 128>(q, k, v, o, BH, BHKV, S, D, scale, stream);
+  if (D <= 256)
+    return launch_dp<T, 256>(q, k, v, o, BH, BHKV, S, D, scale, stream);
   return (int)cudaErrorInvalidValue;
 }
 
 }  // namespace
 
 // Plain C interface, one symbol per storage type.  Pointers are device
-// pointers to contiguous (BH, S, D) tensors; the wrapper
+// pointers to contiguous q, o (BH, S, D) and k, v (BHKV, S, D); the wrapper
 // (kernels/flash_attention.py) checks 1 <= D <= 256 with D % 8 == 0,
-// 1 <= BH <= 65535 and S >= 1, and passes scale = 1/sqrt(D).  Each returns
-// cudaGetLastError() after the launch.
+// 1 <= BH <= 65535, BHKV dividing BH and S >= 1, and passes
+// scale = 1/sqrt(D).  Each returns cudaGetLastError() after the launch.
 #define FLASH_API(SUFFIX, T)                                                  \
   extern "C" int flash_attn_##SUFFIX(const void* q, const void* k,           \
-                                     const void* v, void* o, int BH, int S,  \
-                                     int D, float scale, void* stream) {     \
-    return launch<T>(q, k, v, o, BH, S, D, scale, stream);                   \
+                                     const void* v, void* o, int BH,         \
+                                     int BHKV, int S, int D, float scale,    \
+                                     void* stream) {                         \
+    return launch<T>(q, k, v, o, BH, BHKV, S, D, scale, stream);             \
   }
 
 FLASH_API(f32, float)

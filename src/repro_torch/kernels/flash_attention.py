@@ -1,17 +1,27 @@
-"""Wrapper of the CUDA causal flash-attention kernel (``csrc/flash_attn.cu``).
+"""Wrappers of the two CUDA causal flash-attention kernels, and the rule that
+picks one.
 
-``flash_attention_cuda`` takes the contract of the reference's
-``flash_attention_pallas``: causal softmax attention on q, k, v (BH, S, D),
-scale 1/sqrt(D), an online softmax in fp32, forward only, the result in
-``q.dtype``.  It takes float32, bfloat16 and float16, 1 <= D <= 256 with D a
-multiple of 8, and any S (the ragged edge is masked in the kernel).  The
-kernel's tile (64 query rows, 64 keys) is its own; nothing here takes the
-reference's ``block_q``/``block_k``.
+Both take the contract of the reference's ``flash_attention_pallas`` with
+grouped KV heads: causal softmax attention of q (BH, S, D) against k, v
+(BH / g, S, D), query row bh reading KV row bh // g (g = 1 is the
+reference's contract), scale 1/sqrt(D), an online softmax in fp32, forward
+only, the result in ``q.dtype``, any S (the ragged edge is masked in the
+kernels).  Nothing here takes the reference's ``block_q``/``block_k``: each
+kernel's tile is its own.
 
-It takes CUDA tensors only: it launches the kernel or raises, and counts the
-launch in ``launches``.  The plain version ``ref.flash_attention_ref`` is
-chosen for CPU tensors by ``kernels/ops.py``, not here.  The library is
-built on first use.
+- ``flash_attention_wgmma_cuda`` (``csrc/flash_attn_wgmma.cu``): bf16 and
+  fp16 with D in {64, 128}, on the tensor cores (wgmma on tiles that TMA
+  brings into shared memory).  P is rounded to the storage type before
+  P.V.
+- ``flash_attention_cuda`` (``csrc/flash_attn.cu``): fp32, bf16 and fp16,
+  1 <= D <= 256 with D a multiple of 8, fp32 FMA throughout.  fp32 has no
+  tensor-core route at fp32 precision (TF32 is not fp32).
+
+``kernel_for`` is the rule ``ops.flash_attention`` follows.  Each wrapper
+takes CUDA tensors only: it launches its kernel or raises, and counts the
+launch in ``launches`` under its own key.  The plain version
+``ref.flash_attention_ref`` is chosen for CPU tensors by ``kernels/ops.py``,
+not here.  The libraries are built on first use.
 """
 
 from __future__ import annotations
@@ -21,19 +31,27 @@ import ctypes
 import torch
 
 from repro_torch.kernels import _build
+from repro_torch.kernels.ref import gqa_group
 
-__all__ = ["flash_attention_cuda", "launches", "MAX_D", "MAX_BH",
-           "CHECK_TOLS", "PREFILL_TOLS"]
+__all__ = ["flash_attention_cuda", "flash_attention_wgmma_cuda",
+           "kernel_for", "launches", "row_error", "MAX_D", "MAX_BH",
+           "WGMMA_D", "CHECK_TOLS", "PREFILL_TOLS"]
 
-launches = {"flash_attention": 0}
+launches = {"flash_attention": 0, "flash_attention_wgmma": 0}
 
-# How the kernel is held against its plain version (the card tests and
-# chip_smoke.py): the reference's kernel-test tolerances
-# (tests/test_kernels.py: fp32 3e-6, bf16 3e-2; fp16, whose rounding is
-# finer than bf16's, as bf16), times the output's scale max(1, max|o|).
-CHECK_TOLS = {"float32": 3e-6, "bfloat16": 3e-2, "float16": 3e-2}
+# How the kernels are held against their plain version (the card tests,
+# chip_smoke.py and the CPU tests against the reference): ``row_error`` at
+# most CHECK_TOLS.  Each query row is held to its own size, since late rows
+# of causal attention average many keys and are far smaller than the first
+# (one scale for the whole output hid faults confined to late key tiles).
+# Each limit sits between the sound kernels' readings and those of faults
+# planted in copies of the kernels (``chip_smoke.py --flash-planted-faults``
+# on an H100 80GB HBM3 at 700 W): bf16 sound 5.1e-3, two stale-tile faults
+# 0.57-0.71; fp16 sound 6.4e-4, fp16 computed at bf16 precision 1.6e-3;
+# fp32 (flash_attn.cu) sound 3.0e-6.
+CHECK_TOLS = {"float32": 1e-5, "bfloat16": 3e-2, "float16": 1e-3}
 
-# How a phi3-medium-14b-width prefill through the kernel is held against
+# How a phi3-medium-14b-width prefill through the kernels is held against
 # the same prefill through the plain version: max |logit difference| over
 # max(1, max|logit|) (chip_smoke.py's lm phases and the card test).  Under
 # the reference's init every softmax is nearly one-hot and amplifies
@@ -41,59 +59,113 @@ CHECK_TOLS = {"float32": 3e-6, "bfloat16": 3e-2, "float16": 3e-2}
 # between the sound readings and those of two planted faults (the causal
 # mask off by one, the GQA group order tiled), from
 # ``chip_smoke.py --lm-planted-faults`` on an H100 80GB HBM3 at 700 W:
-# fp32, 2-4 layers: sound 2.3e-4-2.6e-3, faults 0.94-1.48; bf16, 40
-# layers: sound 0.106-0.131, faults 1.19-1.40.
+# fp32, 2-4 layers (flash_attn.cu): sound 2.3e-4-2.6e-3, faults 0.94-1.48;
+# bf16, 40 layers (flash_attn_wgmma.cu): sound 0.1117, faults 1.19-1.38.
 PREFILL_TOLS = {"float32": 3e-2, "bfloat16": 0.4}
 
-MAX_D = 256                 # the kernel's widest padded head (DP)
-MAX_BH = 65535              # one grid row per (batch, head): grid y
+MAX_D = 256                 # flash_attn.cu's widest padded head (DP)
+MAX_BH = 65535              # flash_attn.cu: one grid row per (batch, head)
+WGMMA_D = (64, 128)         # the head widths flash_attn_wgmma.cu takes
+_WGMMA_MAX_TILES = 65535    # flash_attn_wgmma.cu: grid y, 128 rows a tile
 _SUFFIX = {torch.float32: "f32", torch.bfloat16: "bf16", torch.float16: "f16"}
 _FNS: dict = {}
 
 
-def _fn(dtype: torch.dtype):
-    f = _FNS.get(dtype)
+def kernel_for(dtype: torch.dtype, d: int) -> str:
+    """The kernel that takes causal attention of this storage type and head
+    width on the card: ``"wgmma"`` for bf16 and fp16 with D in {64, 128},
+    else ``"simt"`` (``flash_attn.cu``)."""
+    if dtype in (torch.bfloat16, torch.float16) and d in WGMMA_D:
+        return "wgmma"
+    return "simt"
+
+
+def row_error(got: torch.Tensor, want: torch.Tensor) -> float:
+    """How far ``got`` lies from ``want``, both (..., S, D): the largest over
+    query rows of |got_row - want_row| / |want_row| (2-norms, in fp64).  A
+    row of zeros in ``want`` must be matched exactly."""
+    g = got.detach().double().reshape(-1, got.shape[-1])
+    w = want.detach().to(g.device, torch.float64).reshape(-1, want.shape[-1])
+    if not w.numel():
+        return 0.0
+    den = w.norm(dim=-1).clamp_min(torch.finfo(torch.float64).tiny)
+    return float(((g - w).norm(dim=-1) / den).max())
+
+
+def _fn(source: str, dtype: torch.dtype):
+    f = _FNS.get((source, dtype))
     if f is None:
-        f = getattr(_build.load("flash_attn"), f"flash_attn_{_SUFFIX[dtype]}")
+        f = getattr(_build.load(source), f"{source}_{_SUFFIX[dtype]}")
         p, i = ctypes.c_void_p, ctypes.c_int
-        f.argtypes = [p, p, p, p, i, i, i, ctypes.c_float, p]
+        f.argtypes = [p, p, p, p, i, i, i, i, ctypes.c_float, p]
         f.restype = ctypes.c_int
-        _FNS[dtype] = f
+        _FNS[(source, dtype)] = f
     return f
+
+
+def _check(q, k, v, dtypes) -> int:
+    """Device, dtype and layout checks shared by both wrappers; returns g."""
+    for name, x in (("q", q), ("k", k), ("v", v)):
+        if x.device.type != "cuda":
+            raise ValueError(f"{name} must be a CUDA tensor, got {x.device}")
+        if x.dtype not in dtypes:
+            raise ValueError(f"{name}: dtype {x.dtype} not in {dtypes}")
+        if x.dtype != q.dtype or x.device != q.device:
+            raise ValueError(f"{name}: {x.dtype} on {x.device}, expected "
+                             f"q's {q.dtype} on {q.device}")
+        if not x.is_contiguous():
+            raise ValueError(f"{name} must be contiguous")
+    return gqa_group(q, k, v)
+
+
+def _launch(source: str, key: str, q, k, v) -> torch.Tensor:
+    bh, s, d = q.shape
+    out = torch.empty_like(q)
+    if bh * s:
+        with torch.cuda.device(q.device):
+            stream = torch.cuda.current_stream().cuda_stream
+            err = _fn(source, q.dtype)(q.data_ptr(), k.data_ptr(),
+                                       v.data_ptr(), out.data_ptr(), bh,
+                                       k.shape[0], s, d, 1.0 / d ** 0.5,
+                                       stream)
+        if err != 0:
+            raise RuntimeError(f"{source}: error {err} (a CUDA error code; "
+                               f"100000 + a CUresult: a refused tensor map; "
+                               f"-1: no cuTensorMapEncodeTiled)")
+        launches[key] += 1
+    return out
 
 
 def flash_attention_cuda(q: torch.Tensor, k: torch.Tensor,
                          v: torch.Tensor) -> torch.Tensor:
-    """Causal attention of contiguous (BH, S, D) CUDA tensors of one dtype;
-    returns a new (BH, S, D) tensor of that dtype."""
-    for name, x in (("q", q), ("k", k), ("v", v)):
-        if x.device.type != "cuda":
-            raise ValueError(f"{name} must be a CUDA tensor, got {x.device}")
-        if x.dtype not in _SUFFIX:
-            raise ValueError(f"{name}: dtype {x.dtype} not in "
-                             f"{tuple(_SUFFIX)}")
-        if x.dtype != q.dtype or x.shape != q.shape or x.device != q.device:
-            raise ValueError(f"{name}: {x.dtype} {tuple(x.shape)} on "
-                             f"{x.device}, expected q's {q.dtype} "
-                             f"{tuple(q.shape)} on {q.device}")
-        if not x.is_contiguous():
-            raise ValueError(f"{name} must be contiguous")
-    if q.dim() != 3:
-        raise ValueError(f"q, k, v must be (BH, S, D), got {tuple(q.shape)}")
-    bh, s, d = q.shape
+    """``flash_attn.cu``: causal attention of contiguous CUDA tensors of one
+    dtype, q (BH, S, D), k, v (BH / g, S, D); returns a new (BH, S, D)
+    tensor of that dtype."""
+    _check(q, k, v, tuple(_SUFFIX))
+    bh, _, d = q.shape
     if not (1 <= d <= MAX_D and d % 8 == 0):
         raise ValueError(f"head dim {d}: the kernel takes 1 <= D <= {MAX_D} "
                          f"with D % 8 == 0")
     if bh > MAX_BH:
         raise ValueError(f"BH = {bh}: the kernel takes at most {MAX_BH}")
-    out = torch.empty_like(q)
-    if bh * s:
-        with torch.cuda.device(q.device):
-            stream = torch.cuda.current_stream().cuda_stream
-            err = _fn(q.dtype)(q.data_ptr(), k.data_ptr(), v.data_ptr(),
-                               out.data_ptr(), bh, s, d, 1.0 / d ** 0.5,
-                               stream)
-        if err != 0:
-            raise RuntimeError(f"flash_attention_cuda: CUDA error {err}")
-        launches["flash_attention"] += 1
-    return out
+    return _launch("flash_attn", "flash_attention", q, k, v)
+
+
+def flash_attention_wgmma_cuda(q: torch.Tensor, k: torch.Tensor,
+                               v: torch.Tensor) -> torch.Tensor:
+    """``flash_attn_wgmma.cu``: causal attention of contiguous bf16 or fp16
+    CUDA tensors, q (BH, S, D), k, v (BH / g, S, D), D in {64, 128};
+    returns a new (BH, S, D) tensor of that dtype."""
+    _check(q, k, v, (torch.bfloat16, torch.float16))
+    _, s, d = q.shape
+    if d not in WGMMA_D:
+        raise ValueError(f"head dim {d}: the wgmma kernel takes D in "
+                         f"{WGMMA_D}")
+    if -(-s // 128) > _WGMMA_MAX_TILES:
+        raise ValueError(f"S = {s}: the wgmma kernel takes at most "
+                         f"{_WGMMA_MAX_TILES * 128}")
+    for name, x in (("q", q), ("k", k), ("v", v)):
+        if x.data_ptr() % 16:
+            raise ValueError(f"{name} must start on a 16-byte boundary "
+                             f"(TMA)")
+    return _launch("flash_attn_wgmma", "flash_attention_wgmma", q, k, v)

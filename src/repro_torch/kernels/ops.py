@@ -150,8 +150,10 @@ def _cuda_fused(mats, *, bw, compute_uv, max_iter):
 
 
 def _cuda_flash(q, k, v):
-    from repro_torch.kernels import flash_attention
-    return flash_attention.flash_attention_cuda(q, k, v)
+    from repro_torch.kernels import flash_attention as fa
+    if fa.kernel_for(q.dtype, q.shape[-1]) == "wgmma":
+        return fa.flash_attention_wgmma_cuda(q, k, v)
+    return fa.flash_attention_cuda(q, k, v)
 
 
 register_backend("cuda", chase_cycle=_cuda_chase, sturm_bisect=_cuda_bisect,
@@ -231,10 +233,14 @@ def fused_svd(mats: torch.Tensor, *, bw: int, compute_uv: bool = False,
 def flash_attention(q: torch.Tensor, k: torch.Tensor, v: torch.Tensor, *,
                     backend: str = "auto", block_q: int = 128,
                     block_k: int = 128) -> torch.Tensor:
-    """Causal attention on q, k, v (BH, S, D), scale 1/sqrt(D), the result
-    in ``q.dtype``.  On a CUDA tensor one launch of the flash kernel; on the
-    CPU its plain version.  ``block_q``/``block_k`` are the reference's
-    keywords; the kernel's tile is its own, so both are ignored."""
+    """Causal attention of q (BH, S, D) against k, v (BH / g, S, D), query
+    row bh reading KV row bh // g (g = 1: the reference's contract), scale
+    1/sqrt(D), the result in ``q.dtype``.  On a CUDA tensor one launch of
+    the flash kernel that ``flash_attention.kernel_for`` names (the wgmma
+    kernel for bf16 and fp16 at D in {64, 128}, else ``flash_attn.cu``); on
+    the CPU the plain version.  ``block_q``/``block_k`` are the
+    reference's keywords; the kernels' tiles are their own, so both are
+    ignored."""
     del block_q, block_k
     return _impl("flash_attention", backend, None, q.device)(q, k, v)
 

@@ -1,7 +1,7 @@
 """Plain PyTorch versions of the chase kernels (``csrc/chase.cu``), of the
 compact-WY apply (``csrc/hh_apply.cu``), of the fused small-n SVD
 (``csrc/fused_small.cu``) and of causal flash attention
-(``csrc/flash_attn.cu``).
+(``csrc/flash_attn.cu``, ``csrc/flash_attn_wgmma.cu``).
 
 They run on any device.  The CPU tests hold them against the reference's
 ``kernels/ref.py``, and ``chip_smoke.py`` holds the CUDA kernels against
@@ -32,7 +32,7 @@ from repro_torch.core.householder import acc_dtype, make_reflector
 
 __all__ = ["chase_cycle_ref", "chase_superstep_ref", "tape_apply_ref",
            "hh_block_apply_ref", "effective_bw", "fused_walk",
-           "fused_small_svd_ref", "flash_attention_ref"]
+           "fused_small_svd_ref", "flash_attention_ref", "gqa_group"]
 
 
 def _chase_window(win: torch.Tensor, first: torch.Tensor, *, b_in: int,
@@ -289,12 +289,37 @@ def fused_small_svd_ref(mats: torch.Tensor, *, bw: int,
                                   backend="ref").to(dt)
 
 
+def gqa_group(q: torch.Tensor, k: torch.Tensor, v: torch.Tensor) -> int:
+    """The query heads g that share one KV head: q (BH, S, D), k and v
+    (BH / g, S, D).  Raises ``ValueError`` when the shapes disagree or k's
+    rows do not divide q's."""
+    if q.dim() != 3 or k.shape != v.shape or k.dim() != 3:
+        raise ValueError(f"expected q (BH, S, D) and k, v (BH/g, S, D), got "
+                         f"{tuple(q.shape)}, {tuple(k.shape)}, "
+                         f"{tuple(v.shape)}")
+    if k.shape[1:] != q.shape[1:]:
+        raise ValueError(f"k, v {tuple(k.shape)}: (S, D) must be q's "
+                         f"{tuple(q.shape[1:])}")
+    bh, bh_kv = q.shape[0], k.shape[0]
+    if bh_kv == 0 or bh % bh_kv:
+        raise ValueError(f"k, v have {bh_kv} rows, which do not divide q's "
+                         f"{bh}")
+    return bh // bh_kv
+
+
 def flash_attention_ref(q: torch.Tensor, k: torch.Tensor,
                         v: torch.Tensor) -> torch.Tensor:
     """Plain causal softmax attention, the reference's
-    ``flash_attention_ref``: q, k, v (BH, S, D), computed in fp32 with scale
-    1/sqrt(D) (the softmax weights stay fp32 for the product with v), the
-    result in ``q.dtype``."""
+    ``flash_attention_ref`` with grouped KV heads: q (BH, S, D), k and v
+    (BH / g, S, D), query row bh reading KV row bh // g (the reference's
+    ``jnp.repeat(k, g, axis=2)`` once heads are flattened as b*nh + h; g = 1
+    is the reference's contract).  Computed in fp32 with scale 1/sqrt(D)
+    (the softmax weights stay fp32 for the product with v), the result in
+    ``q.dtype``."""
+    g = gqa_group(q, k, v)
+    if g > 1:
+        k = k.repeat_interleave(g, dim=0)
+        v = v.repeat_interleave(g, dim=0)
     s_len = q.shape[1]
     scale = 1.0 / (q.shape[-1] ** 0.5)
     scores = torch.einsum("bsd,btd->bst", q.float(), k.float()).mul_(scale)

@@ -71,20 +71,18 @@ def attention(x: torch.Tensor, p: dict, cfg, *, pos0: int = 0,
               backend: str = "auto") -> torch.Tensor:
     """Full-sequence causal attention (prefill).
 
-    The KV heads are repeated to the query heads (the reference's
-    ``jnp.repeat(k, g, axis=2)``: each KV head serves g consecutive query
-    heads), laid out as (b*nh, s, hd) and handed to ``ops.flash_attention``:
-    the CUDA kernel for tensors on the card, its plain version on the CPU
-    (``backend="ref"`` asks for the plain version on the card too)."""
+    q is laid out as (b*nh, s, hd) and k, v as (b*nkv, s, hd), and all three
+    go to ``ops.flash_attention``, which has query row b*nh + h read KV row
+    b*nkv + h // g (g = nh / nkv: the reference's ``jnp.repeat(k, g,
+    axis=2)``, each KV head serving g consecutive query heads) without a
+    repeated copy: a CUDA kernel for tensors on the card, the plain version
+    on the CPU (``backend="ref"`` asks for the plain version on the card
+    too)."""
     b, s, _ = x.shape
     hd, nh = cfg.head_dim, cfg.n_heads
-    g = nh // cfg.n_kv
     q, k, v = _qkv(x, p, cfg)
     pos = pos0 + torch.arange(s, device=x.device)[None, :]
     q, k = rope(q, pos, cfg.rope_theta), rope(k, pos, cfg.rope_theta)
-    if g > 1:
-        k = k.repeat_interleave(g, dim=2)
-        v = v.repeat_interleave(g, dim=2)
     o = ops.flash_attention(_heads_first(q), _heads_first(k), _heads_first(v),
                             backend=backend)
     o = o.reshape(b, nh, s, hd).transpose(1, 2).reshape(b, s, nh * hd)

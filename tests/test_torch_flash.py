@@ -6,9 +6,17 @@ The reference's Pallas kernel cannot run here (interpret mode needs
 reference's plain ``kernels/ref.py::flash_attention_ref`` and its
 ``ops.flash_attention(backend="ref")``, on the reference kernel test's grid
 (``tests/test_kernels.py``) at its tolerances: 3e-6 at fp32, 3e-2 at bf16,
-absolute (the outputs are O(1)).
+absolute (the outputs are O(1)).  With grouped KV heads (k, v of BH / g
+rows) the reference is given ``jnp.repeat(k, g, axis=0)``, the order of its
+model's ``jnp.repeat(k, g, axis=2)`` once heads are flattened, and each
+query row is held to its own size (``flash_attention.row_error`` within
+``flash_attention.CHECK_TOLS``).  An emulation of the wgmma kernel's
+arithmetic (P rounded to bf16 before P.V) is held to the same.
 """
 
+import math
+
+import jax.numpy as jnp
 import numpy as np
 import pytest
 import torch
@@ -98,3 +106,107 @@ def test_flash_on_cpu_runs_the_plain_version_and_the_kernel_raises():
         tflash.flash_attention_cuda(q, k, v)
     with pytest.raises(ValueError, match="CUDA"):
         ops.flash_attention(q, k, v, backend="cuda")
+
+
+# ---------------------------------------------------------------------------
+# grouped KV heads, the rule that picks the kernel, and the wgmma arithmetic
+# ---------------------------------------------------------------------------
+
+def _grouped(bh_kv, g, s, d, seed, dtype):
+    """q (bh_kv * g, s, d) and k, v (bh_kv, s, d) as (jax, torch) pairs."""
+    rng = np.random.default_rng(seed)
+    q = pair(rng.standard_normal((bh_kv * g, s, d)), dtype)
+    k, v = (pair(rng.standard_normal((bh_kv, s, d)), dtype) for _ in "kv")
+    return q, k, v
+
+
+def _row_err(got, want) -> float:
+    return tflash.row_error(got, torch.from_numpy(to_np(want)))
+
+
+@pytest.mark.parametrize("g", [1, 2, 4, 5])
+@pytest.mark.parametrize("dtype", ["float32", "bfloat16"])
+def test_grouped_flash_ref_matches_reference_on_repeated_kv(g, dtype):
+    """Query row bh reads KV row bh // g: the reference on
+    ``jnp.repeat(k, g, axis=0)`` (its model's head order, flattened)."""
+    (jq, tq), (jk, tk), (jv, tv) = _grouped(2, g, 70, 32, 11 * g, dtype)
+    want = jflash_ref(jq, jnp.repeat(jk, g, axis=0), jnp.repeat(jv, g, axis=0))
+    tol = tflash.CHECK_TOLS[dtype]
+    got = flash_attention_ref(tq, tk, tv)
+    assert got.dtype == tq.dtype and got.shape == tq.shape
+    assert _row_err(got, want) <= tol
+    assert _row_err(ops.flash_attention(tq, tk, tv), want) <= tol
+
+
+@pytest.mark.parametrize("dtype,d,kernel", [
+    (torch.bfloat16, 64, "wgmma"), (torch.bfloat16, 128, "wgmma"),
+    (torch.float16, 64, "wgmma"), (torch.float16, 128, "wgmma"),
+    (torch.float32, 64, "simt"), (torch.float32, 128, "simt"),
+    (torch.bfloat16, 96, "simt"), (torch.bfloat16, 32, "simt"),
+    (torch.float16, 16, "simt"), (torch.float16, 256, "simt")])
+def test_kernel_for_routes_by_dtype_and_head_width(dtype, d, kernel):
+    """bf16 and fp16 at D in {64, 128} go to the wgmma kernel; fp32 (no
+    tensor-core route at fp32 precision) and every other D to
+    ``flash_attn.cu``."""
+    assert tflash.kernel_for(dtype, d) == kernel
+
+
+def test_kv_rows_must_divide_query_rows():
+    """k, v whose rows do not divide q's, or whose (S, D) differ, raise
+    ``ValueError`` on the CPU path (and in both wrappers, which share the
+    check)."""
+    q = torch.zeros(8, 16, 32)
+    for k in (torch.zeros(3, 16, 32), torch.zeros(16, 16, 32),
+              torch.zeros(0, 16, 32)):
+        with pytest.raises(ValueError, match="do not divide"):
+            ops.flash_attention(q, k, k)
+        with pytest.raises(ValueError, match="do not divide"):
+            flash_attention_ref(q, k, k)
+    with pytest.raises(ValueError, match="must be q's"):
+        ops.flash_attention(q, torch.zeros(4, 15, 32), torch.zeros(4, 15, 32))
+    with pytest.raises(ValueError, match="expected q"):
+        ops.flash_attention(q, torch.zeros(4, 16, 32), torch.zeros(2, 16, 32))
+
+
+def _emulate_wgmma(q, k, v):
+    """The arithmetic of ``csrc/flash_attn_wgmma.cu`` on the CPU: 128-row
+    query tiles against 128-key tiles up to the diagonal, Q.K^T of the
+    16-bit inputs summed in fp32, scores times log2(e)/sqrt(D) and exp2,
+    the online max and rescale, P rounded to the storage type before P.V,
+    P.V summed in fp32, l summed from the fp32 P, one rounding at the
+    store."""
+    bh, s, d = q.shape
+    g = bh // k.shape[0]
+    qf = q.float()
+    kf, vf = (x.repeat_interleave(g, dim=0).float() for x in (k, v))
+    sl2 = math.log2(math.e) / math.sqrt(d)
+    out = torch.empty(bh, s, d)
+    for q0 in range(0, s, 128):
+        rows = torch.arange(q0, min(q0 + 128, s))
+        m = torch.full((bh, len(rows)), -1e30)
+        l = torch.zeros(bh, len(rows))
+        acc = torch.zeros(bh, len(rows), d)
+        for k0 in range(0, q0 + 1, 128):
+            cols = torch.arange(k0, min(k0 + 128, s))
+            sc = qf[:, rows] @ kf[:, cols].mT
+            sc = sc.masked_fill(cols[None, :] > rows[:, None], -math.inf)
+            m_new = torch.maximum(m, sc.amax(-1) * sl2)
+            corr = torch.exp2(m - m_new)
+            p = torch.exp2(sc * sl2 - m_new[..., None])
+            l = l * corr + p.sum(-1)
+            acc = acc * corr[..., None] + p.to(q.dtype).float() @ vf[:, cols]
+            m = m_new
+        out[:, rows] = acc / l[..., None]
+    return out.to(q.dtype)
+
+
+@pytest.mark.parametrize("s", [1, 127, 129, 300])
+def test_wgmma_arithmetic_within_the_bf16_tolerance(s):
+    """Rounding P to bf16 before P.V, where the reference keeps it in fp32,
+    costs less than the reference's bf16 tolerance at the LM's head width
+    (D = 128, g = 4)."""
+    (jq, tq), (jk, tk), (jv, tv) = _grouped(2, 4, s, 128, s, "bfloat16")
+    want = jflash_ref(jq, jnp.repeat(jk, 4, axis=0), jnp.repeat(jv, 4, axis=0))
+    got = _emulate_wgmma(tq, tk, tv)
+    assert got.dtype == torch.bfloat16 and got.shape == tq.shape
+    assert _row_err(got, want) <= tflash.CHECK_TOLS["bfloat16"]

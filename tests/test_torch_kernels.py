@@ -10,9 +10,9 @@ Tolerances are the reference's kernel-test ones (fp32 3e-5, fp64 1e-12,
 bf16 8e-2, times the output's scale); the compact-WY apply's are fp32 and
 fp64 times max(1, k // 4) as well, and bf16 1e-2 times the scale, about one
 bf16 ulp (``wy_tol``); bisection agrees to 1e-13 * sigma_max at fp64 and
-1e-5 * sigma_max at fp32; causal flash attention to the reference's
-flash-test tolerances (``flash_attention.CHECK_TOLS``: fp32 3e-6, bf16 and
-fp16 3e-2, times the output's scale).
+1e-5 * sigma_max at fp32; causal flash attention, both kernels, with k and
+v of BH or BH / g rows, each query row to its own size
+(``flash_attention.row_error`` within ``flash_attention.CHECK_TOLS``).
 """
 
 import dataclasses
@@ -366,8 +366,13 @@ def test_fused_small_on_the_card_matches_the_cpu(cuda, compute_uv):
 
 
 # ---------------------------------------------------------------------------
-# causal flash attention (tolerances: flash_attention.CHECK_TOLS)
+# causal flash attention (flash_attention.row_error within CHECK_TOLS)
 # ---------------------------------------------------------------------------
+
+def _close_rows(got, want, dtype):
+    err = tflash.row_error(got, want)
+    assert err <= tflash.CHECK_TOLS[dtype], (err, dtype)
+
 
 def _flash_inputs(bh, s, d, seed, dtype, device):
     rng = np.random.default_rng(seed)
@@ -385,7 +390,7 @@ def test_flash_attention_cuda_matches_plain(cuda, d, s, dtype):
     got = tflash.flash_attention_cuda(q, k, v)
     torch.cuda.synchronize()
     assert got.dtype == q.dtype and got.shape == q.shape
-    close(got, tref.flash_attention_ref(q, k, v), tflash.CHECK_TOLS[dtype])
+    _close_rows(got, tref.flash_attention_ref(q, k, v), dtype)
 
 
 @pytest.mark.cuda
@@ -419,12 +424,94 @@ def test_flash_attention_cuda_rejects_what_it_does_not_take(cuda):
 
 @pytest.mark.cuda
 def test_flash_attention_counts_its_launches(cuda):
+    """Each kernel counts its own launches, and ``ops.flash_attention``
+    launches the one ``kernel_for`` names: bf16 at D = 64 the wgmma kernel,
+    fp32 ``flash_attn.cu``; the "ref" backend launches neither."""
+    keys = ("flash_attention", "flash_attention_wgmma")
     q, k, v = _flash_inputs(2, 70, 64, 2, torch.bfloat16, cuda)
-    before = ops.launch_counts()["flash_attention"]
+    before = [ops.launch_counts()[key] for key in keys]
     ops.flash_attention(q, k, v)
-    assert ops.launch_counts()["flash_attention"] == before + 1
+    assert [ops.launch_counts()[key] for key in keys] == [before[0],
+                                                          before[1] + 1]
+    ops.flash_attention(q.float(), k.float(), v.float())
+    assert [ops.launch_counts()[key] for key in keys] == [before[0] + 1,
+                                                          before[1] + 1]
     ops.flash_attention(q, k, v, backend="ref")
-    assert ops.launch_counts()["flash_attention"] == before + 1
+    assert [ops.launch_counts()[key] for key in keys] == [before[0] + 1,
+                                                          before[1] + 1]
+
+
+def _grouped_inputs(bh_kv, g, s, d, seed, dtype, device):
+    """q (bh_kv * g, s, d) and k, v (bh_kv, s, d) on ``device``."""
+    rng = np.random.default_rng(seed)
+    q = torch.from_numpy(rng.standard_normal((bh_kv * g, s, d)))
+    k, v = (torch.from_numpy(rng.standard_normal((bh_kv, s, d)))
+            for _ in "kv")
+    return tuple(x.to(device, dtype) for x in (q, k, v))
+
+
+@pytest.mark.cuda
+@pytest.mark.parametrize("g", [1, 4])
+@pytest.mark.parametrize("dtype", ["bfloat16", "float16"])
+@pytest.mark.parametrize("d", [64, 128])
+@pytest.mark.parametrize("s", [1, 2, 63, 64, 65, 127, 128, 129, 1000, 2047,
+                               2048])
+def test_flash_attention_wgmma_matches_plain(cuda, s, d, dtype, g):
+    """The tensor-core kernel against the plain version, across the ragged
+    edge of its 128-row tiles, with k and v of BH or BH / 4 rows."""
+    q, k, v = _grouped_inputs(2, g, s, d, s * d + g, torch_dtype(dtype),
+                              cuda)
+    got = tflash.flash_attention_wgmma_cuda(q, k, v)
+    torch.cuda.synchronize()
+    assert got.dtype == q.dtype and got.shape == q.shape
+    _close_rows(got, tref.flash_attention_ref(q, k, v), dtype)
+
+
+@pytest.mark.cuda
+def test_flash_attention_wgmma_is_causal(cuda):
+    """Changing keys and values after row 199 does not move rows 0-199
+    (the cut lies inside the second query tile), and moves row 200 on."""
+    q, k, v = _grouped_inputs(2, 4, 300, 128, 5, torch.bfloat16, cuda)
+    o1 = tflash.flash_attention_wgmma_cuda(q, k, v)
+    k2, v2 = k.clone(), v.clone()
+    k2[:, 200:] += 5.0
+    v2[:, 200:] += 5.0
+    o2 = tflash.flash_attention_wgmma_cuda(q, k2, v2)
+    torch.cuda.synchronize()
+    assert torch.equal(o1[:, :200], o2[:, :200])
+    assert float((o1[:, 200:] - o2[:, 200:]).abs().max()) > 1e-3
+
+
+@pytest.mark.cuda
+def test_flash_attention_wgmma_rejects_what_it_does_not_take(cuda):
+    q, k, v = _grouped_inputs(2, 4, 64, 128, 1, torch.bfloat16, cuda)
+    with pytest.raises(ValueError, match="dtype"):
+        tflash.flash_attention_wgmma_cuda(q.float(), k.float(), v.float())
+    x = torch.zeros((2, 64, 96), device=cuda, dtype=torch.bfloat16)
+    with pytest.raises(ValueError, match="head dim"):
+        tflash.flash_attention_wgmma_cuda(x, x, x)
+    with pytest.raises(ValueError, match="contiguous"):
+        tflash.flash_attention_wgmma_cuda(q[:, ::2], k[:, ::2], v[:, ::2])
+    with pytest.raises(ValueError, match="do not divide"):
+        tflash.flash_attention_wgmma_cuda(q, k[:1].expand(3, -1, -1)
+                                          .contiguous(), v[:1].expand(
+                                              3, -1, -1).contiguous())
+    with pytest.raises(ValueError, match="do not divide"):
+        tflash.flash_attention_cuda(q.float(), k[:1].float().expand(
+            3, -1, -1).contiguous(), v[:1].float().expand(3, -1, -1)
+            .contiguous())
+
+
+@pytest.mark.cuda
+@pytest.mark.parametrize("dtype,d", [("float32", 128), ("float32", 16),
+                                     ("bfloat16", 32), ("float16", 96)])
+def test_flash_attention_cuda_grouped_kv(cuda, dtype, d):
+    """``flash_attn.cu`` with k and v of BH / 4 rows: query row bh reads KV
+    row bh // 4."""
+    q, k, v = _grouped_inputs(3, 4, 300, d, d, torch_dtype(dtype), cuda)
+    got = tflash.flash_attention_cuda(q, k, v)
+    torch.cuda.synchronize()
+    _close_rows(got, tref.flash_attention_ref(q, k, v), dtype)
 
 
 @pytest.mark.cuda
@@ -461,3 +548,29 @@ def test_phi3_width_prefill_on_the_card_matches_the_cpu(cuda):
     witness = float((plain - want).abs().max()) / scale
     err = float((got.cpu() - want).abs().max()) / scale
     assert err <= tflash.PREFILL_TOLS["float32"], (err, witness)
+
+
+@pytest.mark.cuda
+def test_phi3_width_bf16_prefill_on_the_card_launches_wgmma(cuda):
+    """phi3-medium-14b at full width, two layers, bf16: the prefill goes
+    through the wgmma kernel (two launches, none of ``flash_attn.cu``) and
+    its logits stay within ``PREFILL_TOLS["bfloat16"]`` of the same prefill
+    through the plain version on the card."""
+    from repro_torch.configs import get_config
+    from repro_torch.models import build
+    cfg = dataclasses.replace(get_config("phi3-medium-14b"), n_layers=2)
+    assert cfg.dtype == "bfloat16"
+    card = build(cfg, device=cuda).init_params(
+        torch.Generator(device=cuda).manual_seed(0))
+    toks = np.random.default_rng(3).integers(0, cfg.vocab, (2, 300))
+    before = ops.launch_counts()
+    got = card.prefill({"tokens": toks})
+    torch.cuda.synchronize()
+    after = ops.launch_counts()
+    assert (after["flash_attention_wgmma"], after["flash_attention"]) == (
+        before["flash_attention_wgmma"] + 2, before["flash_attention"])
+    want = card.prefill({"tokens": toks}, backend="ref")
+    assert bool(torch.isfinite(got).all())
+    scale = max(1.0, float(want.float().abs().max()))
+    err = float((got.float() - want.float()).abs().max()) / scale
+    assert err <= tflash.PREFILL_TOLS["bfloat16"], err
