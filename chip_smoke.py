@@ -2,7 +2,8 @@
 """Drive the PyTorch/CUDA port's main path on one NVIDIA H100 and check it.
 
     python3 chip_smoke.py [--seed N] [--lm-planted-faults |
-                           --flash-planted-faults]
+                           --flash-planted-faults | --wy-planted-faults |
+                           --wy-bounds | --svd-parts TREE]
 
 Builds the port's CUDA kernels from ``src/repro_torch/kernels/csrc`` (one
 ``nvcc`` per source, all at once), holds each kernel against its plain
@@ -56,6 +57,29 @@ TOLS = {"float64": 1e-12, "float32": 3e-5, "bfloat16": 8e-2}
 # fp32 and round once at the store, so about one bf16 ulp of the scale
 # (at most 2**-7), whatever k; fp64 and fp32 take TOLS times max(1, k // 4)
 WY_TOL_BF16 = 1e-2
+# Faults planted in copies of hh_apply.cu (--wy-planted-faults): fault ->
+# (the main shapes it acts at, [(text, replacement, times it occurs)]).
+# Each must read at least WY_FAULT_FACTOR times the fp64 wy_tol there.
+WY_FAULT_FACTOR = 100
+WY_FAULTS = {
+    # the last m-partial dropped: kernel 2 sums all splits of the m rows but
+    # the last, and the small path's W1 all rows but the last
+    "last_m_partial_dropped": (("panel", "trailing", "replay"), [
+        ("if (sp0 + u < a.nsplit) acc[q] += x[u][q];",
+         "if (sp0 + u < a.nsplit - 1) acc[q] += x[u][q];", 1),
+        ("        for (int r = 0; r < m; ++r)\n          sum = fma_acc(",
+         "        for (int r = 0; r < m - 1; ++r)\n          sum = fma_acc(",
+         1)]),
+    # a ring stage read stale in the last m tile: kernel 1 multiplies the
+    # stage that held the tile before it
+    "stale_ring_stage_last_m_tile": (("panel", "trailing"), [
+        ("const int slot = it % kStages;",
+         "const int slot = (it == ntiles - 1 && it > 0 ? it - 1 : it) % "
+         "kStages;", 1)]),
+    # a row-table offset shifted by one
+    "row_table_offset_by_one": (("replay",), [
+        ("const int row = a.rows[(s % a.spm) * a.m + r];",
+         "const int row = a.rows[(s % a.spm) * a.m + r] + 1;", 1)])}
 STURM_TOLS = {"float64": 1e-13, "float32": 1e-5}
 STURM_CHECK_STEPS = 3       # bisection steps of the main-path-shape checks
 HBM_BYTES_PER_S = 3.35e12          # H100 SXM data sheet
@@ -113,6 +137,28 @@ FLASH_FAULTS = {
         "? to_f(x[(size_t)row * D + c]) * mul : 0.0f;",
         "? __uint_as_float(__float_as_uint(to_f(x[(size_t)row * D + c]) "
         "* mul) & 0xffffe000u) : 0.0f;", 1)])}
+# Probes of what bounds the large-m path (--wy-bounds): copies of
+# hh_apply.cu with kernel 1's or kernel 3's products left out, and with
+# kernel 1's staging left out (its ring multiplies stale shared memory)
+WY_PROBES = {
+    "kernel_1_without_products": [(
+        "    warp_product<MT, NT, true>(d, vs + slot * kTK * LDV, LDV,",
+        "    if (a.k < 0) warp_product<MT, NT, true>(d, vs + slot * kTK * "
+        "LDV, LDV,", 1)],
+    "kernel_1_without_staging": [
+        ("    if (i < ntiles) load(i, i);",
+         "    if (i < ntiles && a.k < 0) load(i, i);", 1),
+        ("    if (next < ntiles) load(next, next % kStages);",
+         "    if (next < ntiles && a.k < 0) load(next, next % kStages);", 1)],
+    "kernel_3_without_products": [
+        ("    warp_product<MT, NT, false>(d, va, LDV, wb, LDW, 0, "
+         "min(KC, k8), A(-1));",
+         "    if (a.k < 0) warp_product<MT, NT, false>(d, va, LDV, wb, LDW, "
+         "0, min(KC, k8), A(-1));", 1),
+        ("    warp_product<MT, NT, false>(d, va, LDV, wb, LDW, KC, k8, "
+         "A(-1));",
+         "    if (a.k < 0) warp_product<MT, NT, false>(d, va, LDV, wb, LDW, "
+         "KC, k8, A(-1));", 1)]}
 # phi3-medium-14b: the prefill batch, the fp32 check's depth, and the
 # Engine's requests (the reference launcher's prompts of 2-8 tokens)
 LM_ARCH, LM_B, LM_S, LM_CHECK_LAYERS = "phi3-medium-14b", 2, 2048, 4
@@ -151,6 +197,19 @@ def main() -> int:
                     help="only read how far faults planted in copies of "
                     "the flash kernels move their output (the readings "
                     "behind flash_attention.CHECK_TOLS), then exit")
+    ap.add_argument("--svd-parts", metavar="TREE", type=Path,
+                    help="only time the dense fp64 n = 4096 svd part by "
+                    "part with the port under TREE/src (a checkout of this "
+                    "or another commit), then exit; run it on two trees in "
+                    "turns to compare them on one card")
+    ap.add_argument("--wy-bounds", action="store_true",
+                    help="only time the large-m compact-WY kernels at the "
+                    "stage-1 panel with and without their products and "
+                    "staging, beside PyTorch's copies of C, then exit")
+    ap.add_argument("--wy-planted-faults", action="store_true",
+                    help="only read how far faults planted in copies of "
+                    "the compact-WY apply move its output at the main "
+                    "shapes, against the fp64 wy_tol, then exit")
     args = ap.parse_args()
 
     import torch
@@ -158,16 +217,22 @@ def main() -> int:
         print("chip_smoke: torch.cuda.is_available() is False; this script "
               "runs on a CUDA device only", file=sys.stderr)
         return 1
-    if not (ROOT / "src" / "repro_torch").is_dir():
-        print(f"chip_smoke: no src/repro_torch next to {Path(__file__).name}",
-              file=sys.stderr)
+    tree = (args.svd_parts or ROOT).resolve()
+    if not (tree / "src" / "repro_torch").is_dir():
+        print(f"chip_smoke: no src/repro_torch in {tree}", file=sys.stderr)
         return 1
-    sys.path.insert(0, str(ROOT / "src"))
+    sys.path.insert(0, str(tree / "src"))
     try:
         if args.lm_planted_faults:
             return lm_planted_faults(args, torch)
         if args.flash_planted_faults:
             return flash_planted_faults(args, torch)
+        if args.wy_planted_faults:
+            return wy_planted_faults(args, torch)
+        if args.wy_bounds:
+            return wy_bounds(args, torch)
+        if args.svd_parts:
+            return svd_parts(args, torch, tree)
         return run(args, torch)
     except PhaseFailed as exc:
         print(f"chip_smoke: FAILED: {exc}", file=sys.stderr)
@@ -194,21 +259,32 @@ def gpu_ms(torch, fn, iters: int = 1, warmup: int = 0) -> float:
     return start.elapsed_time(end) / iters
 
 
+def kernel_name(key: str) -> str:
+    """A profiler key without its return type, namespace and arguments:
+    ``void (anonymous namespace)::k<double, 64>((anonymous namespace)::
+    Args)`` -> ``k<double, 64>``."""
+    key = key.replace("(anonymous namespace)::", "")
+    return key.split("(")[0].removeprefix("void ").strip()
+
+
 def profiler_ms(torch, fn, name: str, iters: int):
-    """Mean device time of kernels whose name contains ``name``, from
-    torch.profiler; None when the profiler sees no device time."""
+    """(device ms per call, kernels per call, ms of each kernel) of the
+    kernels whose name contains ``name``, over ``iters`` calls of ``fn``,
+    from torch.profiler: a call launches each of its kernels (each of its
+    own name) once, so its time is the sum over those names of the
+    kernel's mean time (which a trace that drops an event does not skew).
+    None when the profiler sees no device time."""
     from torch.profiler import ProfilerActivity, profile
     torch.cuda.synchronize()
     with profile(activities=[ProfilerActivity.CUDA]) as prof:
         for _ in range(iters):
             fn()
         torch.cuda.synchronize()
-    total, count = 0.0, 0
-    for ev in prof.key_averages():
-        if name in ev.key:
-            total += ev.device_time_total
-            count += ev.count
-    return total / count / 1e3 if count and total > 0 else None
+    means = {kernel_name(ev.key):
+             ev.device_time_total / ev.count / 1e3
+             for ev in prof.key_averages()
+             if name in ev.key and ev.count and ev.device_time_total > 0}
+    return ((sum(means.values()), len(means), means) if means else None)
 
 
 def max_err(torch, got, want) -> tuple[float, float]:
@@ -278,22 +354,71 @@ def main_path_shapes(bc, runs):
     return (sorted(set(cycle)), sorted(set(superstep)), sorted(set(sturm)))
 
 
-def tape_apply_shapes(bc, runs):
-    """(S, m, k, w, dtype) of every ``tape_apply`` launch of the full-SVD
-    runs ``(lead, n, cfg, dense)``: the stage-1 QR trailing update
-    (B, big, nb, big) and the stage-1 replay (B, n, nb, n) of a dense input,
-    and each chase stage's replay (B*G*K, tw+1, 1, n)."""
-    shapes = set()
-    for lead, n, cfg, dense in runs:
-        b = math.prod(lead)
-        if dense:
-            big = (max(1, -(-(n - 1) // cfg.bw)) + 2) * cfg.bw
-            shapes.add((b, big, cfg.bw, big, cfg.dtype))
-            shapes.add((b, n, cfg.bw, n, cfg.dtype))
+def tape_apply_calls(bc, runs):
+    """``tape_apply`` calls of the full-SVD runs ``(lead, n, cfg)``, as
+    (layout, S, m, k, w, dtype, where), addressed as the main path does:
+    the stage-1 QR update of the trailing block of the padded (B, big, big)
+    matrix ("trailing", where = (big, c0)) and the stage-1 replay on the
+    accumulator rows at and below a pivot ("below", where = (n, first
+    row), the QR and the LQ block), at panels 0, P // 2 and P - 1 (the
+    others differ in m and w only); and each chase stage's replay through
+    a row table into the padded (B, n_pad, n) accumulators ("rows", where =
+    (b_in, tw, fuse))."""
+    calls = set()
+    for lead, n, cfg in runs:
+        b, nb = math.prod(lead), cfg.bw
+        panels = max(1, -(-(n - 1) // nb))
+        big = (panels + 2) * nb
+        for p in {0, panels // 2, panels - 1}:
+            c0 = p * nb
+            calls.add(("trailing", b, big - c0, nb, big - c0 - nb,
+                       cfg.dtype, (big, c0)))
+            for r0 in (c0, c0 + nb):
+                if r0 < n:
+                    calls.add(("below", b, n - r0, nb, n, cfg.dtype,
+                               (n, r0)))
         for b_in, tw in cfg.plan:
             g = bc.stage_schedule(n, b_in, tw, cfg.fuse)[2]
-            shapes.add((b * g * cfg.fuse, tw + 1, 1, n, cfg.dtype))
-    return sorted(shapes)
+            calls.add(("rows", b * g * cfg.fuse, tw + 1, 1, n, cfg.dtype,
+                       (b_in, tw, cfg.fuse)))
+    return sorted(calls)
+
+
+def replay_table(torch, bc, tr, n, b_in, tw, fuse):
+    """The row table of super-cycle T // 2 of one chase stage, as the
+    replay passes it (int32, (G*K, tw+1)), and the accumulators' rows."""
+    _, T, G = bc.stage_schedule(n, b_in, tw, fuse)
+    rows = tr._replay_rows(n, b_in, tw, fuse, T, G, "cuda")[T // 2]
+    n_pad = n + (b_in + tw + 1) * (1 + G * fuse)
+    return rows.reshape(G * fuse, tw + 1).to(torch.int32), n_pad
+
+
+def tape_call_inputs(torch, bc, tr, call, dtype, gen):
+    """(v, t, c, rows, whole) of one ``tape_apply_calls`` call on the card:
+    V unit lower trapezoidal from its first row, T upper triangular times
+    0.2, as the reference's kernel test makes them; c the view or the
+    accumulator the main path passes, and ``whole`` the tensor it lies
+    in."""
+    layout, s, m, k, w, _, where = call
+
+    def randn(*shape):
+        return torch.randn(shape, generator=gen, dtype=torch.float64,
+                           device="cuda")
+
+    t = (torch.triu(randn(s, k, k)) * 0.2).to(dtype)
+    v = torch.tril(randn(s, m, k), -1)
+    d = min(m, k)
+    v[:, torch.arange(d), torch.arange(d)] = 1.0
+    if layout == "rows":
+        rows, n_pad = replay_table(torch, bc, tr, w, *where)
+        whole = randn(s // rows.shape[0], n_pad, w).to(dtype)
+        return v.to(dtype), t, whole, rows, whole
+    size, r0 = where
+    whole = randn(s, size, size).to(dtype)
+    c = whole[:, r0:, r0 + k:] if layout == "trailing" else whole[:, r0:]
+    vpar = torch.zeros((s, r0 + m, k), dtype=dtype, device="cuda")
+    vpar[:, r0:] = v.to(dtype)
+    return vpar[:, r0:], t, c, None, whole
 
 
 def fused_bound(b, n, bw, max_iter, dtype, itemsize):
@@ -398,11 +523,11 @@ def wy_tol(dname: str, k: int) -> float:
     return WY_TOL_BF16 if dname == "bfloat16" else TOLS[dname] * max(1, k // 4)
 
 
-def tape_bound(s, m, k, w, dtype, itemsize):
-    """V, T, C read once and C written once; 4*m*k*w + 2*k*k*w flops per
-    slot (the three products and the subtraction), at the card's peak for
-    matrix products of the type."""
-    nbytes = (s * m * k + s * k * k + 2 * s * m * w) * itemsize
+def tape_bound(s, m, k, w, dtype, itemsize, table_bytes=0):
+    """V, T, C (and a row table) read once and C written once; 4*m*k*w +
+    2*k*k*w flops per slot (the three products and the subtraction), at the
+    card's peak for matrix products of the type."""
+    nbytes = (s * m * k + s * k * k + 2 * s * m * w) * itemsize + table_bytes
     flops = s * (4 * m * k * w + 2 * k * k * w)
     t_bytes = nbytes / HBM_BYTES_PER_S
     t_ops = flops / PEAK_MATMUL_FLOPS[dtype]
@@ -840,6 +965,262 @@ def flash_planted_faults(args, torch) -> int:
     return 0
 
 
+def replay_profile(torch, bc, tr, ops, n, cfg, gen) -> None:
+    """One chase stage's replay (the dense run's last stage, at its real
+    shape) through ``transforms.replay_chase`` on Householder tapes made
+    from ``gen``: timed, then under torch.profiler, counting its
+    ``tape_apply`` calls, their device kernels and the eager gathers and
+    scatters (``aten::index``, ``aten::index_put_``).  Fails unless every
+    call is one kernel, no call gathers or scatters and the result is
+    finite.  (The tapes are random, so their last reflectors reach past
+    row n, which a chase's never do: U is not held to orthogonality
+    here.)"""
+    from torch.profiler import ProfilerActivity, profile
+    b_in, tw = cfg.plan[-1]
+    _, T, G = bc.stage_schedule(n, b_in, tw, cfg.fuse)
+    v = torch.randn((1, T, G, cfg.fuse, 2, tw + 1), generator=gen,
+                    dtype=torch.float64, device="cuda")
+    v[..., 0] = 1.0
+    tau = 2.0 / (v * v).sum(-1)
+    eye = torch.eye(n, dtype=torch.float64, device="cuda")[None]
+
+    def stage():
+        return tr.replay_chase(eye.clone(), eye.clone(), v, tau, n=n,
+                               b_in=b_in, tw=tw, fuse=cfg.fuse)
+
+    stage()
+    torch.cuda.synchronize()
+    t0 = time.perf_counter()
+    ut, vt = stage()
+    torch.cuda.synchronize()
+    wall = time.perf_counter() - t0
+    finite = bool(torch.isfinite(ut).all() and torch.isfinite(vt).all())
+    ops.reset_launch_counts()
+    with profile(activities=[ProfilerActivity.CPU,
+                             ProfilerActivity.CUDA]) as prof:
+        t0 = time.perf_counter()
+        stage()
+        torch.cuda.synchronize()
+        wall_prof = time.perf_counter() - t0
+    calls = ops.launch_counts()["tape_apply_cuda"]
+    ka = prof.key_averages()
+    count = {key: sum(ev.count for ev in ka if ev.key == key)
+             for key in ("aten::index", "aten::index_put_")}
+    kernels = [ev for ev in ka if "tape_apply_kernel" in ev.key]
+    n_kernels = sum(ev.count for ev in kernels)
+    busy_us = sum(ev.device_time_total for ev in ka
+                  if "CUDA" in str(ev.device_type))
+    ok = (calls == 2 * T and n_kernels == calls
+          and sum(count.values()) < calls and finite)
+    emit({"phase": "replay_profile", "ok": ok, "n": n, "b_in": b_in,
+          "tw": tw, "fuse": cfg.fuse, "slots": G * cfg.fuse,
+          "super_cycles": T, "tape_apply_calls": calls,
+          "tape_apply_device_kernels": n_kernels,
+          "kernel_names": sorted({ev.key[:60] for ev in kernels}),
+          "eager_ops": count, "wall_s": wall,
+          "us_per_call": wall / max(calls, 1) * 1e6,
+          "profiled_wall_s": wall_prof,
+          "device_busy_share": busy_us / 1e6 / wall_prof,
+          "finite": finite})
+    check(ok, "replay profile: a tape_apply call was not one kernel, or "
+          "the replay still gathers or scatters per call")
+
+
+def wy_copies(variants):
+    """Build each variant of ``hh_apply.cu`` (name -> [(text, replacement,
+    times it occurs)]) in a temporary directory, one ``nvcc`` each, all at
+    once; returns the directory and name -> its fp64 entry point, bound as
+    ``hh_apply.launch_with`` takes it."""
+    import ctypes
+    import tempfile
+
+    from repro_torch.kernels import _build, hh_apply
+
+    tmp = tempfile.TemporaryDirectory()
+    procs = {}
+    text0 = (_build.CSRC / _build.SOURCES["hh_apply"]).read_text()
+    for name, edits in variants.items():
+        text = text0
+        for old, new, times in edits:
+            check(text.count(old) == times, f"{name}: {old!r} occurs "
+                  f"{text.count(old)} times, expected {times}")
+            text = text.replace(old, new)
+        cu, so = (Path(tmp.name) / f"{name}{ext}" for ext in (".cu", ".so"))
+        cu.write_text(text)
+        procs[name] = (subprocess.Popen(
+            _build.nvcc_command(cu, so), stdout=subprocess.PIPE,
+            stderr=subprocess.STDOUT, text=True), so)
+    fns = {}
+    for name, (proc, so) in procs.items():
+        log, _ = proc.communicate()
+        check(proc.returncode == 0, f"{name}: nvcc failed:\n{log}")
+        fns[name] = hh_apply.set_argtypes(ctypes.CDLL(str(so)).tape_apply_f64)
+    return tmp, fns
+
+
+def wy_bounds(args, torch) -> int:
+    """What bounds the large-m path at the stage-1 panel (1, 4224, 64, 4224)
+    fp64: each of its three kernels' device time (torch.profiler, mean of
+    20 calls) in the repository's build and in copies of ``hh_apply.cu``
+    without the products (WY_PROBES), beside two copies of C by PyTorch (a
+    read, ``sum``; a read and a write, ``copy_``) as the card's yardsticks
+    for the bytes.  One JSON line; changes nothing."""
+    from torch.profiler import ProfilerActivity, profile
+
+    from repro_torch.core import stage1
+    from repro_torch.kernels import _build, hh_apply
+
+    _build.build_all(["hh_apply"])
+    tmp, fns = wy_copies(WY_PROBES)
+    fns["repository"] = hh_apply._fn(torch.float64)
+    gen = torch.Generator(device="cuda")
+    gen.manual_seed(args.seed)
+    v = torch.tril(torch.randn((1, 4224, 64), generator=gen,
+                               dtype=torch.float64, device="cuda"), -1)
+    v[:, torch.arange(64), torch.arange(64)] = 1.0
+    t = stage1.wy_t_factor(v, 2.0 / (v * v).sum(1))
+    c = torch.randn((1, 4224, 4224), generator=gen, dtype=torch.float64,
+                    device="cuda")
+    c2 = torch.empty_like(c)
+
+    def per_kernel(fn, iters=20):
+        fn()
+        torch.cuda.synchronize()
+        with profile(activities=[ProfilerActivity.CUDA]) as prof:
+            for _ in range(iters):
+                fn()
+            torch.cuda.synchronize()
+        return {kernel_name(ev.key):
+                ev.device_time_total / ev.count / 1e3
+                for ev in prof.key_averages()
+                if ev.count and ev.device_time_total > 0}
+
+    out = {name: per_kernel(lambda fn=fn: hh_apply.launch_with(fn, v, t, c))
+           for name, fn in fns.items()}
+    out["torch sum of C (read)"] = gpu_ms(torch, lambda: c.sum(), 20, 2)
+    out["torch copy_ of C (read and write)"] = gpu_ms(
+        torch, lambda: c2.copy_(c), 20, 2)
+    tmp.cleanup()
+    emit({"wy_bounds": "S=1, m=4224, k=64, w=4224 fp64", "ms": out,
+          "card": subprocess.run(
+              ["nvidia-smi", "--query-gpu=name,power.limit",
+               "--format=csv,noheader"], capture_output=True, text=True,
+              timeout=60).stdout.strip()})
+    return 0
+
+
+SVD_PARTS = {"stage1": ("s1", "band_reduce"),
+             "stage2": ("bc", "bidiagonalize"),
+             "replay": ("transforms", "accumulate_transforms"),
+             "stage3_values": ("s3", "bidiag_singular_values"),
+             "stage3_vectors": ("s3", "bidiag_vectors")}
+
+
+def svd_parts(args, torch, tree) -> int:
+    """The dense fp64 n = 4096 ``svd`` (bw 64, fuse 4) of the main path,
+    part by part (``timed_parts``), with the port under ``tree``, after a
+    warm-up at n = 256; with its reconstruction and orthogonality.  One
+    JSON line."""
+    from repro_torch.core import svd as tsvd
+    from repro_torch.core.tuning import PipelineConfig
+    from repro_torch.kernels import _build
+
+    _build.build_all()
+    f64 = torch.float64
+    gen = torch.Generator(device="cuda")
+    gen.manual_seed(args.seed)
+    warm = torch.randn((256, 256), generator=gen, dtype=f64, device="cuda")
+    tsvd.svd(warm, config=PipelineConfig.resolve(bw=64, dtype=f64, n=256,
+                                                 fuse=4))
+    n = 4096
+    cfg = PipelineConfig.resolve(bw=64, dtype=f64, n=n, fuse=4)
+    a = torch.randn((n, n), generator=gen, dtype=f64, device="cuda")
+    torch.cuda.synchronize()
+    parts = {label: (getattr(tsvd, mod), name)
+             for label, (mod, name) in SVD_PARTS.items()}
+    with timed_parts(torch, parts) as times:
+        t0 = time.perf_counter()
+        u, s, vt = tsvd.svd(a, config=cfg)
+        torch.cuda.synchronize()
+        wall = time.perf_counter() - t0
+    eye = torch.eye(n, dtype=f64, device="cuda")
+    recon = float(torch.linalg.norm(a - (u * s) @ vt) / torch.linalg.norm(a))
+    orth = max(float((u.mT @ u - eye).abs().max()),
+               float((vt @ vt.mT - eye).abs().max()))
+    ok = recon <= 50 * n * torch.finfo(f64).eps and orth <= 1e-9
+    emit({"svd_parts_of": str(tree), "ok": ok, "n": n, "wall_s": wall,
+          "parts_wall_s": {k: v["wall_s"] for k, v in times.items()},
+          "recon_rel_fro": recon, "orth": orth})
+    check(ok, "svd off its reconstruction or orthogonality bounds")
+    return 0
+
+
+def wy_planted_faults(args, torch) -> int:
+    """How far the faults of WY_FAULTS, each built into its own copy of
+    ``hh_apply.cu`` in a temporary directory, move ``tape_apply_cuda``'s
+    output from the plain version at the main shapes, beside the sound
+    kernel's reading: the stage-1 panel (1, 4224, 64, 4224), the first
+    panel's trailing block (a view of the padded matrix) and the last
+    chase stage's replay through its row table, all fp64 at n = 4096.
+    One JSON line per shape: max|err| over max(1, max|plain|), and that
+    over the fp64 ``wy_tol``.  Fails when a fault reads less than
+    WY_FAULT_FACTOR times wy_tol where it acts."""
+    from repro_torch.core import bulge_chasing as bc
+    from repro_torch.core import transforms as tr
+    from repro_torch.core.tuning import PipelineConfig
+    from repro_torch.kernels import hh_apply, ref
+
+    tmp, fns = wy_copies({f: edits for f, (_, edits) in WY_FAULTS.items()})
+    n, bw = 4096, 64
+    cfg = PipelineConfig.resolve(bw=bw, dtype=torch.float64, n=n, fuse=4)
+    big = (max(1, -(-(n - 1) // bw)) + 2) * bw
+    b_in, tw = cfg.plan[-1]
+    s_last = bc.stage_schedule(n, b_in, tw, cfg.fuse)[2] * cfg.fuse
+    gen = torch.Generator(device="cuda")
+    gen.manual_seed(args.seed)
+    shapes = {
+        "panel": ("below", 1, big, bw, big, "float64", (big, 0)),
+        "trailing": ("trailing", 1, big, bw, big - bw, "float64", (big, 0)),
+        "replay": ("rows", s_last, tw + 1, 1, n, "float64",
+                   (b_in, tw, cfg.fuse))}
+    failed = []
+    for label, call in shapes.items():
+        v, t, c, rows, whole = tape_call_inputs(torch, bc, tr, call,
+                                                torch.float64, gen)
+        before = whole.clone()
+        if rows is None:
+            want = ref.tape_apply_ref(v, t, c)
+        else:
+            want = ref.tape_apply_ref(v, t, before.clone(), rows=rows)
+        tol = wy_tol("float64", call[3])
+
+        def reading(fn):
+            whole.copy_(before)
+            hh_apply.launch_with(fn, v, t, c if rows is None else whole,
+                                 rows)
+            torch.cuda.synchronize()
+            err, scale = max_err(torch, c if rows is None else whole, want)
+            return err / scale
+
+        sound = reading(hh_apply._fn(torch.float64))
+        faults = {}
+        for fault, (acts, _) in WY_FAULTS.items():
+            got = reading(fns[fault])
+            faults[fault] = {"err_over_scale": got, "over_tol": got / tol,
+                             "acts_here": label in acts}
+            if label in acts and got < WY_FAULT_FACTOR * tol:
+                failed.append((label, fault, got / tol))
+        emit({"shape": label, "call": call[:6], "plan": str(
+            hh_apply.launch_shape(*call[2:5], torch.float64)),
+              "wy_tol": tol, "sound_err_over_scale": sound,
+              "sound_over_tol": sound / tol, "faults": faults})
+        del v, t, c, rows, whole, before, want
+    tmp.cleanup()
+    check(not failed, f"planted faults below {WY_FAULT_FACTOR} x wy_tol: "
+          f"{failed}")
+    return 0
+
+
 # ---------------------------------------------------------------------------
 # the run
 # ---------------------------------------------------------------------------
@@ -850,6 +1231,7 @@ def run(args, torch) -> int:
     from repro_torch.core import bidiag_svd as s3
     from repro_torch.core import bulge_chasing as bc
     from repro_torch.core import svd as tsvd
+    from repro_torch.core import transforms as tr
     from repro_torch.core.tuning import PipelineConfig
     from repro_torch.kernels import (_build, bisect, bulge_chase,
                                      flash_attention, fused_small, hh_apply,
@@ -901,8 +1283,7 @@ def run(args, torch) -> int:
     runs = [((), n3, cfg1), ((), n3, cfg4), ((), n3, cfg32), ((), n4, c1),
             ((), n4, c4), ((b5,), n5, c5), ((), nd, cd), ((b7,), n7, c7)]
     main_cycle, main_super, main_sturm = main_path_shapes(bc, runs)
-    main_tape = tape_apply_shapes(bc, [((), nd, cd, True),
-                                       ((b7,), n7, c7, True)])
+    main_tape = tape_apply_calls(bc, [((), nd, cd), ((b7,), n7, c7)])
 
     # ---- 2. kernels against their plain versions ------------------------
     # The reference's test shapes in every dtype and K in {2, 4}; every
@@ -988,21 +1369,43 @@ def run(args, torch) -> int:
         torch.cuda.synchronize()
         compare("sturm_bisect_cuda", [got], [want], STURM_TOLS[dname],
                 (b, n, dname, iters), main)
-    # the compact-WY apply: the reference's shapes (one slot and five) and
-    # every main-path shape, each in fp64, fp32 and bf16 (tolerance:
-    # wy_tol)
+    # the compact-WY apply: the reference's shapes (one slot and five),
+    # contiguous, and every main-path call as the main path addresses it
+    # (views of the trailing block and of the rows below a pivot; row
+    # tables into the replay's accumulators), each in fp64, fp32 and bf16
+    # (tolerance: wy_tol); a view's call leaves the rest of its tensor as it
+    # was, bit for bit
     tape_cases = sorted({(sl, m, k, w, d) for m, k, w in WY_SHAPES
-                         for sl in (1, 5) for d in TOLS} | {
-        sh[:4] + (d,) for sh in main_tape for d in TOLS})
+                         for sl in (1, 5) for d in TOLS})
     for sl, m, k, w, dname in tape_cases:
         v, t, c = wy_inputs(torch, sl, m, k, w, dtypes[dname], rng)
         want = ref.tape_apply_ref(v, t, c)
         got = hh_apply.tape_apply_cuda(v, t, c.clone())
         torch.cuda.synchronize()
-        key = (sl, m, k, w, dname)
-        compare("tape_apply_cuda", [got], [want], wy_tol(dname, k), key,
-                key in main_tape)
+        compare("tape_apply_cuda", [got], [want], wy_tol(dname, k),
+                (sl, m, k, w, dname), False)
         del v, t, c, want, got
+    wy_gen = torch.Generator(device="cuda")
+    wy_gen.manual_seed(args.seed)
+    for call in main_tape:
+        for dname in TOLS:
+            v, t, c, rows, whole = tape_call_inputs(torch, bc, tr, call,
+                                                    dtypes[dname], wy_gen)
+            before = whole.clone()
+            if rows is None:
+                want = ref.tape_apply_ref(v, t, c)
+                hh_apply.tape_apply_cuda(v, t, c)
+                got = c.clone()
+                c.copy_(before[:, -c.shape[1]:, -c.shape[2]:])
+                check(torch.equal(whole, before), f"tape_apply_cuda at "
+                      f"{call[:6]} {dname}: wrote outside its view")
+            else:
+                want = ref.tape_apply_ref(v, t, before.clone(), rows=rows)
+                got = hh_apply.tape_apply_cuda(v, t, whole, rows)
+            torch.cuda.synchronize()
+            compare("tape_apply_cuda", [got], [want], wy_tol(dname, call[3]),
+                    call[:6] + (dname,), dname == call[5])
+            del v, t, c, rows, whole, before, want, got
     one = wy_inputs(torch, 1, 64, 8, 100, f64, rng)
     got = hh_apply.hh_block_apply_cuda(one[0][0], one[1][0],
                                        one[2][0].clone())
@@ -1096,7 +1499,8 @@ def run(args, torch) -> int:
               "chase_cycle_cuda (b_in, tw, slots, dtype)": main_cycle,
               "chase_superstep_cuda (b_in, tw, slots, K, dtype)": main_super,
               "sturm_bisect_cuda (B, n, dtype)": main_sturm,
-              "tape_apply_cuda (S, m, k, w, dtype)": main_tape,
+              "tape_apply_cuda (layout, S, m, k, w, dtype, where)":
+                  main_tape,
               "fused_small_svd_cuda (B, n, bw, dtype)": fused_main,
               "flash_attention_wgmma_cuda (BH, S, D, g, dtype)":
                   FLASH_MAIN + (FLASH_GROUP, "bfloat16"),
@@ -1106,7 +1510,7 @@ def run(args, torch) -> int:
           "fused_cases": len(fused_cases),
           "fused_worst_err_over_scale": fused_errs,
           "fused_uv_entries_witness": witness,
-          "tape_apply_cases": len(tape_cases),
+          "tape_apply_cases": len(tape_cases) + len(main_tape) * len(TOLS),
           "sturm_steps_at_main_path_shapes": STURM_CHECK_STEPS,
           "worst_err_over_tol": {k: round(v, 6) for k, v in worst.items()},
           "main_path_max_abs_err": main_err,
@@ -1137,9 +1541,11 @@ def run(args, torch) -> int:
         events = gpu_ms(torch, call, iters=iters, warmup=2)
         prof = profiler_ms(torch, call, symbol, min(iters, 50))
         timing[name] = dict(
-            shape=shape, ms=prof if prof is not None else events,
+            shape=shape, ms=prof[0] if prof is not None else events,
             ms_from="torch.profiler" if prof is not None else "cuda events",
-            events_ms=events, profiler_ms=prof,
+            events_ms=events, profiler_ms=prof and prof[0],
+            kernels_per_call=prof and prof[1],
+            ms_by_kernel=prof and prof[2],
             plain_ms=gpu_ms(torch, plain, iters=plain_iters,
                             warmup=1 if plain_iters > 1 else 0),
             library_ms=(gpu_ms(torch, library, iters=library_iters,
@@ -1182,28 +1588,44 @@ def run(args, torch) -> int:
         f"B=1, n={n_s} fp64, 60 steps",
         sturm_bound(1, n_s, 60, "float64", 8),
         library=lambda: torch.linalg.svdvals(dense_b))
-    # the compact-WY apply at the stage-1 panel shape and at the last chase
-    # stage's replay shape of the dense run; I - V T V^T is orthogonal
-    # here, so the repeated in-place applies stay bounded.  The library
-    # yardstick is the same function as a PyTorch user writes it, three
-    # cuBLAS products (the subtraction fused into the last)
+    # the compact-WY apply at the stage-1 panel shape (contiguous, the
+    # shape earlier designs were timed at) and at the last chase stage's
+    # replay shape of the dense run, through its row table into the padded
+    # accumulator as the replay calls it; I - V T V^T is orthogonal here,
+    # so the repeated in-place applies stay bounded.  The library yardstick
+    # is the same function as a PyTorch user writes it, three cuBLAS
+    # products (the subtraction fused into the last), on the replay's rows
+    # gathered beforehand
     big_d = (max(1, -(-(nd - 1) // bwd)) + 2) * bwd
     b_last, tw_last = cd.plan[-1]
-    s_last = bc.stage_schedule(nd, b_last, tw_last, cd.fuse)[2] * cd.fuse
-    tape_timed = [(1, big_d, bwd, big_d, 20, 3),
-                  (s_last, tw_last + 1, 1, nd, 200, 20)]
-    for i, (sl, m, k, w, iters, plain_iters) in enumerate(tape_timed):
-        v, t, c = wy_inputs(torch, sl, m, k, w, f64, rng, orthogonal=True)
-        name = "tape_apply_cuda" if i == 0 else "tape_apply_cuda (replay)"
-        time_kernel(
-            name, "tape_apply_kernel",
-            lambda v=v, t=t, c=c: hh_apply.tape_apply_cuda(v, t, c),
-            lambda v=v, t=t, c=c: ref.tape_apply_ref(v, t, c), iters,
-            plain_iters, f"S={sl}, m={m}, k={k}, w={w} fp64",
-            tape_bound(sl, m, k, w, "float64", 8),
-            library=lambda v=v, t=t, c=c: torch.baddbmm(
-                c, v, torch.bmm(t, torch.bmm(v.mT, c)), alpha=-1))
-        del v, t, c
+    v, t, c = wy_inputs(torch, 1, big_d, bwd, big_d, f64, rng,
+                        orthogonal=True)
+    time_kernel(
+        "tape_apply_cuda", "tape_apply_kernel",
+        lambda: hh_apply.tape_apply_cuda(v, t, c),
+        lambda: ref.tape_apply_ref(v, t, c), 20, 3,
+        f"S=1, m={big_d}, k={bwd}, w={big_d} fp64",
+        tape_bound(1, big_d, bwd, big_d, "float64", 8),
+        library=lambda: torch.baddbmm(c, v, torch.bmm(t, torch.bmm(v.mT, c)),
+                                      alpha=-1))
+    rows, n_pad = replay_table(torch, bc, tr, nd, b_last, tw_last, cd.fuse)
+    s_last, m_last = rows.shape
+    v, t, _ = wy_inputs(torch, s_last, m_last, 1, 1, f64, rng,
+                        orthogonal=True)
+    acc = torch.randn((1, n_pad, nd), generator=wy_gen, dtype=f64,
+                      device="cuda")
+    slab = acc[:, rows.long()].reshape(s_last, m_last, nd)
+    time_kernel(
+        "tape_apply_cuda (replay)", "tape_apply_kernel",
+        lambda: hh_apply.tape_apply_cuda(v, t, acc, rows),
+        lambda: ref.tape_apply_ref(v, t, acc, rows=rows), 200, 20,
+        f"S={s_last}, m={m_last}, k=1, w={nd} fp64, row table into "
+        f"(1, {n_pad}, {nd})",
+        tape_bound(s_last, m_last, 1, nd, "float64", 8,
+                   table_bytes=rows.numel() * 4),
+        library=lambda: torch.baddbmm(slab, v, torch.bmm(t, torch.bmm(
+            v.mT, slab)), alpha=-1))
+    del v, t, c, acc, slab
     # the fused kernel at both main-path shapes, values mode; the library
     # yardstick is one cuSOLVER call for the singular values of the batch
     for i, (b, n, bw, dname) in enumerate(fused_main):
@@ -1377,12 +1799,9 @@ def run(args, torch) -> int:
     ad = torch.randn((nd, nd), generator=gen, dtype=f64, device="cuda")
     sig_d, rv = drive("fp64 n=4096 fuse=4 singular_values",
                       lambda: tsvd.singular_values(ad, config=cd), full_path)
-    svd_parts = {"stage1": (tsvd.s1, "band_reduce"),
-                 "stage2": (tsvd.bc, "bidiagonalize"),
-                 "replay": (tsvd.transforms, "accumulate_transforms"),
-                 "stage3_values": (tsvd.s3, "bidiag_singular_values"),
-                 "stage3_vectors": (tsvd.s3, "bidiag_vectors")}
-    with timed_parts(torch, svd_parts) as parts:
+    part_fns = {label: (getattr(tsvd, mod), name)
+                for label, (mod, name) in SVD_PARTS.items()}
+    with timed_parts(torch, part_fns) as parts:
         (ud, sd, vtd), ru = drive("fp64 n=4096 fuse=4 svd",
                                   lambda: tsvd.svd(ad, config=cd), full_path)
     # the compose (two products) and the entry point's own work
@@ -1417,6 +1836,7 @@ def run(args, torch) -> int:
     check(ok_d, "phase 6: dense fp64 full SVD off its bounds, or sigma not "
           "bit-identical to the values path")
     del ad, ud, vtd, eye
+    replay_profile(torch, bc, tr, ops, nd, cd, wy_gen)
 
     # ---- 7. batched fp32 full SVD, B = 16, n = 512, bw = 32 -------------
     a7 = torch.randn((b7, n7, n7), generator=gen, dtype=f32, device="cuda")
@@ -1627,6 +2047,7 @@ def run(args, torch) -> int:
                "bound_by": bound[1], "library_ms": t["library_ms"],
                "shape": t["shape"], "ms_from": t["ms_from"],
                "events_ms": t["events_ms"],
+               "kernels_per_call": t["kernels_per_call"],
                "worst_err_over_tol": worst[name]}
         if "main_path_ms" in t:
             row.update(main_path_ms=t["main_path_ms"],
@@ -1640,6 +2061,7 @@ def run(args, torch) -> int:
             row[field] = {
                 "shape": second["shape"], "ms": second["ms"],
                 "ms_from": second["ms_from"],
+                "kernels_per_call": second["kernels_per_call"],
                 "plain_ms": second["plain_ms"],
                 "library_ms": second["library_ms"],
                 "bound_ms": second["bound"][0],

@@ -13,11 +13,10 @@ the reference's ``core/stage1.py``:
   exact structural zeros after every reflector, as LAPACK does;
 * the QR trailing update is one ``ops.hh_block_apply`` over the B matrices
   of a batch (on "cuda" the hand-written kernel,
-  ``kernels/csrc/hh_apply.cu``), applied at full width as the reference's
-  Pallas route does: the panel's own stripe is saved before the call (the
-  kernel writes in place) and restored after it, and columns left of the
-  panel hold exact zeros in V's row support, so the apply leaves them as
-  they are;
+  ``kernels/csrc/hh_apply.cu``) on the trailing block only: rows from the
+  panel's first pivot c0 (V is zero above it) and columns right of the
+  panel, a strided view of the padded matrix that the kernel updates in
+  place (the plain version's result is copied into it);
 * the LQ trailing update, ``V^T V`` of the T factor and the panels' rank-1
   updates are plain tensor ops, as in the reference, which runs them
   outside any Pallas kernel.
@@ -133,13 +132,14 @@ def band_reduce(a: torch.Tensor, *, nb: int, backend: str | None = None,
             v_blk[:, :, j] = v
             taus[:, j] = tau
         t = wy_t_factor(v_blk, taus)
-        # blocked trailing update Q^T = I - V T^T V^T on columns >= c0+nb,
-        # applied at full width; the panel's stripe is saved first (the
-        # "cuda" apply is in place) and restored after
-        saved = work[:, :, c0:c0 + nb].clone()
-        work = ops.hh_block_apply(v_blk, t.transpose(-1, -2).contiguous(),
-                                  work, backend=backend)
-        work[:, :, c0:c0 + nb] = saved
+        # blocked trailing update Q^T = I - V T^T V^T on rows >= c0 and
+        # columns >= c0+nb, in place on that block of ``work``
+        trail = work[:, c0:, c0 + nb:]
+        out = ops.hh_block_apply(v_blk[:, c0:],
+                                 t.transpose(-1, -2).contiguous(), trail,
+                                 backend=backend)
+        if out is not trail:
+            trail.copy_(out)
 
         # -------- LQ panel: rows [c0, c0+nb), pivot column c0+nb+j ---------
         vr_blk = torch.zeros((B, big, nb), dtype=acc, device=dev)

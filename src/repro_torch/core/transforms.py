@@ -16,12 +16,14 @@ replayed as one primitive, the compact-WY left apply
 ``X <- (I - V T V^T) X`` of ``kernels/ops.py::tape_apply``: the
 hand-written kernel ``kernels/csrc/hh_apply.cu`` on the card.
 
-The chase replay keeps the chase's own wavefront batching: per super-cycle
-the row slices of all B*G*K (matrix, slot, fused cycle) triples are gathered
-into one ``tape_apply`` over B*G*K slots and scattered back.  The schedule
-that keeps the chase's windows disjoint keeps the replayed row ranges
-``[p, p+tw]`` disjoint too, and inactive triples go to their own scratch
-rows past n, so the scatter has no two writers on one row.
+The stage-1 replay applies each panel to the accumulator rows at and below
+its first pivot only (a strided view; V is zero above it).  The chase
+replay keeps the chase's own wavefront batching: per super-cycle one
+``tape_apply`` over B*G*K (matrix, slot, fused cycle) slots, each slot
+addressing its rows of the padded accumulators in place through a row
+table.  The schedule that keeps the chase's windows disjoint keeps the
+replayed row ranges ``[p, p+tw]`` disjoint too, and inactive triples go to
+their own scratch rows past n, so no two slots write one row.
 """
 
 from __future__ import annotations
@@ -61,16 +63,23 @@ def replay_stage1(ut: torch.Tensor, vt: torch.Tensor, tape, *, config=None):
     ``Q_k = I - Vq Tq Vq^T`` (left, QR) and ``R_k = I - Vl Tl Vl^T`` (right,
     LQ), with ``A_banded = Q_P^T ... Q_0^T A R_0 ... R_P``; so the replay
     left-applies ``Q_k^T = I - Vq Tq^T Vq^T`` to U^T, and the ``R_k``
-    counterpart to V^T, in panel order.  Returns the updated pair (the
-    "cuda" backend updates them in place)."""
+    counterpart to V^T, in panel order.  Panel k's reflectors are zero
+    above their first pivot (row c0 = k*nb for Q, c0 + nb for R), so only
+    the rows from there on change: each apply takes those rows as a view
+    and updates them in place.  Returns the pair, updated in place."""
     from repro_torch.kernels import ops
     vq, tq, vl, tl = (x.transpose(0, 1) for x in tape)      # (P, B, ...)
     vq, vl = vq.contiguous(), vl.contiguous()
     tq = tq.transpose(-1, -2).contiguous()
     tl = tl.transpose(-1, -2).contiguous()
+    nb = vq.shape[-1]
     for k in range(vq.shape[0]):
-        ut = ops.tape_apply(vq[k], tq[k], ut, config=config)
-        vt = ops.tape_apply(vl[k], tl[k], vt, config=config)
+        for v, t, acc, r0 in ((vq[k], tq[k], ut, k * nb),
+                              (vl[k], tl[k], vt, (k + 1) * nb)):
+            rows = acc[:, r0:]
+            out = ops.tape_apply(v[:, r0:], t, rows, config=config)
+            if out is not rows:
+                rows.copy_(out)
     return ut, vt
 
 
@@ -97,20 +106,23 @@ def _replay_loop(utp: torch.Tensor, vtp: torch.Tensor, rows: torch.Tensor,
     """Replay every super-cycle of one chase stage, in place on the padded
     accumulators (B, n_pad, n).
 
-    The one place the chase replay launches: a CUDA graph can replace this
+    The one place the chase replay launches, one ``tape_apply`` per
+    (super-cycle, side) and nothing else: a CUDA graph can replace this
     loop without touching its callers.  ``rows`` (T, G, K, k) from
-    :func:`_replay_rows`; ``v`` (T, 2, B*G*K, k, 1) and ``tau``
-    (T, 2, B*G*K, 1, 1), contiguous per (super-cycle, side)."""
+    :func:`_replay_rows`, turned into one int32 row table per super-cycle
+    (G*K slots of each matrix) and checked against the accumulators' rows
+    once; ``v`` (T, 2, B*G*K, k, 1) and ``tau`` (T, 2, B*G*K, 1, 1),
+    contiguous per (super-cycle, side)."""
     from repro_torch.kernels import ops
-    B, _, n = utp.shape
+    n_pad = utp.shape[1]
     T, G, K, k = rows.shape
-    S = B * G * K
+    table = rows.reshape(T, G * K, k).to(torch.int32)
+    if T and not (0 <= int(table.min()) and int(table.max()) < n_pad):
+        raise ValueError(f"replay rows outside the accumulators' {n_pad}")
     for t in range(T):
-        r = rows[t]
         for side, acc in ((1, utp), (0, vtp)):          # left -> U, right -> V
-            sl = acc[:, r].reshape(S, k, n)
-            out = ops.tape_apply(v[t, side], tau[t, side], sl, config=config)
-            acc[:, r] = out.reshape(B, G, K, k, n)
+            ops.tape_apply(v[t, side], tau[t, side], acc, rows=table[t],
+                           config=config)
 
 
 def replay_chase(ut: torch.Tensor, vt: torch.Tensor, tape_v: torch.Tensor,

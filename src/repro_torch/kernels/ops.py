@@ -89,9 +89,9 @@ def _ref_bisect(z, bound, *, n, max_iter):
     return bisect_plain(z, bound, n=n, max_iter=max_iter)
 
 
-def _ref_tape(v, t, c):
+def _ref_tape(v, t, c, rows=None):
     from repro_torch.kernels import ref
-    return ref.tape_apply_ref(v, t, c)
+    return ref.tape_apply_ref(v, t, c, rows=rows)
 
 
 def _ref_hh(v, t, c):
@@ -132,9 +132,9 @@ def _cuda_bisect(z, bound, *, n, max_iter):
     return bisect.sturm_bisect_cuda(z, bound, n=n, max_iter=max_iter)
 
 
-def _cuda_tape(v, t, c):
+def _cuda_tape(v, t, c, rows=None):
     from repro_torch.kernels import hh_apply
-    return hh_apply.tape_apply_cuda(v, t, c)
+    return hh_apply.tape_apply_cuda(v, t, c, rows)
 
 
 def _cuda_hh(v, t, c):
@@ -201,13 +201,24 @@ def sturm_bisect(z: torch.Tensor, bound: torch.Tensor, *, n: int,
 
 
 def tape_apply(v: torch.Tensor, t: torch.Tensor, c: torch.Tensor, *,
-               backend: str = "auto", config=None) -> torch.Tensor:
+               rows: torch.Tensor | None = None, backend: str = "auto",
+               config=None) -> torch.Tensor:
     """Slot-batched compact-WY left apply, per slot s
     ``C[s] <- (I - V[s] T[s] V[s]^T) C[s]``; v (S, m, k), t (S, k, k),
     c (S, m, w).  The chase-tape replay passes k = 1 with t = tau, the
-    stage-1 panels k = nb.  The "cuda" backend updates ``c`` in place and
-    returns it; "ref" returns a new tensor."""
-    return _impl("tape_apply", backend, config, c.device)(v, t, c)
+    stage-1 panels k = nb.
+
+    v and c may be strided views whose innermost stride is 1 (the stage-1
+    trailing block, the replay's rows below a pivot); t is contiguous.  The
+    "cuda" backend updates ``c`` in place and returns it; "ref" returns a
+    new tensor.
+
+    With ``rows`` (int32, (spm, m), rows in [0, R)) ``c`` is an accumulator
+    (S / spm, R, w): slot s applies to rows ``rows[s % spm]`` of matrix
+    ``s // spm``.  Then both backends update the accumulator in place and
+    return it: the kernel addresses the rows where they lie, the plain
+    version gathers, applies and scatters them."""
+    return _impl("tape_apply", backend, config, c.device)(v, t, c, rows=rows)
 
 
 def hh_block_apply(v: torch.Tensor, t: torch.Tensor, c: torch.Tensor, *,

@@ -132,14 +132,25 @@ def chase_superstep_ref(blocks: torch.Tensor, is_first: torch.Tensor,
     return out
 
 
-def tape_apply_ref(v: torch.Tensor, t: torch.Tensor,
-                   c: torch.Tensor) -> torch.Tensor:
-    """Per slot s, ``C[s] <- C[s] - V[s] (T[s] (V[s]^T C[s]))``, as a new
-    tensor.
+def tape_apply_ref(v: torch.Tensor, t: torch.Tensor, c: torch.Tensor,
+                   rows: torch.Tensor | None = None) -> torch.Tensor:
+    """Per slot s, ``C[s] <- C[s] - V[s] (T[s] (V[s]^T C[s]))``.
 
-    v: (S, m, k), t: (S, k, k), c: (S, m, w).  The stage-1 panels use k = nb
-    blocks, the chase tape k = 1 (a Householder reflector, t = tau).  Half
-    types accumulate in float32."""
+    v: (S, m, k), t: (S, k, k), c: (S, m, w), any strides; returns a new
+    tensor.  The stage-1 panels use k = nb blocks, the chase tape k = 1 (a
+    Householder reflector, t = tau).  Half types accumulate in float32.
+
+    With ``rows`` ((spm, m) integer row table) ``c`` is an accumulator
+    (S / spm, R, w): slot s gathers rows ``rows[s % spm]`` of matrix
+    ``s // spm``, is applied, and is scattered back into ``c``, which is
+    updated in place and returned, as the CUDA kernel does."""
+    if rows is not None:
+        idx = rows.long()
+        spm, m = idx.shape
+        b, w = c.shape[0], c.shape[-1]
+        sl = c[:, idx].reshape(b * spm, m, w)
+        c[:, idx] = tape_apply_ref(v, t, sl).reshape(b, spm, m, w)
+        return c
     acc = acc_dtype(c.dtype)
     vv, tt, cc = v.to(acc), t.to(acc), c.to(acc)
     w1 = vv.transpose(-1, -2) @ cc

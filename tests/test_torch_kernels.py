@@ -53,7 +53,8 @@ def wy_inputs(s, m, k, w, seed, dtype, device):
     a C per slot, as the reference's kernel test makes them."""
     rng = np.random.default_rng(seed)
     v = np.tril(rng.standard_normal((s, m, k)), -1)
-    v[:, np.arange(k), np.arange(k)] = 1.0
+    d = min(m, k)
+    v[:, np.arange(d), np.arange(d)] = 1.0
     t = np.triu(rng.standard_normal((s, k, k))) * 0.2
     c = rng.standard_normal((s, m, w))
     return tuple(torch.from_numpy(x).to(device, dtype) for x in (v, t, c))
@@ -142,11 +143,17 @@ def test_tape_apply_wrapper_takes_cuda_tensors_only():
         thh.launch_shape(1, 129, 64, torch.float64)
     with pytest.raises(ValueError, match="dtype"):
         thh.tape_apply_cuda(v, t, c.to(torch.float16))
-    # stripe widths: k * stripe <= 4096, narrowed to fill the card
-    assert thh.launch_shape(1, 64, 4224, torch.float64)[0] == 32
-    assert thh.launch_shape(128, 1, 4096, torch.float64)[0] == 256
-    assert thh.launch_shape(1, 128, 64, torch.float64) == (
-        32, (64 * 128 + 64 * 32 + 128 * 32) * 8)
+    # the path by m and k; the large-m path's tiles and splits depend on
+    # (m, k, w) only, never on the slot count
+    plan = thh.launch_shape(4224, 64, 4224, torch.float64)
+    assert (plan.path, plan.kernels, plan.kp, plan.nsplit) == (
+        "large", 3, 64, 8)
+    small = thh.launch_shape(16, 1, 4096, torch.float64)
+    assert (small.path, small.kernels) == ("small", 1)
+    assert thh.launch_shape(1, 128, 64, torch.float64) == thh.LaunchPlan(
+        "large", 128, 1, 32, 128,
+        (2 * 32 * (132 + 68) * 8, (128 * 32 + 128 * 128) * 8,
+         64 * 132 * 8 + 128 * 68 * 8))
 
 
 # ---------------------------------------------------------------------------
@@ -211,12 +218,12 @@ def test_tape_apply_cuda_matches_plain(cuda, m, k, w, dtype, tol, slots):
 
 @pytest.mark.cuda
 def test_tape_apply_cuda_in_place_and_stripe_invariant(cuda):
-    """The kernel updates C in place, and its sums do not depend on the
-    stripe width it picks: one slot (stripes of 32) and the same slot among
-    200 (stripes of 256) agree bit for bit."""
+    """The kernel updates C in place, and its sums do not depend on how
+    many slots share the launch: the large-m path's split of the m rows
+    is a function of (m, k, w) alone, so one slot and the same slot among
+    200 agree bit for bit."""
     v, t, c = wy_inputs(200, 90, 16, 300, 3, torch.float64, cuda)
-    assert thh.launch_shape(200, 16, 300, torch.float64)[0] == 256
-    assert thh.launch_shape(1, 16, 300, torch.float64)[0] == 32
+    assert thh.launch_shape(90, 16, 300, torch.float64).path == "large"
     c0 = c.clone()
     c4 = c.view(20, 10, 90, 300).clone()
     out = thh.tape_apply_cuda(v, t, c)
@@ -230,6 +237,137 @@ def test_tape_apply_cuda_in_place_and_stripe_invariant(cuda):
     assert torch.equal(one[0], out[0])
     assert blk.data_ptr() == c4.data_ptr()
     assert torch.equal(blk.view(200, 90, 300), out)
+
+
+def _row_table(b, spm, m, r_acc, seed, device):
+    """Disjoint rows of each matrix for its spm slots, int32, and the
+    accumulator rows no slot names."""
+    rows = np.random.default_rng(seed).permutation(r_acc)[:spm * m]
+    free = np.setdiff1d(np.arange(r_acc), rows)
+    return (torch.from_numpy(rows.reshape(spm, m)).to(device, torch.int32),
+            torch.from_numpy(free).to(device))
+
+
+@pytest.mark.cuda
+@pytest.mark.parametrize("dtype,tol", DTYPES)
+@pytest.mark.parametrize("w", [7, 100])
+@pytest.mark.parametrize("m", [1, 17, 64, 65, 200])
+@pytest.mark.parametrize("k", [1, 4, 8, 16, 64, 128])
+def test_tape_apply_cuda_paths_match_plain(cuda, k, m, w, dtype, tol):
+    """Both paths (small m and k: one kernel; else three), m ragged against
+    the 32-row stages and 64-row tiles, w = 7 and 100 (rows not on 16 bytes
+    at fp64 w = 7 and bf16 w = 100: the element-wise staging)."""
+    v, t, c = wy_inputs(3, m, k, w, m * k + w, torch_dtype(dtype), cuda)
+    want = tref.tape_apply_ref(v, t, c)
+    got = thh.tape_apply_cuda(v, t, c.clone())
+    torch.cuda.synchronize()
+    close(got, want, wy_tol(dtype, tol, k))
+
+
+@pytest.mark.cuda
+@pytest.mark.parametrize("dtype,tol", DTYPES)
+@pytest.mark.parametrize("m,k,w", [(16, 1, 300), (40, 8, 99), (300, 64, 260),
+                                   (130, 128, 64)])
+def test_tape_apply_cuda_strided_views_match_plain(cuda, m, k, w, dtype,
+                                                   tol):
+    """V and C as views into larger tensors (rows and columns offset, as
+    stage 1's trailing block and the replay's rows below a pivot), updated
+    in place: the rest of C stays bit for bit."""
+    dt = torch_dtype(dtype)
+    v, t, _ = wy_inputs(2, m, k, w, m + w, dt, cuda)
+    vpar = torch.zeros((2, m + 3, k + 5), dtype=dt, device=cuda)
+    vpar[:, 3:, :k] = v
+    cpar = torch.from_numpy(np.random.default_rng(w).standard_normal(
+        (2, m + 5, w + 10))).to(cuda, dt)
+    before = cpar.clone()
+    view = cpar[:, 3:3 + m, 6:6 + w]
+    want = tref.tape_apply_ref(vpar[:, 3:, :k], t, view)
+    out = thh.tape_apply_cuda(vpar[:, 3:, :k], t, view)
+    torch.cuda.synchronize()
+    assert out.data_ptr() == view.data_ptr()
+    close(view, want, wy_tol(dtype, tol, k))
+    view.copy_(before[:, 3:3 + m, 6:6 + w])
+    assert torch.equal(cpar, before)
+    wide = torch.zeros((2, m, 2 * w), dtype=dt, device=cuda)
+    with pytest.raises(ValueError, match="innermost stride"):
+        thh.tape_apply_cuda(vpar[:, 3:, :k], t, wide[:, :, ::2])
+
+
+@pytest.mark.cuda
+@pytest.mark.parametrize("dtype,tol", DTYPES)
+@pytest.mark.parametrize("b,spm", [(1, 128), (3, 4)])
+@pytest.mark.parametrize("m,k,w", [(16, 1, 4096), (17, 1, 101), (96, 16, 64),
+                                   (70, 64, 130)])
+def test_tape_apply_cuda_row_table_matches_plain(cuda, m, k, w, dtype, tol,
+                                                 b, spm):
+    """A row table into an accumulator (b, R, w), as the chase replay passes
+    it: the kernel against the plain version's gather, apply and scatter,
+    both in place; rows no slot names stay bit for bit."""
+    dt = torch_dtype(dtype)
+    v, t, _ = wy_inputs(b * spm, m, k, 1, m + k, dt, cuda)
+    r_acc = spm * m + 9
+    rows, free = _row_table(b, spm, m, r_acc, m * spm, cuda)
+    acc = torch.from_numpy(np.random.default_rng(w).standard_normal(
+        (b, r_acc, w))).to(cuda, dt)
+    want = tref.tape_apply_ref(v, t, acc.clone(), rows=rows)
+    got = acc.clone()
+    before = thh.launches["tape_apply_cuda"]
+    assert ops.tape_apply(v, t, got, rows=rows) is got
+    torch.cuda.synchronize()
+    assert thh.launches["tape_apply_cuda"] == before + 1
+    close(got, want, wy_tol(dtype, tol, k))
+    assert torch.equal(got[:, free], acc[:, free])
+    # a row outside [0, R) is read as zeros and never written
+    outside = rows.clone()
+    outside[0, -1] = r_acc
+    got = acc.clone()
+    thh.tape_apply_cuda(v, t, got, outside)
+    torch.cuda.synchronize()
+    assert torch.isfinite(got).all()
+    assert torch.equal(got[:, free], acc[:, free])
+
+
+@pytest.mark.cuda
+@pytest.mark.parametrize("m,k,w", [(16, 1, 4096), (300, 64, 260)])
+def test_tape_apply_cuda_is_bitwise_reproducible(cuda, m, k, w):
+    """Two runs agree bit for bit, and one slot alone agrees bit for bit
+    with the same slot among 200, on both paths and through a row table."""
+    v, t, c = wy_inputs(200, m, k, w, 5, torch.float64, cuda)
+    runs = [thh.tape_apply_cuda(v, t, c.clone()) for _ in range(2)]
+    one = thh.tape_apply_cuda(v[:1], t[:1].contiguous(), c[:1].clone())
+    rows, _ = _row_table(1, 200, m, 200 * m + 3, 6, cuda)
+    acc = torch.zeros((1, 200 * m + 3, w), dtype=torch.float64, device=cuda)
+    acc[0, rows.long()] = c
+    thh.tape_apply_cuda(v, t, acc, rows)
+    torch.cuda.synchronize()
+    assert torch.equal(runs[0], runs[1])
+    assert torch.equal(one[0], runs[0][0])
+    assert torch.equal(acc[0, rows.long()], runs[0])
+
+
+@pytest.mark.cuda
+def test_tape_apply_cuda_replay_shape_is_one_launch(cuda):
+    """At the chase replay's shape, (128, 16, 1, 4096) through a row table,
+    a call is one device kernel; at the stage-1 panel's, three."""
+    from torch.profiler import ProfilerActivity, profile
+    v, t, _ = wy_inputs(128, 16, 1, 1, 7, torch.float64, cuda)
+    rows, _ = _row_table(1, 128, 16, 128 * 16 + 40, 8, cuda)
+    acc = torch.zeros((1, 128 * 16 + 40, 4096), dtype=torch.float64,
+                      device=cuda)
+    vb, tb, cb = wy_inputs(1, 4224, 64, 4224, 9, torch.float64, cuda)
+    for call, kernels in ((lambda: thh.tape_apply_cuda(v, t, acc, rows), 1),
+                          (lambda: thh.tape_apply_cuda(vb, tb, cb), 3)):
+        call()
+        torch.cuda.synchronize()
+        with profile(activities=[ProfilerActivity.CUDA]) as prof:
+            for _ in range(4):
+                call()
+            torch.cuda.synchronize()
+        names = [ev.key for ev in prof.key_averages()
+                 if "tape_apply_kernel" in ev.key]
+        counts = sum(ev.count for ev in prof.key_averages()
+                     if "tape_apply_kernel" in ev.key)
+        assert counts == 4 * kernels and len(names) == kernels, names
 
 
 @pytest.mark.cuda

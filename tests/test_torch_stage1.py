@@ -4,8 +4,8 @@
 ``band_reduce(backend="ref")`` at fp64 within 1e-12, batched and not, with
 inputs made by numpy from fixed seeds; ``wy_t_factor`` against the
 reference's; and the trailing update through an in-place apply, as the
-CUDA kernel writes (the panel's stripe saved before the call, restored
-after), against the plain apply that returns a new tensor.
+CUDA kernel writes (on the trailing block, a view of the padded matrix),
+against the plain apply that returns a new tensor.
 """
 
 import jax.numpy as jnp
@@ -79,8 +79,8 @@ def test_wy_t_factor_matches_reference(m, k):
 
 
 def test_full_width_route_matches_masked_route(monkeypatch):
-    """Stage 1 applies the trailing update at full width and puts the
-    panel's stripe back.  On "cuda" the apply writes in place; an in-place
+    """Stage 1 applies the trailing update to the trailing block, a view
+    of the padded matrix.  On "cuda" the apply writes in place; an in-place
     plain apply stands in for the kernel so that route runs on the CPU,
     and it gives the band and tape of the "ref" route (the reference's
     masked route, within 1e-12, is held in the test above)."""
