@@ -2,7 +2,8 @@
 """Drive the PyTorch/CUDA port's main path on one NVIDIA H100 and check it.
 
     python3 chip_smoke.py [--seed N] [--lm-planted-faults |
-                           --flash-planted-faults | --wy-planted-faults |
+                           --flash-planted-faults | --chase-planted-faults |
+                           --chase-bounds | --wy-planted-faults |
                            --wy-bounds | --svd-parts TREE]
 
 Builds the port's CUDA kernels from ``src/repro_torch/kernels/csrc`` (one
@@ -86,10 +87,14 @@ HBM_BYTES_PER_S = 3.35e12          # H100 SXM data sheet
 PEAK_FLOPS = {"float64": 34e12, "float32": 67e12, "bfloat16": 67e12}
 # bf16 is computed in fp32 units, outside the tensor cores
 # matrix products (the compact-WY apply): fp64 on the tensor cores, 67
-# TFLOP/s; fp32 at fp32 precision has no tensor-core route (TF32 is not
-# fp32), 67 TFLOP/s; bf16 with fp32 sums on the tensor cores, 989 TFLOP/s
+# TFLOP/s; fp32 on FMAs (the apply's fp32 path), 67 TFLOP/s; bf16 with fp32
+# sums on the tensor cores, 989 TFLOP/s
 PEAK_MATMUL_FLOPS = {"float64": 67e12, "float32": 67e12, "bfloat16": 989e12,
                      "float16": 989e12}
+# fp32 products at fp32 accuracy on the tensor cores (flash_attn.cu): each
+# is three TF32 products (3xTF32) at 495 TFLOP/s, so 165 TFLOP/s of fp32
+# products; flash_bound reports the fp32 FMA bound (67 TFLOP/s) beside it
+PEAK_3XTF32_FLOPS = 495e12 / 3
 # causal flash attention: (BH, S, D) of the reference's kernel test
 # (tests/test_kernels.py), a ragged S and D = 64, and the main path's shape
 # (phi3-medium-14b prefill at b = 2, s = 2048: 2 x 40 query heads of 128,
@@ -128,15 +133,33 @@ FLASH_FAULTS = {
         "lo)), __bfloat162float(__float2bfloat16(hi)));", 1)]),
     # flash_attn.cu: the last two key tiles take V of the tile two before
     "fp32_stale_v_last_two_tiles": ("flash_attn", "float32", [(
-        "load_tile<T, DP>(v + kv_base, S, D, k0, 1.0f, vs, DP);",
-        "load_tile<T, DP>(v + kv_base, S, D, kt >= n_tiles - 2 && kt >= 2 "
-        "? k0 - 2 * kBK : k0, 1.0f, vs, DP);", 1)]),
-    # flash_attn.cu at TF32 precision: Q, K and V truncated to TF32's 10
-    # mantissa bits as they are staged
+        "ldv, v + kv_base, S, D,\n                       (kt + 1) * BK,",
+        "ldv, v + kv_base, S, D, (kt + 1 >= n_kv - 2 && kt >= 1 ? kt - 1 : "
+        "kt + 1) * BK,", 1)]),
+    # flash_attn.cu with Q, K and V at TF32 precision: their lo terms
+    # dropped (P keeps its own)
     "fp32_at_tf32_precision": ("flash_attn", "float32", [(
-        "? to_f(x[(size_t)row * D + c]) * mul : 0.0f;",
-        "? __uint_as_float(__float_as_uint(to_f(x[(size_t)row * D + c]) "
-        "* mul) & 0xffffe000u) : 0.0f;", 1)])}
+        "    lo = tf32(x - __uint_as_float(hi));\n  } else {",
+        "    lo = 0u;\n  } else {", 1)]),
+    # flash_attn.cu at 1xTF32: every lo term dropped, P's too, so each
+    # product is one TF32 product
+    "fp32_lo_terms_dropped": ("flash_attn", "float32", [(
+        "constexpr bool kLoTerms = true;",
+        "constexpr bool kLoTerms = false;", 1)])}
+# Faults planted in copies of chase.cu (--chase-planted-faults), read by
+# the band entry at every main-path super-step shape with ragged live
+# masks: fault -> [(text, replacement, times it occurs)]
+CHASE_FAULTS = {
+    # the in-place column offset shifted by one: each slot chases its block
+    # one band column to the right of where it lies
+    "band_column_offset_by_one": [(
+        "const int p = a.p != nullptr ? a.p[g] : 0;",
+        "const int p = a.p != nullptr ? a.p[g] + 1 : 0;", 1)],
+    # live ignored: every slot chases all K cycles
+    "live_ignored": [
+        ("  int last = tape ? K - 1 : -1;", "  int last = K - 1;", 1),
+        ("    const bool act = live[i] != 0;", "    const bool act = true;",
+         1)]}
 # Probes of what bounds the large-m path (--wy-bounds): copies of
 # hh_apply.cu with kernel 1's or kernel 3's products left out, and with
 # kernel 1's staging left out (its ring multiplies stale shared memory)
@@ -159,6 +182,21 @@ WY_PROBES = {
          "A(-1));",
          "    if (a.k < 0) warp_product<MT, NT, false>(d, va, LDV, wb, LDW, "
          "KC, k8, A(-1));", 1)]}
+# Probes of what bounds the super-step (--chase-bounds): copies of chase.cu
+# without the two rank-1 updates of each cycle (phases 1-2), without the
+# moves between the panels and the band between cycles, and without both
+# (what is left: the launch, the first load and the last store)
+_NO_CYCLES = ("    if (act || tape) {", "    if (act && a.b_in < 0) {", 1)
+_NO_MOVES = [
+    ("    if (act) panels_out<T, A>(pn, band, a.ld, col0, !(next && "
+     "live[i + 1]));",
+     "    if (act && a.b_in < 0) panels_out<T, A>(pn, band, a.ld, col0, "
+     "!(next && live[i + 1]));", 1),
+    ("      panels_in<T, A>(pn, band, a.ld, col0 + a.b_in, true);",
+     "      if (a.b_in < 0) panels_in<T, A>(pn, band, a.ld, col0 + a.b_in, "
+     "true);", 1)]
+CHASE_PROBES = {"without_cycles": [_NO_CYCLES], "without_moves": _NO_MOVES,
+                "without_both": [_NO_CYCLES] + _NO_MOVES}
 # phi3-medium-14b: the prefill batch, the fp32 check's depth, and the
 # Engine's requests (the reference launcher's prompts of 2-8 tokens)
 LM_ARCH, LM_B, LM_S, LM_CHECK_LAYERS = "phi3-medium-14b", 2, 2048, 4
@@ -197,6 +235,15 @@ def main() -> int:
                     help="only read how far faults planted in copies of "
                     "the flash kernels move their output (the readings "
                     "behind flash_attention.CHECK_TOLS), then exit")
+    ap.add_argument("--chase-planted-faults", action="store_true",
+                    help="only read how far faults planted in copies of "
+                    "chase.cu (the band entry's column offset shifted by "
+                    "one, live ignored) move the super-step's band and "
+                    "tape at the main-path shapes, then exit")
+    ap.add_argument("--chase-bounds", action="store_true",
+                    help="only time the super-step kernel at its timing "
+                    "shape in the repository's build and in copies without "
+                    "its cycles' updates or its moves, then exit")
     ap.add_argument("--svd-parts", metavar="TREE", type=Path,
                     help="only time the dense fp64 n = 4096 svd part by "
                     "part with the port under TREE/src (a checkout of this "
@@ -227,6 +274,10 @@ def main() -> int:
             return lm_planted_faults(args, torch)
         if args.flash_planted_faults:
             return flash_planted_faults(args, torch)
+        if args.chase_planted_faults:
+            return chase_planted_faults(args, torch)
+        if args.chase_bounds:
+            return chase_bounds(args, torch)
         if args.wy_planted_faults:
             return wy_planted_faults(args, torch)
         if args.wy_bounds:
@@ -337,11 +388,29 @@ def sturm_bound(b, n, max_iter, dtype, itemsize):
             "bytes" if t_bytes >= t_ops else "operations", nbytes, flops)
 
 
+def fuse4_runs(torch):
+    """(lead, n, cfg) of the main path's fuse-4 SVD runs: banded fp64 n =
+    4096 bw 64 and fp32 n = 16384 bw 64, dense fp64 n = 4096 bw 64, and 16
+    fp32 matrices of n = 512 bw 32."""
+    from repro_torch.core.tuning import PipelineConfig
+    f64, f32 = torch.float64, torch.float32
+    return [((), 4096, PipelineConfig.resolve(bw=64, dtype=f64, n=4096,
+                                              fuse=4)),
+            ((), 16384, PipelineConfig.resolve(bw=64, dtype=f32, n=16384,
+                                               fuse=4)),
+            ((), 4096, PipelineConfig.resolve(bw=64, dtype=f64, n=4096,
+                                              fuse=4)),
+            ((16,), 512, PipelineConfig.resolve(bw=32, dtype=f32, n=512,
+                                                fuse=4))]
+
+
 def main_path_shapes(bc, runs):
     """Kernel shapes the main-path runs launch, from each run's stage plan
     and wavefront width: every stage (b_in, tw) with B*G slots for a batch
-    of B, at the run's fuse depth and dtype, and the bisection's (B, n)."""
-    cycle, superstep, sturm = [], [], []
+    of B, at the run's fuse depth and dtype; the bisection's (B, n); and
+    each fuse-K stage as the band entry takes it, (n, b_in, tw, B, K,
+    dtype)."""
+    cycle, superstep, sturm, band = [], [], [], []
     for lead, n, cfg in runs:
         b = math.prod(lead)
         for b_in, tw in cfg.plan:
@@ -350,8 +419,36 @@ def main_path_shapes(bc, runs):
                 cycle.append((b_in, tw, g, cfg.dtype))
             else:
                 superstep.append((b_in, tw, g, cfg.fuse, cfg.dtype))
+                band.append((n, b_in, tw, b, cfg.fuse, cfg.dtype))
         sturm.append((b, n, cfg.dtype))
-    return (sorted(set(cycle)), sorted(set(superstep)), sorted(set(sturm)))
+    return (sorted(set(cycle)), sorted(set(superstep)), sorted(set(sturm)),
+            sorted(set(band)))
+
+
+def band_stage(torch, bc, rng, n, b_in, tw, fuse, b, dtype, ragged=True):
+    """One fuse-K stage on the card as the band entry takes it: the padded
+    band (B, H, n_pad), random in its first n columns and zero past them
+    (dump zones included), the stage's tables (p_safe as int32), a
+    super-cycle t = T // 2 and tape buffers (B, T, G, K, 2, tw+1), (B, T,
+    G, K, 2) filled with 7.  With ``ragged`` row t of ``live`` is cut to a
+    random prefix for every started slot."""
+    _, T, G = bc.stage_schedule(n, b_in, tw, fuse)
+    wk = fuse * b_in + tw + 1
+    h = b_in + 2 * tw + 1
+    bandp = torch.zeros((b, h, n + wk + G * wk), dtype=torch.float64)
+    bandp[..., :n] = torch.from_numpy(rng.standard_normal((b, h, n)))
+    p_safe, first, live = bc._cycle_table(n, b_in, tw, fuse, T, G, b,
+                                          "cuda")
+    t = T // 2
+    if ragged:
+        n_live = torch.from_numpy(rng.integers(0, fuse + 1, size=G)).cuda()
+        live[t] = ((torch.arange(fuse, device="cuda")[None, :]
+                    < n_live[:, None]) & (p_safe[t] < n)[:, None])
+    bandp = bandp.to("cuda", dtype)
+    tape = (torch.full((b, T, G, fuse, 2, tw + 1), 7.0, dtype=dtype,
+                       device="cuda"),
+            torch.full((b, T, G, fuse, 2), 7.0, dtype=dtype, device="cuda"))
+    return bandp, p_safe.to(torch.int32), first, live, t, tape
 
 
 def tape_apply_calls(bc, runs):
@@ -446,15 +543,18 @@ def fused_bound(b, n, bw, max_iter, dtype, itemsize):
             "bytes" if t_bytes >= t_ops else "operations", nbytes, flops)
 
 
-def flash_bound(bh, bh_kv, s, d, dtype, itemsize):
+def flash_bound(bh, bh_kv, s, d, dtype, itemsize, fma=False):
     """q (bh rows) and the grouped k, v (bh_kv rows) read once and o
     written once; 4*D flops per (query, key) pair on or below the diagonal
-    (two products), at the card's peak for matrix products of the type
-    (bf16/fp16 on the tensor cores; fp32 at fp32 precision, 67 TFLOP/s)."""
+    (two products), at the card's peak for the kernels' route: bf16/fp16
+    on the tensor cores, 989 TFLOP/s; fp32 as 3xTF32 products on the tensor
+    cores (PEAK_3XTF32_FLOPS), or with ``fma`` at the fp32 FMA rate, 67
+    TFLOP/s."""
     nbytes = 2 * (bh + bh_kv) * s * d * itemsize
     flops = 4 * bh * d * s * (s + 1) // 2
     t_bytes = nbytes / HBM_BYTES_PER_S
-    t_ops = flops / PEAK_MATMUL_FLOPS[dtype]
+    t_ops = flops / (PEAK_3XTF32_FLOPS if dtype == "float32" and not fma
+                     else PEAK_MATMUL_FLOPS[dtype])
     return (max(t_bytes, t_ops) * 1e3,
             "bytes" if t_bytes >= t_ops else "operations", nbytes, flops)
 
@@ -886,27 +986,12 @@ def flash_planted_faults(args, torch) -> int:
 
     import numpy as np
 
-    from repro_torch.kernels import _build, flash_attention, ref
+    from repro_torch.kernels import flash_attention, ref
 
     rng = np.random.default_rng(args.seed)
     tmp = tempfile.TemporaryDirectory()
-    procs = {}
-    for fault, (source, _, edits) in FLASH_FAULTS.items():
-        text = (_build.CSRC / _build.SOURCES[source]).read_text()
-        for old, new, times in edits:
-            check(text.count(old) == times, f"{fault}: {old!r} occurs "
-                  f"{text.count(old)} times, expected {times}")
-            text = text.replace(old, new)
-        cu, so = (Path(tmp.name) / f"{fault}{ext}" for ext in (".cu", ".so"))
-        cu.write_text(text)
-        procs[fault] = (subprocess.Popen(
-            _build.nvcc_command(cu, so), stdout=subprocess.PIPE,
-            stderr=subprocess.STDOUT, text=True), so)
-    libs = {}
-    for fault, (proc, so) in procs.items():
-        log, _ = proc.communicate()
-        check(proc.returncode == 0, f"{fault}: nvcc failed:\n{log}")
-        libs[fault] = ctypes.CDLL(str(so))
+    libs = build_copies(tmp.name, {f: (src, edits) for f, (src, _, edits)
+                                   in FLASH_FAULTS.items()})
 
     def planted(fault, q, k, v):
         bh, s_len, d = q.shape
@@ -962,6 +1047,149 @@ def flash_planted_faults(args, torch) -> int:
                                  "whole_max": max(x[1] for x in r)}
                              for f, r in faults.items()}})
     tmp.cleanup()
+    return 0
+
+
+def build_copies(tmp: str, faults: dict) -> dict:
+    """Build one copy of a kernel source per fault (fault -> (source name,
+    [(text, replacement, times it occurs)])), each with its edits, all
+    ``nvcc`` at once in the directory ``tmp``; returns fault -> loaded
+    library."""
+    import ctypes
+
+    from repro_torch.kernels import _build
+    procs = {}
+    for fault, (source, edits) in faults.items():
+        text = (_build.CSRC / _build.SOURCES[source]).read_text()
+        for old, new, times in edits:
+            check(text.count(old) == times, f"{fault}: {old!r} occurs "
+                  f"{text.count(old)} times, expected {times}")
+            text = text.replace(old, new)
+        cu, so = (Path(tmp) / f"{fault}{ext}" for ext in (".cu", ".so"))
+        cu.write_text(text)
+        procs[fault] = (subprocess.Popen(
+            _build.nvcc_command(cu, so), stdout=subprocess.PIPE,
+            stderr=subprocess.STDOUT, text=True), so)
+    libs = {}
+    for fault, (proc, so) in procs.items():
+        log, _ = proc.communicate()
+        check(proc.returncode == 0, f"{fault}: nvcc failed:\n{log}")
+        libs[fault] = ctypes.CDLL(str(so))
+    return libs
+
+
+def chase_planted_faults(args, torch) -> int:
+    """How far the faults of CHASE_FAULTS, each built into its own copy of
+    chase.cu, move the band entry's band and tape from the plain version,
+    at super-cycle T // 2 of every main-path fuse-K stage in its run's
+    dtype, with ragged live masks (the kernels_vs_plain comparison), beside
+    the sound kernel: max |err| over the chase tolerance times the scale.
+    One JSON line per fault; fails unless the sound kernel reads at most 1
+    and every fault above 1 at some shape."""
+    import ctypes
+    import tempfile
+
+    import numpy as np
+
+    from repro_torch.core import bulge_chasing as bc
+    from repro_torch.kernels import bulge_chase, ref
+
+    tmp = tempfile.TemporaryDirectory()
+    libs = build_copies(tmp.name, {f: ("chase", e)
+                                   for f, e in CHASE_FAULTS.items()})
+    rng = np.random.default_rng(args.seed)
+    suffix = {torch.float64: "f64", torch.float32: "f32",
+              torch.bfloat16: "bf16"}
+    shapes = main_path_shapes(bc, fuse4_runs(torch))[3]
+    readings = {f: [] for f in ["sound", *CHASE_FAULTS]}
+    for n, b_in, tw, b, k, dname in shapes:
+        dtype = getattr(torch, dname)
+        stage = band_stage(torch, bc, rng, n, b_in, tw, k, b, dtype)
+        bandp, p32, first, live, t, tape = stage
+        kw = dict(b_in=b_in, tw=tw, fuse=k)
+        want_tape = tuple(x.clone() for x in tape)
+        want = ref.chase_superstep_band_ref(bandp.clone(), p32, first, live,
+                                            t, tape=want_tape, **kw)
+        for fault in readings:
+            got, got_tape = bandp.clone(), tuple(x.clone() for x in tape)
+            if fault == "sound":
+                bulge_chase.chase_superstep_band_cuda(
+                    got, p32, first, live, t, tape=got_tape, **kw)
+            else:
+                fn = getattr(libs[fault],
+                             f"chase_superstep_band_{suffix[dtype]}")
+                fn.argtypes = bulge_chase._ARGTYPES["chase_superstep_band"]
+                err = fn(*bulge_chase.band_args(got, p32, first, live, t,
+                                                tape=got_tape, **kw),
+                         ctypes.c_void_p(
+                             torch.cuda.current_stream().cuda_stream))
+                check(err == 0, f"{fault}: CUDA error {err}")
+            torch.cuda.synchronize()
+            ratio = max(max_err(torch, g_, w_)[0]
+                        / (TOLS[dname] * max_err(torch, g_, w_)[1])
+                        for g_, w_ in ((got, want),
+                                       (got_tape[0][:, t], want_tape[0][:, t]),
+                                       (got_tape[1][:, t], want_tape[1][:, t])))
+            readings[fault].append((ratio, (n, b_in, tw, b, k, dname)))
+        del stage, bandp, tape, want_tape, want
+    for fault, r in readings.items():
+        emit({"fault": fault, "cases": len(r),
+              "err_over_tol_min": min(r), "err_over_tol_max": max(r),
+              "caught": max(r)[0] > 1.0})
+    check(max(readings["sound"])[0] <= 1.0, "the sound kernel reads above "
+          "its tolerance")
+    check(all(max(r)[0] > 1.0 for f, r in readings.items() if f != "sound"),
+          "a planted chase fault passed the compare")
+    tmp.cleanup()
+    return 0
+
+
+def chase_bounds(args, torch) -> int:
+    """What bounds the super-step at its timing shape, blocks (32, 129, 289)
+    fp32, b_in 64, tw 32, K 4, every cycle live: its device time
+    (torch.profiler, mean of 50 launches) in the repository's build and in
+    copies of chase.cu without parts of it (CHASE_PROBES), on the same
+    blocks.  One JSON line; changes nothing."""
+    import ctypes
+    import tempfile
+
+    import numpy as np
+
+    from repro_torch.core import tuning
+    from repro_torch.kernels import bulge_chase
+
+    tmp = tempfile.TemporaryDirectory()
+    libs = build_copies(tmp.name, {f: ("chase", e)
+                                   for f, e in CHASE_PROBES.items()})
+    b_in, tw, k, g = 64, 32, 4, 32
+    h, wk = b_in + 2 * tw + 1, k * b_in + tw + 1
+    rng = np.random.default_rng(args.seed)
+    blocks = torch.from_numpy(rng.standard_normal((g, h, wk))).to(
+        "cuda", torch.float32)
+    first = torch.zeros(g, dtype=torch.bool, device="cuda")
+    live = torch.ones((g, k), dtype=torch.bool, device="cuda")
+    smem = tuning.check_smem_budget(b_in, tw, torch.float32, k)
+    fns = {"repository": bulge_chase._fn("chase_superstep", torch.float32)}
+    for name, lib in libs.items():
+        fns[name] = lib.chase_superstep_f32
+        fns[name].argtypes = bulge_chase._ARGTYPES["chase_superstep"]
+    out = {}
+    for name, fn in fns.items():
+        def call(fn=fn):
+            err = fn(blocks.data_ptr(), first.data_ptr(), live.data_ptr(), g,
+                     b_in, tw, k, None, None, smem, ctypes.c_void_p(
+                         torch.cuda.current_stream().cuda_stream))
+            check(err == 0, f"{name}: CUDA error {err}")
+        call()
+        prof = profiler_ms(torch, call, "chase_superstep_kernel", 50)
+        out[name] = prof[0] if prof is not None else None
+    tmp.cleanup()
+    emit({"chase_bounds": f"blocks ({g}, {h}, {wk}) fp32, b_in={b_in}, "
+                          f"tw={tw}, K={k}", "ms": out,
+          "card": subprocess.run(
+              ["nvidia-smi", "--query-gpu=name,power.limit",
+               "--format=csv,noheader"], capture_output=True, text=True,
+              timeout=60).stdout.strip()})
     return 0
 
 
@@ -1031,31 +1259,15 @@ def wy_copies(variants):
     times it occurs)]) in a temporary directory, one ``nvcc`` each, all at
     once; returns the directory and name -> its fp64 entry point, bound as
     ``hh_apply.launch_with`` takes it."""
-    import ctypes
     import tempfile
 
-    from repro_torch.kernels import _build, hh_apply
+    from repro_torch.kernels import hh_apply
 
     tmp = tempfile.TemporaryDirectory()
-    procs = {}
-    text0 = (_build.CSRC / _build.SOURCES["hh_apply"]).read_text()
-    for name, edits in variants.items():
-        text = text0
-        for old, new, times in edits:
-            check(text.count(old) == times, f"{name}: {old!r} occurs "
-                  f"{text.count(old)} times, expected {times}")
-            text = text.replace(old, new)
-        cu, so = (Path(tmp.name) / f"{name}{ext}" for ext in (".cu", ".so"))
-        cu.write_text(text)
-        procs[name] = (subprocess.Popen(
-            _build.nvcc_command(cu, so), stdout=subprocess.PIPE,
-            stderr=subprocess.STDOUT, text=True), so)
-    fns = {}
-    for name, (proc, so) in procs.items():
-        log, _ = proc.communicate()
-        check(proc.returncode == 0, f"{name}: nvcc failed:\n{log}")
-        fns[name] = hh_apply.set_argtypes(ctypes.CDLL(str(so)).tape_apply_f64)
-    return tmp, fns
+    libs = build_copies(tmp.name, {name: ("hh_apply", edits)
+                                   for name, edits in variants.items()})
+    return tmp, {name: hh_apply.set_argtypes(lib.tape_apply_f64)
+                 for name, lib in libs.items()}
 
 
 def wy_bounds(args, torch) -> int:
@@ -1268,21 +1480,20 @@ def run(args, torch) -> int:
     b5, n5, bw5 = 32, 1024, 32            # phase 5: batched
     f64, f32 = torch.float64, torch.float32
     cfg1 = PipelineConfig.resolve(bw=bw3, dtype=f64, n=n3, fuse=1)
-    cfg4 = PipelineConfig.resolve(bw=bw3, dtype=f64, n=n3, fuse=4)
     cfg32 = PipelineConfig.resolve(bw=bw3, dtype=f32, n=n3)
     c1 = PipelineConfig.resolve(bw=bw4, dtype=f32, n=n4, fuse=1)
-    c4 = PipelineConfig.resolve(bw=bw4, dtype=f32, n=n4, fuse=4)
     c5 = PipelineConfig.resolve(bw=bw5, dtype=f64, n=n5)
     nd, bwd = 4096, 64                    # dense fp64 full SVD, tw = 16
     b7, n7, bw7 = 16, 512, 32             # batched fp32 full SVD
-    cd = PipelineConfig.resolve(bw=bwd, dtype=f64, n=nd, fuse=4)
-    c7 = PipelineConfig.resolve(bw=bw7, dtype=f32, n=n7, fuse=4)
+    runs4 = fuse4_runs(torch)
+    cfg4, c4, cd, c7 = (cfg for _, _, cfg in runs4)
     tw4 = c1.tw
     # the fused small-n tier: (B, n, bw, dtype) of its two runs
     fused_main = [(64, 64, 8, "float64"), (64, 256, 32, "float32")]
-    runs = [((), n3, cfg1), ((), n3, cfg4), ((), n3, cfg32), ((), n4, c1),
-            ((), n4, c4), ((b5,), n5, c5), ((), nd, cd), ((b7,), n7, c7)]
-    main_cycle, main_super, main_sturm = main_path_shapes(bc, runs)
+    runs = [((), n3, cfg1), ((), n3, cfg32), ((), n4, c1),
+            ((b5,), n5, c5)] + runs4
+    main_cycle, main_super, main_sturm, main_band = main_path_shapes(bc,
+                                                                     runs)
     main_tape = tape_apply_calls(bc, [((), nd, cd), ((b7,), n7, c7)])
 
     # ---- 2. kernels against their plain versions ------------------------
@@ -1351,6 +1562,56 @@ def run(args, torch) -> int:
         key = (b_in, tw, g, k, dname)
         compare("chase_superstep_cuda", got, want, TOLS[dname], key,
                 key in main_super)
+    # the band entry: super-cycle T // 2 of every main-path fuse-K stage,
+    # in every dtype, with ragged live masks, band and tape against the
+    # plain version on the same padded band
+    band_cases = sorted({s[:5] + (d,) for s in main_band for d in TOLS})
+    for n, b_in, tw, b, k, dname in band_cases:
+        bandp, p32, first, live, t, tape = band_stage(
+            torch, bc, rng, n, b_in, tw, k, b, dtypes[dname])
+        want_tape = tuple(x.clone() for x in tape)
+        kw = dict(b_in=b_in, tw=tw, fuse=k)
+        want = ref.chase_superstep_band_ref(bandp.clone(), p32, first, live,
+                                            t, tape=want_tape, **kw)
+        got = bulge_chase.chase_superstep_band_cuda(bandp, p32, first, live,
+                                                    t, tape=tape, **kw)
+        torch.cuda.synchronize()
+        compare("chase_superstep_cuda", [got, tape[0][:, t], tape[1][:, t]],
+                [want, want_tape[0][:, t], want_tape[1][:, t]], TOLS[dname],
+                ("band", n, b_in, tw, b, k, dname), False)
+        del bandp, tape, want_tape, want, got
+    # the band entry against the blocks entry at the timing shape (the
+    # n = 16384 fp32 stage, b_in 64, tw 32, K 4), bit for bit: band, v and
+    # the live taus; tau = 0 where not live
+    bandp, p32, first, live, t, tape = band_stage(torch, bc, rng, n4, bw4,
+                                                  c1.tw, 4, 1, f32)
+    h, wk = bandp.shape[1], 4 * bw4 + c1.tw + 1
+    rows = torch.arange(h, device=dev)[:, None]
+    cols = p32[t].long()[:, None, None] + torch.arange(wk, device=dev)
+    blocks = bandp[:, rows, cols].reshape(-1, h, wk).contiguous()
+    _, vs, taus = bulge_chase.chase_superstep_cuda(
+        blocks, first[t].contiguous(), live[t].contiguous(), b_in=bw4,
+        tw=c1.tw, fuse=4, with_tape=True)
+    want = bandp.clone()
+    want[:, rows, cols] = blocks.reshape(want[:, rows, cols].shape)
+    bulge_chase.chase_superstep_band_cuda(bandp, p32, first, live, t,
+                                          b_in=bw4, tw=c1.tw, fuse=4,
+                                          tape=tape)
+    torch.cuda.synchronize()
+    on = live[t][None, :, :, None].expand_as(tape[1][:, t])
+    taus = taus.reshape(tape[1][:, t].shape)
+    band_bitwise = {
+        "shape": f"band (1, {h}, {bandp.shape[2]}) fp32, b_in={bw4}, "
+                 f"tw={c1.tw}, K=4, slots={p32.shape[1]}, t={t}",
+        "band": torch.equal(bandp, want),
+        "v": torch.equal(tape[0][:, t], vs.reshape(tape[0][:, t].shape)),
+        "live_tau": torch.equal(tape[1][:, t][on], taus[on]),
+        "dead_tau_zero": bool((tape[1][:, t][~on] == 0).all())}
+    check(all(v for k_, v in band_bitwise.items() if k_ != "shape"),
+          f"chase_superstep_cuda: band entry against blocks entry not bit "
+          f"for bit: {band_bitwise}")
+    n_cmp += 1
+    del bandp, tape, blocks, want
 
     def gk_inputs(n, b, dtype):
         d = torch.from_numpy(rng.standard_normal((b, n))).to(dev, dtype)
@@ -1498,6 +1759,8 @@ def run(args, torch) -> int:
           "main_path_shapes": {
               "chase_cycle_cuda (b_in, tw, slots, dtype)": main_cycle,
               "chase_superstep_cuda (b_in, tw, slots, K, dtype)": main_super,
+              "chase_superstep_cuda band entry (n, b_in, tw, B, K, dtype)":
+                  main_band,
               "sturm_bisect_cuda (B, n, dtype)": main_sturm,
               "tape_apply_cuda (layout, S, m, k, w, dtype, where)":
                   main_tape,
@@ -1506,6 +1769,8 @@ def run(args, torch) -> int:
                   FLASH_MAIN + (FLASH_GROUP, "bfloat16"),
               "flash_attention_cuda (BH, S, D, g, dtype)":
                   FLASH_MAIN + (FLASH_GROUP, "float32")},
+          "band_cases": len(band_cases),
+          "band_vs_blocks_bitwise": band_bitwise,
           "flash_cases": flash_cases,
           "fused_cases": len(fused_cases),
           "fused_worst_err_over_scale": fused_errs,
@@ -1550,6 +1815,10 @@ def run(args, torch) -> int:
                             warmup=1 if plain_iters > 1 else 0),
             library_ms=(gpu_ms(torch, library, iters=library_iters,
                                warmup=1) if library is not None else None),
+            # (a second trace where the first saw no device time)
+            library_kernels=(profiler_ms(torch, library, "", 2)
+                             or profiler_ms(torch, library, "", 2)
+                             if library is not None else None),
             bound=bound)
 
     win = torch.from_numpy(rng.standard_normal(
@@ -1575,6 +1844,24 @@ def run(args, torch) -> int:
         lambda: ref.chase_superstep_ref(blk, first2, act, **kw2), 500, 10,
         f"blocks ({g2},{bw4 + 2 * tw4 + 1},{wk}) fp32, b_in={bw4}, "
         f"tw={tw4}, K=4", chase_bound(bw4, tw4, g2, 4, "float32", 4))
+    # the same kernel in place on the main path's stage: super-cycle T // 2
+    # of the n = 16384 fp32 stage (every slot live), through the band
+    # entry with the tape, as reduce_stage_packed launches it
+    bandp, p32, firstb, liveb, tb, tape = band_stage(
+        torch, bc, rng, n4, bw4, tw4, 4, 1, torch.float32, ragged=False)
+    band_call = (lambda: bulge_chase.chase_superstep_band_cuda(
+        bandp, p32, firstb, liveb, tb, tape=tape, **kw2))
+    band_prof = profiler_ms(torch, band_call, "chase_superstep_kernel", 50)
+    timing["chase_superstep_cuda"].update(
+        main_path_ms=(band_prof[0] if band_prof is not None
+                      else gpu_ms(torch, band_call, iters=500, warmup=2)),
+        main_path_events_ms=gpu_ms(torch, band_call, iters=500, warmup=2),
+        main_path_shape=f"in place: band (1, {bandp.shape[1]}, "
+                        f"{bandp.shape[2]}) fp32, super-cycle {tb} of "
+                        f"{p32.shape[0]}, {p32.shape[1]} slots, b_in={bw4}, "
+                        f"tw={tw4}, K=4, with the tape",
+        main_path_bound=chase_bound(bw4, tw4, g2, 4, "float32", 4))
+    del bandp, tape
 
     # the library yardstick computes the same values from the dense
     # bidiagonal whose Golub-Kahan off-diagonal is z (built outside the
@@ -1667,6 +1954,8 @@ def run(args, torch) -> int:
             library=lambda q=q, kr=kr, vr=vr: tnf.scaled_dot_product_attention(
                 q[None], kr[None], vr[None], is_causal=True),
             library_iters=iters)
+        timing[name]["fma_bound_ms"] = flash_bound(
+            bh, bkv, sl, d, dname, q.element_size(), fma=True)[0]
         del q, k, v, kr, vr
     emit({"phase": "kernel_times", "ok": True, "card": smi_line,
           "kernels": {k: {kk: (vv if kk != "bound" else
@@ -1974,12 +2263,15 @@ def run(args, torch) -> int:
         one_stage()
         torch.cuda.synchronize()
         wall = time.perf_counter() - t0
+        key = "chase_cycle_cuda" if f == 1 else "chase_superstep_cuda"
+        before = ops.launch_counts()[key]
         with profile(activities=[ProfilerActivity.CPU,
                                  ProfilerActivity.CUDA]) as prof:
             t0 = time.perf_counter()
             one_stage()
             torch.cuda.synchronize()
             wall_prof = time.perf_counter() - t0
+        launches = ops.launch_counts()[key] - before
         ka = prof.key_averages()
         on_card = [ev for ev in ka if "CUDA" in str(ev.device_type)]
         busy_us = sum(ev.device_time_total for ev in on_card)
@@ -1989,8 +2281,18 @@ def run(args, torch) -> int:
         kern = sorted(on_card, key=lambda ev: ev.device_time_total,
                       reverse=True)[:5]
         cycles = bc.stage_schedule(n6, bw4, tw4, f)[1]
-        emit({"phase": "stage2_profile", "ok": True, "n": n6, "b_in": bw4,
+        eager = {key: sum(ev.count for ev in ka if ev.key == key)
+                 for key in ("aten::index", "aten::index_put_")}
+        symbol = "chase_cycle_kernel" if f == 1 else "chase_superstep_kernel"
+        # at fuse K a super-cycle is one launch (the wrapper's count) and
+        # nothing else; the trace's kernel count is reported beside it
+        ok_f = f == 1 or (launches == cycles and not any(eager.values()))
+        emit({"phase": "stage2_profile", "ok": ok_f, "n": n6, "b_in": bw4,
               "tw": tw4, "fuse": f, "dtype": "float32", "cycles": cycles,
+              "eager_ops": eager, "kernel": symbol,
+              "launches_per_cycle": launches / cycles,
+              "traced_kernels_per_cycle": sum(
+                  ev.count for ev in ka if symbol in ev.key) / cycles,
               "wall_s": wall, "us_per_cycle": wall / cycles * 1e6,
               "profiled_wall_s": wall_prof,
               "device_busy_s": busy_us / 1e6 if busy_us else None,
@@ -2004,6 +2306,8 @@ def run(args, torch) -> int:
                   {"kernel": ev.key[:80], "count": ev.count,
                    "device_ms": ev.device_time_total / 1e3}
                   for ev in kern]})
+        check(ok_f, f"stage2_profile fuse {f}: {launches} super-step "
+              f"launches for {cycles} super-cycles, eager ops {eager}")
 
     # ---- summary ---------------------------------------------------------
     sources = {"chase_cycle_cuda": "src/repro_torch/kernels/csrc/chase.cu",
@@ -2049,6 +2353,12 @@ def run(args, torch) -> int:
                "events_ms": t["events_ms"],
                "kernels_per_call": t["kernels_per_call"],
                "worst_err_over_tol": worst[name]}
+        if t["library_kernels"] is not None:
+            row["library_kernels"] = sorted(
+                t["library_kernels"][2], key=t["library_kernels"][2].get,
+                reverse=True)
+        if "fma_bound_ms" in t:
+            row["fma_bound_ms"] = t["fma_bound_ms"]
         if "main_path_ms" in t:
             row.update(main_path_ms=t["main_path_ms"],
                        main_path_shape=t["main_path_shape"],

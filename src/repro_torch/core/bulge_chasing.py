@@ -13,10 +13,13 @@ block (``_chase_loop``).
 
 The band is updated in place.  The reference rebuilds its arrays with
 ``.at[].set`` inside a ``fori_loop``; here each stage pads the band once into
-a new tensor, and every cycle gathers its windows from it, runs the kernel
-on them, and writes the changed cells back into it with ``index_put_``.
-The schedule of all T cycles is computed on the device once per stage as
-(T, G) tensors, so the loop does no ``.item()`` and no host-to-device copy.
+a new tensor.  At fuse 1 every cycle gathers its windows from it, runs the
+kernel on them, and writes the changed cells back with ``index_put_``; at
+fuse K each super-cycle is one ``ops.chase_superstep_band`` call, which on
+the card is one launch that chases every slot's block where it lies and
+writes the tape.  The schedule of all T cycles is computed on the device
+once per stage as (T, G) tensors, so the loop does no ``.item()`` and no
+host-to-device copy.
 """
 
 from __future__ import annotations
@@ -84,8 +87,9 @@ def _cycle_table(n: int, b_in: int, tw: int, fuse: int, T: int, G: int,
     return p_safe, first.repeat(1, B), live
 
 
-def _chase_loop(bandp: torch.Tensor, p_safe, first, live, *, b_in: int,
-                tw: int, fuse: int, backend: str, config, tape=None) -> None:
+def _chase_loop(bandp: torch.Tensor, p_safe, first, live, *, n: int,
+                b_in: int, tw: int, fuse: int, backend: str, config,
+                tape=None) -> None:
     """Run every (super-)cycle of one stage on the padded band, in place.
 
     The one place a cycle is launched: a CUDA graph or a persistent kernel
@@ -97,54 +101,46 @@ def _chase_loop(bandp: torch.Tensor, p_safe, first, live, *, b_in: int,
     pair of buffers ``(vs (B, T, G, K, 2, tw+1), taus (B, T, G, K, 2))``;
     each cycle's reflectors are stored there, with tau set to 0 on inactive
     slots and cycles, so that their replay is the identity.  The band
-    arithmetic is the same with and without it."""
+    arithmetic is the same with and without it.
+
+    At fuse K a super-cycle is one ``ops.chase_superstep_band`` call and no
+    other torch op; at fuse 1 a cycle gathers its windows, launches, records
+    the tape and scatters."""
     from repro_torch.kernels import ops
     B, H, _ = bandp.shape
     T, G = p_safe.shape
+    if fuse > 1:
+        p32 = p_safe.to(torch.int32)
+        for t in range(T):
+            ops.chase_superstep_band(bandp, p32, first, live, t, n=n,
+                                     b_in=b_in, tw=tw, fuse=fuse, tape=tape,
+                                     backend=backend, config=config)
+        return
     dev = bandp.device
     with_tape = tape is not None
     zero = torch.zeros((), dtype=bandp.dtype, device=dev)
-
-    def record(t, res):
+    W = b_in + tw + 1
+    yy = torch.arange(H, device=dev)[:, None]
+    ww = torch.arange(W, device=dev)[None, :]
+    # window cell (y, w) <- band cell (H-1+w-y, p+w); cells with y < w are
+    # not stored, read a clamped neighbour, and are never used
+    d_gather = (H - 1 + ww - yy).clamp(0, H - 1)
+    vy, vw = (yy >= ww).nonzero(as_tuple=True)
+    vd = H - 1 + vw - vy
+    vcell = vy * W + vw
+    for t in range(T):
+        p = p_safe[t]
+        win = bandp[:, d_gather, p[:, None, None] + ww]           # (B,G,H,W)
+        out = ops.chase_cycle(win.reshape(B * G, H, W), first[t], b_in=b_in,
+                              tw=tw, backend=backend, config=config,
+                              with_tape=with_tape)
         if with_tape:
-            _, vs, taus = res
+            out, vs, taus = out
             tape[0][:, t] = vs.reshape(tape[0].shape[:1] + tape[0].shape[2:])
             taus = taus.reshape(tape[1].shape[:1] + tape[1].shape[2:])
             tape[1][:, t] = torch.where(live[t][None, :, :, None], taus, zero)
-            return res[0]
-        return res
-
-    if fuse == 1:
-        W = b_in + tw + 1
-        yy = torch.arange(H, device=dev)[:, None]
-        ww = torch.arange(W, device=dev)[None, :]
-        # window cell (y, w) <- band cell (H-1+w-y, p+w); cells with y < w
-        # are not stored, read a clamped neighbour, and are never used
-        d_gather = (H - 1 + ww - yy).clamp(0, H - 1)
-        vy, vw = (yy >= ww).nonzero(as_tuple=True)
-        vd = H - 1 + vw - vy
-        vcell = vy * W + vw
-        for t in range(T):
-            p = p_safe[t]
-            win = bandp[:, d_gather, p[:, None, None] + ww]       # (B,G,H,W)
-            out = record(t, ops.chase_cycle(
-                win.reshape(B * G, H, W), first[t], b_in=b_in, tw=tw,
-                backend=backend, config=config, with_tape=with_tape))
-            vals = out.reshape(B, G, H * W)[:, :, vcell]
-            bandp[:, vd, p[:, None] + vw] = vals
-        return
-    WK = fuse * b_in + tw + 1
-    rows = torch.arange(H, device=dev)[:, None]
-    cc = torch.arange(WK, device=dev)
-    act = live.repeat(1, B, 1)                                   # (T,B*G,K)
-    for t in range(T):
-        cols = p_safe[t][:, None, None] + cc                     # (G,1,WK)
-        blocks = bandp[:, rows, cols]                            # (B,G,H,WK)
-        out = record(t, ops.chase_cycle(
-            blocks.reshape(B * G, H, WK), first[t], b_in=b_in, tw=tw,
-            fuse=fuse, active=act[t], backend=backend, config=config,
-            with_tape=with_tape))
-        bandp[:, rows, cols] = out.reshape(B, G, H, WK)
+        vals = out.reshape(B, G, H * W)[:, :, vcell]
+        bandp[:, vd, p[:, None] + vw] = vals
 
 
 def reduce_stage_packed(band: torch.Tensor, *, n: int, b_in: int, tw: int,
@@ -191,8 +187,8 @@ def reduce_stage_packed(band: torch.Tensor, *, n: int, b_in: int, tw: int,
     if tape:
         bufs = (band.new_empty((B, T, G, fuse, 2, tw + 1)),
                 band.new_empty((B, T, G, fuse, 2)))
-    _chase_loop(bandp, p_safe, first, live, b_in=b_in, tw=tw, fuse=fuse,
-                backend=backend, config=config, tape=bufs)
+    _chase_loop(bandp, p_safe, first, live, n=n, b_in=b_in, tw=tw,
+                fuse=fuse, backend=backend, config=config, tape=bufs)
     out = bandp[..., :ncols0].reshape(lead + (H, ncols0))
     if not tape:
         return out

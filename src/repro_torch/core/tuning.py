@@ -22,7 +22,8 @@ from repro_torch.core.householder import acc_dtype
 
 __all__ = [
     "SMEM_PER_BLOCK", "default_tilewidth", "sweep_separation",
-    "max_concurrent_sweeps", "smem_bytes", "check_smem_budget",
+    "max_concurrent_sweeps", "check_disjoint_blocks", "smem_bytes",
+    "check_smem_budget",
     "fused_smem_bytes", "check_fused_smem_budget", "default_fuse_depth",
     "stage_plan", "PipelineConfig",
 ]
@@ -47,7 +48,7 @@ def dtype_name(dtype) -> str:
 
 
 def _itemsize(dtype) -> int:
-    return torch.empty((), dtype=dtype_of(dtype)).element_size()
+    return dtype_of(dtype).itemsize
 
 
 def default_tilewidth(bw: int, dtype=torch.float32) -> int:
@@ -81,18 +82,46 @@ def max_concurrent_sweeps(n: int, b_in: int, fuse: int = 1,
     return max(1, (dur0 - 1) // sweep_separation(fuse) + 1)
 
 
+def check_disjoint_blocks(n: int, b_in: int, tw: int, fuse: int,
+                          slots: int, ncols: int) -> None:
+    """Raise unless the ``slots`` blocks of one (super-)cycle, each
+    ``fuse*b_in + tw + 1`` columns wide, are pairwise disjoint in a padded
+    band of ``ncols`` columns, dump zones included: what a launch that
+    chases them in place relies on.
+
+    A live slot starts at a pivot column p <= n - 1, and slot g + 1 starts
+    ``sweep_separation(fuse)*fuse*b_in - 1`` columns after slot g; a slot
+    that is not live points at its own dump zone ``n + wk + g*wk``, which
+    the padding must hold."""
+    wk = fuse * b_in + tw + 1
+    step = sweep_separation(fuse) * fuse * b_in - 1
+    if step < wk:
+        raise ValueError(
+            f"slots {step} columns apart overlap in blocks {wk} wide "
+            f"(b_in={b_in}, tw={tw}, fuse={fuse}): the schedule is not "
+            f"race-free")
+    if ncols < n + wk + slots * wk:
+        raise ValueError(
+            f"a padded band of {ncols} columns has no room for the dump "
+            f"zones of {slots} slots past n={n} (needs {n + wk + slots * wk})")
+
+
 def smem_bytes(b_in: int, tw: int, dtype=torch.float32, fuse: int = 1) -> int:
     """Shared memory one block of a chase kernel holds, in bytes.
 
-    Both kernels stage, per cycle, the two panels a cycle changes, in the
-    accumulation type: the column panel rows ``[tw, H)`` x cols ``[0, tw]``
-    and the part of the row panel (rows ``[H-1-tw, H)``) right of it, cols
-    ``[tw+1, W)``; plus the two reflectors and four scalars.  The fused
-    kernel keeps its block in device memory and stages each of its K cycles
-    in the same buffer, so the count does not grow with ``fuse``."""
+    Both kernels stage the two panels a cycle changes, in the accumulation
+    type: the column panel rows ``[tw, H)`` x cols ``[0, tw]`` and the part
+    of the row panel (rows ``[H-1-tw, H)``) right of it, cols ``[tw+1, W)``.
+    The cycle kernel (``fuse=1``) adds the two reflectors and four scalars.
+    The super-step kernel (``fuse > 1``) keeps its reflectors in registers;
+    it pads the row panel's rows by one word and adds a copy of column 0 for
+    the left reflector, four words fewer in all.  It chases its K cycles in
+    the same panels, carrying the corner two cycles share, so the count
+    does not grow with ``fuse``."""
     assert fuse >= 1, fuse
     h = b_in + 2 * tw + 1
-    words = (h - tw) * (tw + 1) + (tw + 1) * b_in + 2 * (tw + 1) + 4
+    panels = (h - tw) * (tw + 1) + (tw + 1) * b_in
+    words = panels + 2 * (tw + 1) + (4 if fuse == 1 else 0)
     return words * _itemsize(acc_dtype(dtype_of(dtype)))
 
 
@@ -145,8 +174,9 @@ def check_fused_smem_budget(n: int, dtype=torch.float32, *,
 def default_fuse_depth(b_in: int, tw: int, dtype=torch.float32, *,
                        cap: int = 4) -> int:
     """Fuse depth K for ``fuse=None``: the cap, once ``check_smem_budget``
-    has shown that a K-cycle block fits (the count does not grow with K, so
-    shared memory never forces a shallower K).  Past K = 2 the super-cycle
+    has shown that a K-cycle block fits (the count does not grow with K and
+    is below the cycle kernel's, so shared memory never forces a shallower
+    K).  Past K = 2 the super-cycle
     count stops falling (sweep starts set it), so the cap is small."""
     cap = max(int(cap), 1)
     check_smem_budget(b_in, tw, dtype, cap)

@@ -6,9 +6,13 @@ place, plus ``is_first`` (G,).  ``chase_superstep_cuda`` takes that of
 ``chase_superstep_pallas``: G contiguous band blocks (G, H, K*b_in + tw + 1)
 updated in place, ``is_first`` (G,) and the ``active`` (G, K) prefix mask.
 With ``with_tape`` both also return the reflector tape.
+``chase_superstep_band_cuda`` launches the same super-step kernel on one
+super-cycle of a stage, on the padded band in place: each slot addresses
+its block where it lies and writes its reflectors into the stage's tape.
 
 A wrapper takes CUDA tensors only: it launches its kernel or raises, and
-counts each launch in ``launches``.  The plain versions (``kernels/ref.py``)
+counts each launch in ``launches`` (both super-step entries under
+``chase_superstep_cuda``).  The plain versions (``kernels/ref.py``)
 are chosen for CPU tensors by ``kernels/ops.py``, not here.  The library is
 built on first use.
 """
@@ -22,15 +26,18 @@ import torch
 from repro_torch.core import tuning
 from repro_torch.kernels import _build
 
-__all__ = ["chase_cycle_cuda", "chase_superstep_cuda", "launches"]
+__all__ = ["chase_cycle_cuda", "chase_superstep_cuda",
+           "chase_superstep_band_cuda", "band_args", "launches"]
 
 launches = {"chase_cycle_cuda": 0, "chase_superstep_cuda": 0}
 
 _SUFFIX = {torch.float64: "f64", torch.float32: "f32", torch.bfloat16: "bf16"}
-_P, _I = ctypes.c_void_p, ctypes.c_int
+_P, _I, _LL = ctypes.c_void_p, ctypes.c_int, ctypes.c_longlong
 _ARGTYPES = {
     "chase_cycle": [_P, _P, _I, _I, _I, _P, _P, _I, _P],
     "chase_superstep": [_P, _P, _P, _I, _I, _I, _I, _P, _P, _I, _P],
+    "chase_superstep_band": [_P, _I, _I, _P, _I, _P, _P, _P, _P, _LL, _I, _I,
+                             _I, _I, _P],
 }
 
 
@@ -125,3 +132,56 @@ def chase_superstep_cuda(blocks: torch.Tensor, is_first: torch.Tensor,
         _raise_on(err, "chase_superstep_cuda")
         launches["chase_superstep_cuda"] += 1
     return (blocks, vs, taus) if with_tape else blocks
+
+
+def band_args(bandp: torch.Tensor, p_safe: torch.Tensor, first: torch.Tensor,
+              live: torch.Tensor, t: int, *, b_in: int, tw: int, fuse: int,
+              tape=None) -> tuple:
+    """The arguments of ``chase_superstep_band_<dtype>`` (``csrc/chase.cu``)
+    for super-cycle ``t``: pointers to row t of the stage's tables and of
+    its tape, no copy.  Checks what the kernel takes and raises otherwise.
+
+    bandp (B, H, n_pad) contiguous; p_safe (T, G) int32; first (T, B*G) and
+    live (T, G, K) bool; tape None or ``(vs (B, T, G, K, 2, tw+1), taus (B,
+    T, G, K, 2))`` of bandp's dtype."""
+    b, h, n_pad = bandp.shape
+    T, g = p_safe.shape
+    ln = tw + 1
+    _check_band(bandp, "bandp", (b, b_in + 2 * tw + 1, n_pad))
+    _check(p_safe, "p_safe", (T, g), torch.int32)
+    _check(first, "first", (T, b * g), torch.bool)
+    _check(live, "live", (T, g, fuse), torch.bool)
+    if not 0 <= t < T:
+        raise ValueError(f"super-cycle {t} outside [0, {T})")
+    vp = tp = None
+    if tape is not None:
+        _check(tape[0], "tape v", (b, T, g, fuse, 2, ln), bandp.dtype)
+        _check(tape[1], "tape tau", (b, T, g, fuse, 2), bandp.dtype)
+        row = t * g * fuse                     # pairs before row t of a band
+        vp = tape[0].data_ptr() + row * 2 * ln * bandp.element_size()
+        tp = tape[1].data_ptr() + row * 2 * bandp.element_size()
+    smem = tuning.check_smem_budget(b_in, tw, bandp.dtype, fuse)
+    return (bandp.data_ptr(), b, n_pad, p_safe.data_ptr() + t * g * 4, g,
+            first.data_ptr() + t * b * g, live.data_ptr() + t * g * fuse,
+            vp, tp, T * g * fuse, b_in, tw, fuse, smem)
+
+
+def chase_superstep_band_cuda(bandp: torch.Tensor, p_safe: torch.Tensor,
+                              first: torch.Tensor, live: torch.Tensor,
+                              t: int, *, b_in: int, tw: int, fuse: int,
+                              tape=None) -> torch.Tensor:
+    """Super-cycle ``t`` of one stage on the padded band, in place: slot
+    (b, g) chases band b's columns ``[p_safe[t, g], + fuse*b_in + tw + 1)``
+    through K = ``fuse`` cycles, cycle i only where ``live[t, g, i]``.
+    With ``tape`` it writes the reflector pairs of row t, tau = 0 where not
+    live.  One launch over B*G slots; returns ``bandp``.  The blocks must
+    be pairwise disjoint in band columns (``ops.chase_superstep_band``
+    checks the schedule)."""
+    args = band_args(bandp, p_safe, first, live, t, b_in=b_in, tw=tw,
+                     fuse=fuse, tape=tape)
+    with torch.cuda.device(bandp.device):
+        stream = torch.cuda.current_stream().cuda_stream
+        err = _fn("chase_superstep_band", bandp.dtype)(*args, stream)
+    _raise_on(err, "chase_superstep_band_cuda")
+    launches["chase_superstep_cuda"] += 1
+    return bandp

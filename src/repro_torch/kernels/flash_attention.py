@@ -14,8 +14,10 @@ kernel's tile is its own.
   brings into shared memory).  P is rounded to the storage type before
   P.V.
 - ``flash_attention_cuda`` (``csrc/flash_attn.cu``): fp32, bf16 and fp16,
-  1 <= D <= 256 with D a multiple of 8, fp32 FMA throughout.  fp32 has no
-  tensor-core route at fp32 precision (TF32 is not fp32).
+  1 <= D <= 256 with D a multiple of 8, both products on the tensor cores
+  at fp32 accuracy: each fp32 operand (and P, kept in fp32) is split into
+  two TF32 parts and a product is three TF32 products summed in fp32
+  (3xTF32).  bf16 and fp16 values are exact in TF32.
 
 ``kernel_for`` is the rule ``ops.flash_attention`` follows.  Each wrapper
 takes CUDA tensors only: it launches its kernel or raises, and counts the
@@ -48,7 +50,8 @@ launches = {"flash_attention": 0, "flash_attention_wgmma": 0}
 # planted in copies of the kernels (``chip_smoke.py --flash-planted-faults``
 # on an H100 80GB HBM3 at 700 W): bf16 sound 5.1e-3, two stale-tile faults
 # 0.57-0.71; fp16 sound 6.4e-4, fp16 computed at bf16 precision 1.6e-3;
-# fp32 (flash_attn.cu) sound 3.0e-6.
+# fp32 (flash_attn.cu) sound 3.0e-6 on fp32 FMAs; its 3xTF32 design is held
+# to the same limit against faults that drop the lo terms.
 CHECK_TOLS = {"float32": 1e-5, "bfloat16": 3e-2, "float16": 1e-3}
 
 # How a phi3-medium-14b-width prefill through the kernels is held against
@@ -118,6 +121,13 @@ def _check(q, k, v, dtypes) -> int:
     return gqa_group(q, k, v)
 
 
+def _check_aligned(q, k, v, why: str) -> None:
+    for name, x in (("q", q), ("k", k), ("v", v)):
+        if x.data_ptr() % 16:
+            raise ValueError(f"{name} must start on a 16-byte boundary "
+                             f"({why})")
+
+
 def _launch(source: str, key: str, q, k, v) -> torch.Tensor:
     bh, s, d = q.shape
     out = torch.empty_like(q)
@@ -148,6 +158,7 @@ def flash_attention_cuda(q: torch.Tensor, k: torch.Tensor,
                          f"with D % 8 == 0")
     if bh > MAX_BH:
         raise ValueError(f"BH = {bh}: the kernel takes at most {MAX_BH}")
+    _check_aligned(q, k, v, "cp.async")
     return _launch("flash_attn", "flash_attention", q, k, v)
 
 
@@ -164,8 +175,5 @@ def flash_attention_wgmma_cuda(q: torch.Tensor, k: torch.Tensor,
     if -(-s // 128) > _WGMMA_MAX_TILES:
         raise ValueError(f"S = {s}: the wgmma kernel takes at most "
                          f"{_WGMMA_MAX_TILES * 128}")
-    for name, x in (("q", q), ("k", k), ("v", v)):
-        if x.data_ptr() % 16:
-            raise ValueError(f"{name} must start on a 16-byte boundary "
-                             f"(TMA)")
+    _check_aligned(q, k, v, "TMA")
     return _launch("flash_attn_wgmma", "flash_attention_wgmma", q, k, v)

@@ -21,9 +21,10 @@ from typing import Callable
 
 import torch
 
-from repro_torch.core.tuning import LATER
+from repro_torch.core.tuning import LATER, check_disjoint_blocks
 
-__all__ = ["chase_cycle", "sturm_bisect", "tape_apply", "hh_block_apply",
+__all__ = ["chase_cycle", "chase_superstep_band", "sturm_bisect",
+           "tape_apply", "hh_block_apply",
            "fused_svd", "flash_attention", "register_backend", "check_device",
            "resolve_backend", "backend_names", "launch_counts",
            "reset_launch_counts"]
@@ -84,6 +85,13 @@ def _ref_chase(windows, is_first, *, b_in, tw, with_tape, fuse, active):
                                    tw=tw, fuse=fuse, with_tape=with_tape)
 
 
+def _ref_superstep_band(bandp, p_safe, first, live, t, *, b_in, tw, fuse,
+                        tape):
+    from repro_torch.kernels import ref
+    return ref.chase_superstep_band_ref(bandp, p_safe, first, live, t,
+                                        b_in=b_in, tw=tw, fuse=fuse, tape=tape)
+
+
 def _ref_bisect(z, bound, *, n, max_iter):
     from repro_torch.core.bidiag_svd import bisect_plain
     return bisect_plain(z, bound, n=n, max_iter=max_iter)
@@ -110,7 +118,9 @@ def _ref_flash(q, k, v):
     return ref.flash_attention_ref(q, k, v)
 
 
-register_backend("ref", chase_cycle=_ref_chase, sturm_bisect=_ref_bisect,
+register_backend("ref", chase_cycle=_ref_chase,
+                 chase_superstep_band=_ref_superstep_band,
+                 sturm_bisect=_ref_bisect,
                  tape_apply=_ref_tape, hh_block_apply=_ref_hh,
                  fused_svd=_ref_fused, flash_attention=_ref_flash)
 
@@ -125,6 +135,13 @@ def _cuda_chase(windows, is_first, *, b_in, tw, with_tape, fuse, active):
     return bulge_chase.chase_superstep_cuda(windows, is_first, active,
                                             b_in=b_in, tw=tw, fuse=fuse,
                                             with_tape=with_tape)
+
+
+def _cuda_superstep_band(bandp, p_safe, first, live, t, *, b_in, tw, fuse,
+                         tape):
+    from repro_torch.kernels import bulge_chase
+    return bulge_chase.chase_superstep_band_cuda(
+        bandp, p_safe, first, live, t, b_in=b_in, tw=tw, fuse=fuse, tape=tape)
 
 
 def _cuda_bisect(z, bound, *, n, max_iter):
@@ -156,7 +173,9 @@ def _cuda_flash(q, k, v):
     return fa.flash_attention_cuda(q, k, v)
 
 
-register_backend("cuda", chase_cycle=_cuda_chase, sturm_bisect=_cuda_bisect,
+register_backend("cuda", chase_cycle=_cuda_chase,
+                 chase_superstep_band=_cuda_superstep_band,
+                 sturm_bisect=_cuda_bisect,
                  tape_apply=_cuda_tape, hh_block_apply=_cuda_hh,
                  fused_svd=_cuda_fused, flash_attention=_cuda_flash)
 
@@ -190,6 +209,27 @@ def chase_cycle(windows: torch.Tensor, is_first: torch.Tensor, *, b_in: int,
     impl = _impl("chase_cycle", backend, config, windows.device)
     return impl(windows, is_first, b_in=b_in, tw=tw, with_tape=with_tape,
                 fuse=fuse, active=active)
+
+
+def chase_superstep_band(bandp: torch.Tensor, p_safe: torch.Tensor,
+                         first: torch.Tensor, live: torch.Tensor, t: int, *,
+                         n: int, b_in: int, tw: int, fuse: int, tape=None,
+                         backend: str = "auto", config=None) -> torch.Tensor:
+    """Super-cycle ``t`` of one stage at fuse K on the padded band bandp
+    (B, H, n_pad), in place, given the stage's tables (``bulge_chasing.
+    _cycle_table``): p_safe (T, G) (int32 for "cuda"), first (T, B*G), live
+    (T, G, K); with ``tape`` also row t of the stage's tape.  "cuda": one
+    launch, each slot addressing its block where it lies; "ref": gather,
+    ``chase_superstep_ref``, scatter.  Returns ``bandp``.
+
+    The slots' blocks are chased in place at once, so they must be pairwise
+    disjoint in band columns: a schedule or a padding that would let them
+    overlap raises (``tuning.check_disjoint_blocks``)."""
+    check_disjoint_blocks(n, b_in, tw, fuse, p_safe.shape[-1],
+                          bandp.shape[-1])
+    impl = _impl("chase_superstep_band", backend, config, bandp.device)
+    return impl(bandp, p_safe, first, live, t, b_in=b_in, tw=tw, fuse=fuse,
+                tape=tape)
 
 
 def sturm_bisect(z: torch.Tensor, bound: torch.Tensor, *, n: int,

@@ -30,7 +30,8 @@ import torch
 from repro_torch.core.bidiag_svd import bidiag_singular_values
 from repro_torch.core.householder import acc_dtype, make_reflector
 
-__all__ = ["chase_cycle_ref", "chase_superstep_ref", "tape_apply_ref",
+__all__ = ["chase_cycle_ref", "chase_superstep_ref",
+           "chase_superstep_band_ref", "tape_apply_ref",
            "hh_block_apply_ref", "effective_bw", "fused_walk",
            "fused_small_svd_ref", "flash_attention_ref", "gqa_group"]
 
@@ -130,6 +131,35 @@ def chase_superstep_ref(blocks: torch.Tensor, is_first: torch.Tensor,
     if with_tape:
         return out, torch.stack(vs, 1), torch.stack(taus, 1)
     return out
+
+
+def chase_superstep_band_ref(bandp: torch.Tensor, p_safe: torch.Tensor,
+                             first: torch.Tensor, live: torch.Tensor, t: int,
+                             *, b_in: int, tw: int, fuse: int, tape=None):
+    """Super-cycle ``t`` of one stage on the padded band (B, H, n_pad), in
+    place, as ``chase_superstep_band_cuda`` runs it: each slot's block
+    ``[p_safe[t, g], + fuse*b_in + tw + 1)`` of every band is gathered,
+    chased by :func:`chase_superstep_ref` (``first[t]``, ``live[t]``), and
+    scattered back; with ``tape`` (``vs (B, T, G, K, 2, tw+1)``, ``taus (B,
+    T, G, K, 2)``) row t of the tape is written, tau = 0 where not live.
+    Returns ``bandp``."""
+    b, h, _ = bandp.shape
+    g = p_safe.shape[1]
+    wk = fuse * b_in + tw + 1
+    rows = torch.arange(h, device=bandp.device)[:, None]
+    cols = p_safe[t][:, None, None] + torch.arange(wk, device=bandp.device)
+    blocks = bandp[:, rows, cols]                            # (B,G,H,WK)
+    res = chase_superstep_ref(blocks.reshape(b * g, h, wk), first[t],
+                              live[t].repeat(b, 1), b_in=b_in, tw=tw,
+                              fuse=fuse, with_tape=tape is not None)
+    if tape is not None:
+        res, vs, taus = res
+        tape[0][:, t] = vs.reshape(tape[0].shape[:1] + tape[0].shape[2:])
+        taus = taus.reshape(tape[1].shape[:1] + tape[1].shape[2:])
+        zero = torch.zeros((), dtype=taus.dtype, device=taus.device)
+        tape[1][:, t] = torch.where(live[t][None, :, :, None], taus, zero)
+    bandp[:, rows, cols] = res.reshape(b, g, h, wk)
+    return bandp
 
 
 def tape_apply_ref(v: torch.Tensor, t: torch.Tensor, c: torch.Tensor,

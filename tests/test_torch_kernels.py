@@ -25,7 +25,7 @@ from torch_port_common import (DTYPES, close, cuda, torch_dtype,  # noqa: F401
 
 from repro_torch.core import bidiag_svd as s3
 from repro_torch.core import svd as tsvd
-from repro_torch.core.tuning import PipelineConfig
+from repro_torch.core.tuning import PipelineConfig, stage_plan
 from repro_torch.kernels import bisect as tbisect
 from repro_torch.kernels import bulge_chase as tkern
 from repro_torch.kernels import flash_attention as tflash
@@ -192,6 +192,128 @@ def test_chase_superstep_cuda_matches_plain(cuda, b_in, tw, G, dtype, tol,
     kw = dict(b_in=b_in, tw=tw, fuse=fuse, with_tape=True)
     want = tref.chase_superstep_ref(blocks, first, active, **kw)
     got = tkern.chase_superstep_cuda(blocks.clone(), first, active, **kw)
+    torch.cuda.synchronize()
+    for g_, r_ in zip(got, want):
+        close(g_, r_, tol)
+
+
+# (n, bw, tw, B) of chip_smoke.py's main-path runs at fuse 4: fp64 n = 4096
+# (banded and dense), fp32 n = 16384, fp32 B = 16 n = 512, the stage-2
+# profile at n = 2048 and the warm-up at n = 256; each of their stages is a
+# super-step shape (b_in, tw, B*G slots, K = 4)
+MAIN_FUSE4_RUNS = [(4096, 64, 16, 1), (16384, 64, 32, 1), (512, 32, 31, 16),
+                   (2048, 64, 32, 1), (256, 64, 16, 1)]
+MAIN_SUPER_STAGES = sorted({(n, b_in, tw, b)
+                            for n, bw, tw0, b in MAIN_FUSE4_RUNS
+                            for b_in, tw in stage_plan(bw, tw0)})
+
+
+def _stage_tables(n, b_in, tw, fuse, b, seed, dtype, device, ragged=True):
+    """A padded band (B, H, n_pad) of random values in its first n columns,
+    the stage's tables (p_safe as int32) and a super-cycle t in the middle
+    of the stage; with ``ragged`` row t of ``live`` gets a random prefix
+    per started slot."""
+    from repro_torch.core import bulge_chasing as bc
+    _, T, G = bc.stage_schedule(n, b_in, tw, fuse)
+    wk = fuse * b_in + tw + 1
+    h = b_in + 2 * tw + 1
+    rng = np.random.default_rng(seed)
+    bandp = torch.zeros((b, h, n + wk + G * wk), dtype=torch.float64)
+    bandp[..., :n] = torch.from_numpy(rng.standard_normal((b, h, n)))
+    p_safe, first, live = bc._cycle_table(n, b_in, tw, fuse, T, G, b,
+                                          device)
+    t = T // 2
+    if ragged:
+        started = (p_safe[t] < n).cpu()
+        n_live = torch.from_numpy(rng.integers(0, fuse + 1, size=G))
+        live[t] = ((torch.arange(fuse)[None, :] < n_live[:, None])
+                   & started[:, None]).to(device)
+    return (bandp.to(device, dtype), p_safe.to(torch.int32), first, live, t)
+
+
+def _tape_bufs(bandp, T, G, fuse, tw):
+    b = bandp.shape[0]
+    return (torch.full((b, T, G, fuse, 2, tw + 1), 7.0, dtype=bandp.dtype,
+                       device=bandp.device),
+            torch.full((b, T, G, fuse, 2), 7.0, dtype=bandp.dtype,
+                       device=bandp.device))
+
+
+@pytest.mark.cuda
+@pytest.mark.parametrize("dtype", ["float32", "float64", "bfloat16"])
+@pytest.mark.parametrize("n,b_in,tw,b", [(16384, 64, 32, 1),
+                                         (4096, 64, 16, 1), (300, 12, 5, 3)])
+def test_chase_superstep_band_matches_blocks_bitwise(cuda, n, b_in, tw, b,
+                                                     dtype):
+    """The band entry (blocks addressed where they lie in the padded band,
+    tape written in place) and the blocks entry (blocks gathered, chased,
+    scattered) are one kernel: the band, v and the live taus agree bit for
+    bit, and the band entry writes tau = 0 where a cycle is not live."""
+    fuse = 4
+    bandp, p32, first, live, t = _stage_tables(n, b_in, tw, fuse, b, n,
+                                               torch_dtype(dtype), cuda)
+    T, G = p32.shape
+    tape = _tape_bufs(bandp, T, G, fuse, tw)
+    got = tkern.chase_superstep_band_cuda(bandp.clone(), p32, first, live, t,
+                                          b_in=b_in, tw=tw, fuse=fuse,
+                                          tape=tape)
+    h, wk = bandp.shape[1], fuse * b_in + tw + 1
+    rows = torch.arange(h, device=cuda)[:, None]
+    cols = p32[t].long()[:, None, None] + torch.arange(wk, device=cuda)
+    blocks = bandp[:, rows, cols].reshape(b * G, h, wk).contiguous()
+    act = live[t].repeat(b, 1)
+    _, vs, taus = tkern.chase_superstep_cuda(blocks, first[t].contiguous(),
+                                             act, b_in=b_in, tw=tw,
+                                             fuse=fuse, with_tape=True)
+    want = bandp.clone()
+    want[:, rows, cols] = blocks.reshape(b, G, h, wk)
+    torch.cuda.synchronize()
+    assert torch.equal(got, want)
+    assert torch.equal(tape[0][:, t], vs.reshape(b, G, fuse, 2, tw + 1))
+    taus = taus.reshape(b, G, fuse, 2)
+    on = act.reshape(b, G, fuse)[..., None].expand_as(taus)
+    assert torch.equal(tape[1][:, t][on], taus[on])
+    assert bool((tape[1][:, t][~on] == 0).all())
+    assert bool((tape[0][:, :t] == 7).all() and (tape[1][:, t + 1:] == 7)
+                .all())                          # other rows untouched
+
+
+@pytest.mark.cuda
+@pytest.mark.parametrize("dtype,tol", DTYPES)
+@pytest.mark.parametrize("n,b_in,tw,b", MAIN_SUPER_STAGES)
+def test_chase_superstep_entries_match_plain_at_main_shapes(cuda, n, b_in,
+                                                            tw, b, dtype,
+                                                            tol):
+    """Both super-step entries against the plain version at every stage
+    shape of the main path's fuse-4 runs, with ragged live masks: the band
+    entry on a super-cycle of the real schedule (band and tape), the blocks
+    entry on blocks of the same (B*G, H, WK)."""
+    fuse = 4
+    dt = torch_dtype(dtype)
+    bandp, p32, first, live, t = _stage_tables(n, b_in, tw, fuse, b,
+                                               n + b_in, dt, cuda)
+    T, G = p32.shape
+    tape, want_tape = (_tape_bufs(bandp, T, G, fuse, tw) for _ in "ab")
+    got = tkern.chase_superstep_band_cuda(bandp.clone(), p32, first, live, t,
+                                          b_in=b_in, tw=tw, fuse=fuse,
+                                          tape=tape)
+    want = tref.chase_superstep_band_ref(bandp.clone(), p32, first, live, t,
+                                         b_in=b_in, tw=tw, fuse=fuse,
+                                         tape=want_tape)
+    torch.cuda.synchronize()
+    close(got, want, tol)
+    close(tape[0][:, t], want_tape[0][:, t], tol)
+    close(tape[1][:, t], want_tape[1][:, t], tol)
+    h, wk = bandp.shape[1], fuse * b_in + tw + 1
+    rng = np.random.default_rng(n * b_in + tw)
+    blocks = torch.from_numpy(rng.standard_normal((b * G, h, wk))).to(cuda,
+                                                                      dt)
+    n_live = torch.from_numpy(rng.integers(0, fuse + 1, size=b * G)).to(cuda)
+    act = torch.arange(fuse, device=cuda)[None, :] < n_live[:, None]
+    isf = torch.arange(b * G, device=cuda) % 3 == 0
+    kw = dict(b_in=b_in, tw=tw, fuse=fuse, with_tape=True)
+    want = tref.chase_superstep_ref(blocks, isf, act, **kw)
+    got = tkern.chase_superstep_cuda(blocks.clone(), isf, act, **kw)
     torch.cuda.synchronize()
     for g_, r_ in zip(got, want):
         close(g_, r_, tol)
@@ -532,6 +654,25 @@ def test_flash_attention_cuda_matches_plain(cuda, d, s, dtype):
 
 
 @pytest.mark.cuda
+@pytest.mark.parametrize("s", [1, 63, 64, 65, 2047, 2048])
+@pytest.mark.parametrize("g", [1, 4])
+@pytest.mark.parametrize("d", [8, 16, 40, 64, 96, 128, 256])
+@pytest.mark.parametrize("dtype", ["float32", "bfloat16", "float16"])
+def test_flash_attention_cuda_3xtf32_matches_plain(cuda, dtype, d, g, s):
+    """``flash_attn.cu`` (3xTF32 products) against the plain version at
+    every head width it serves, with k and v of BH or BH / 4 rows, across
+    the edges of its query and key tiles: each query row within
+    ``CHECK_TOLS`` of its own size."""
+    torch.backends.cuda.matmul.allow_tf32 = False
+    q, k, v = _grouped_inputs(2, g, s, d, s + d + g, torch_dtype(dtype),
+                              cuda)
+    got = tflash.flash_attention_cuda(q, k, v)
+    torch.cuda.synchronize()
+    assert got.dtype == q.dtype and got.shape == q.shape
+    _close_rows(got, tref.flash_attention_ref(q, k, v), dtype)
+
+
+@pytest.mark.cuda
 def test_flash_attention_cuda_is_causal(cuda):
     """Perturbing future tokens must not change earlier outputs."""
     q, k, v = _flash_inputs(1, 128, 32, 0, torch.float32, cuda)
@@ -712,3 +853,46 @@ def test_phi3_width_bf16_prefill_on_the_card_launches_wgmma(cuda):
     scale = max(1.0, float(want.float().abs().max()))
     err = float((got.float() - want.float()).abs().max()) / scale
     assert err <= tflash.PREFILL_TOLS["bfloat16"], err
+
+
+@pytest.mark.cuda
+@pytest.mark.parametrize("tape", [False, True])
+def test_superstep_stage_is_one_launch_per_super_cycle(cuda, tape):
+    """A fuse-4 stage on the card: T super-step launches (one per
+    super-cycle, one device kernel each), no eager gather or scatter
+    (``aten::index``, ``aten::index_put_``), and the band and tape of the
+    same stage on the CPU.  (Last in the file: a test that profiles after
+    this long CPU-and-CUDA trace in the same process was seen to lose
+    kernel events.)"""
+    from torch.profiler import ProfilerActivity, profile
+
+    from repro_torch.core import band as tband
+    from repro_torch.core import bulge_chasing as bc
+    n, bw, tw, fuse = 512, 64, 32, 4
+    _, T, _ = bc.stage_schedule(n, bw, tw, fuse)
+    a = np.random.default_rng(11).standard_normal((n, n))
+    a = np.triu(a) - np.triu(a, bw + 1)
+    packed = tband.pack(torch.from_numpy(a), bw, tw)
+    kw = dict(n=n, b_in=bw, tw=tw, fuse=fuse, tape=tape)
+    want = bc.reduce_stage_packed(packed, backend="ref", **kw)
+    dev_packed = packed.to(cuda)
+    bc.reduce_stage_packed(dev_packed, backend="cuda", **kw)   # warm-up
+    torch.cuda.synchronize()
+    before = ops.launch_counts()["chase_superstep_cuda"]
+    with profile(activities=[ProfilerActivity.CPU,
+                             ProfilerActivity.CUDA]) as prof:
+        got = bc.reduce_stage_packed(dev_packed, backend="cuda", **kw)
+        torch.cuda.synchronize()
+    assert ops.launch_counts()["chase_superstep_cuda"] == before + T
+    ka = prof.key_averages()
+    assert sum(ev.count for ev in ka
+               if ev.key in ("aten::index", "aten::index_put_")) == 0
+    assert sum(ev.count for ev in ka
+               if "chase_superstep_kernel" in ev.key) == T
+    # fp64: the band within test_torch_svd.py's stage tolerance; the
+    # reflectors' entries x / (alpha - beta) carry the band's rounding over
+    # the pivot gap, and a few of 252,648 lie 4e-10 apart (1e-8 of the
+    # entry) after the 957 super-cycles
+    close(got[0] if tape else got, want[0] if tape else want, 1e-11)
+    for g_, r_ in zip(got[1:] if tape else [], want[1:] if tape else []):
+        close(g_, r_, 1e-9)
