@@ -147,19 +147,33 @@ FLASH_FAULTS = {
         "constexpr bool kLoTerms = true;",
         "constexpr bool kLoTerms = false;", 1)])}
 # Faults planted in copies of chase.cu (--chase-planted-faults), read by
-# the band entry at every main-path super-step shape with ragged live
-# masks: fault -> [(text, replacement, times it occurs)]
+# the band entries at every main-path stage of the fuse depth they act at,
+# with ragged live masks: fault -> (fuse depth, [(text, replacement, times
+# it occurs)])
 CHASE_FAULTS = {
     # the in-place column offset shifted by one: each slot chases its block
     # one band column to the right of where it lies
-    "band_column_offset_by_one": [(
+    "band_column_offset_by_one": (4, [(
         "const int p = a.p != nullptr ? a.p[g] : 0;",
-        "const int p = a.p != nullptr ? a.p[g] + 1 : 0;", 1)],
+        "const int p = a.p != nullptr ? a.p[g] + 1 : 0;", 1)]),
     # live ignored: every slot chases all K cycles
-    "live_ignored": [
+    "live_ignored": (4, [
         ("  int last = tape ? K - 1 : -1;", "  int last = K - 1;", 1),
         ("    const bool act = live[i] != 0;", "    const bool act = true;",
-         1)]}
+         1)]),
+    # the one-cycle kernel's column offset shifted by one
+    "cycle_band_column_offset_by_one": (1, [(
+        "  const int p = a.p[g];", "  const int p = a.p[g] + 1;", 1)]),
+    # the one-cycle kernel with live ignored: every slot chases its window
+    "cycle_band_live_ignored": (1, [(
+        "  const bool act = a.live[g] != 0;", "  const bool act = true;", 1)])}
+# Faults planted in copies of sturm.cu, read at the bisection's checks: a
+# wrong path pick at one level of the walk down the counted top of the tree
+STURM_FAULTS = {
+    "wrong_pick_at_one_top_level": [(
+        "    if (cb[j] - n >= k) { hi = mid; j = 2 * j; }",
+        "    if ((cb[j] - n >= k) != (l == d / 2)) { hi = mid; j = 2 * j; }",
+        1)]}
 # Probes of what bounds the large-m path (--wy-bounds): copies of
 # hh_apply.cu with kernel 1's or kernel 3's products left out, and with
 # kernel 1's staging left out (its ring multiplies stale shared memory)
@@ -188,15 +202,21 @@ WY_PROBES = {
 # (what is left: the launch, the first load and the last store)
 _NO_CYCLES = ("    if (act || tape) {", "    if (act && a.b_in < 0) {", 1)
 _NO_MOVES = [
-    ("    if (act) panels_out<T, A>(pn, band, a.ld, col0, !(next && "
-     "live[i + 1]));",
-     "    if (act && a.b_in < 0) panels_out<T, A>(pn, band, a.ld, col0, "
-     "!(next && live[i + 1]));", 1),
-    ("      panels_in<T, A>(pn, band, a.ld, col0 + a.b_in, true);",
-     "      if (a.b_in < 0) panels_in<T, A>(pn, band, a.ld, col0 + a.b_in, "
-     "true);", 1)]
+    ("    if (act)\n      panels_out<T, A>(pn, gm, band, a.ld, col0, "
+     "!(next && live[i + 1]));",
+     "    if (act && a.b_in < 0)\n      panels_out<T, A>(pn, gm, band, a.ld, "
+     "col0, !(next && live[i + 1]));", 1),
+    ("      panels_in<T, A>(pn, gm, band, a.ld, col0 + a.b_in, true);",
+     "      if (a.b_in < 0) panels_in<T, A>(pn, gm, band, a.ld, col0 + "
+     "a.b_in, true);", 1)]
 CHASE_PROBES = {"without_cycles": [_NO_CYCLES], "without_moves": _NO_MOVES,
                 "without_both": [_NO_CYCLES] + _NO_MOVES}
+# and of the one-cycle kernel: a copy without its cycle (what is left: the
+# launch and the two TMA copies)
+CYCLE_PROBES = {"cycle_band_without_cycle": [(
+    "  cycle<T, GS, true>(lay, gm, x2, act, a.first[s] != 0,",
+    "  if (a.b_in < 0) cycle<T, GS, true>(lay, gm, x2, act, a.first[s] != 0,",
+    1)]}
 # phi3-medium-14b: the prefill batch, the fp32 check's depth, and the
 # Engine's requests (the reference launcher's prompts of 2-8 tokens)
 LM_ARCH, LM_B, LM_S, LM_CHECK_LAYERS = "phi3-medium-14b", 2, 2048, 4
@@ -237,13 +257,15 @@ def main() -> int:
                     "behind flash_attention.CHECK_TOLS), then exit")
     ap.add_argument("--chase-planted-faults", action="store_true",
                     help="only read how far faults planted in copies of "
-                    "chase.cu (the band entry's column offset shifted by "
-                    "one, live ignored) move the super-step's band and "
-                    "tape at the main-path shapes, then exit")
+                    "chase.cu (the band entries' column offset shifted by "
+                    "one, live ignored) move the band and tape at the "
+                    "main-path stages, and a fault planted in a copy of "
+                    "sturm.cu moves sigma, then exit")
     ap.add_argument("--chase-bounds", action="store_true",
                     help="only time the super-step kernel at its timing "
                     "shape in the repository's build and in copies without "
-                    "its cycles' updates or its moves, then exit")
+                    "its cycles' updates or its moves, and the one-cycle "
+                    "kernel in place with and without its cycle, then exit")
     ap.add_argument("--svd-parts", metavar="TREE", type=Path,
                     help="only time the dense fp64 n = 4096 svd part by "
                     "part with the port under TREE/src (a checkout of this "
@@ -408,34 +430,37 @@ def main_path_shapes(bc, runs):
     """Kernel shapes the main-path runs launch, from each run's stage plan
     and wavefront width: every stage (b_in, tw) with B*G slots for a batch
     of B, at the run's fuse depth and dtype; the bisection's (B, n); and
-    each fuse-K stage as the band entry takes it, (n, b_in, tw, B, K,
-    dtype)."""
-    cycle, superstep, sturm, band = [], [], [], []
+    each stage as the band entries take it, (n, b_in, tw, B, K, dtype), at
+    fuse K and at fuse 1."""
+    cycle, superstep, sturm, band, cycle_band = [], [], [], [], []
     for lead, n, cfg in runs:
         b = math.prod(lead)
         for b_in, tw in cfg.plan:
             g = b * bc.stage_schedule(n, b_in, tw, cfg.fuse)[2]
+            stage = (n, b_in, tw, b, cfg.fuse, cfg.dtype)
             if cfg.fuse == 1:
                 cycle.append((b_in, tw, g, cfg.dtype))
+                cycle_band.append(stage)
             else:
                 superstep.append((b_in, tw, g, cfg.fuse, cfg.dtype))
-                band.append((n, b_in, tw, b, cfg.fuse, cfg.dtype))
+                band.append(stage)
         sturm.append((b, n, cfg.dtype))
     return (sorted(set(cycle)), sorted(set(superstep)), sorted(set(sturm)),
-            sorted(set(band)))
+            sorted(set(band)), sorted(set(cycle_band)))
 
 
 def band_stage(torch, bc, rng, n, b_in, tw, fuse, b, dtype, ragged=True):
-    """One fuse-K stage on the card as the band entry takes it: the padded
-    band (B, H, n_pad), random in its first n columns and zero past them
-    (dump zones included), the stage's tables (p_safe as int32), a
-    super-cycle t = T // 2 and tape buffers (B, T, G, K, 2, tw+1), (B, T,
-    G, K, 2) filled with 7.  With ``ragged`` row t of ``live`` is cut to a
-    random prefix for every started slot."""
+    """One stage on the card as the band entries take it: the padded band
+    (B, H, n_pad) as ``reduce_stage_packed`` pads it, random in its first n
+    columns and zero past them (dump zones included), the stage's tables
+    (p_safe as int32), a (super-)cycle t = T // 2 and tape buffers (B, T,
+    G, K, 2, tw+1), (B, T, G, K, 2) filled with 7.  With ``ragged`` row t
+    of ``live`` is cut to a random prefix for every started slot."""
+    from repro_torch.core import tuning
     _, T, G = bc.stage_schedule(n, b_in, tw, fuse)
-    wk = fuse * b_in + tw + 1
     h = b_in + 2 * tw + 1
-    bandp = torch.zeros((b, h, n + wk + G * wk), dtype=torch.float64)
+    bandp = torch.zeros((b, h, tuning.band_padding(n, b_in, tw, fuse, G)),
+                        dtype=torch.float64)
     bandp[..., :n] = torch.from_numpy(rng.standard_normal((b, h, n)))
     p_safe, first, live = bc._cycle_table(n, b_in, tw, fuse, T, G, b,
                                           "cuda")
@@ -449,6 +474,68 @@ def band_stage(torch, bc, rng, n, b_in, tw, fuse, b, dtype, ragged=True):
                        device="cuda"),
             torch.full((b, T, G, fuse, 2), 7.0, dtype=dtype, device="cuda"))
     return bandp, p_safe.to(torch.int32), first, live, t, tape
+
+
+def fuse1_runs(torch):
+    """(lead, n, cfg) of the main path's fuse-1 SVD runs: banded fp64 and
+    fp32 n = 4096 bw 64, fp32 n = 16384 bw 64, 32 fp64 matrices of n =
+    1024 bw 32, the warm-up (fp64 n = 256 bw 64) and the stage-2 profile's
+    stage (fp32 n = 2048 bw 64)."""
+    from repro_torch.core.tuning import PipelineConfig
+    f64, f32 = torch.float64, torch.float32
+    return [((), 4096, PipelineConfig.resolve(bw=64, dtype=f64, n=4096,
+                                              fuse=1)),
+            ((), 4096, PipelineConfig.resolve(bw=64, dtype=f32, n=4096)),
+            ((), 16384, PipelineConfig.resolve(bw=64, dtype=f32, n=16384,
+                                               fuse=1)),
+            ((32,), 1024, PipelineConfig.resolve(bw=32, dtype=f64, n=1024)),
+            ((), 256, PipelineConfig.resolve(bw=64, dtype=f64, fuse=1)),
+            ((), 2048, PipelineConfig.resolve(bw=64, dtype=f32, n=2048,
+                                              fuse=1))]
+
+
+def gk_inputs(torch, rng, s3, n, b, dtype):
+    """Prescaled Golub-Kahan inputs (z, bound) on the card of b random
+    bidiagonals of size n."""
+    d = torch.from_numpy(rng.standard_normal((b, n))).to("cuda", dtype)
+    e = torch.from_numpy(rng.standard_normal((b, n))).to("cuda", dtype)
+    return s3.gk_problem(d, e)[:2]
+
+
+def sturm_cases(torch, bisect, s3, main_sturm):
+    """(B, n, dtype, max_iter, d, s, main) of the bisection's checks: every
+    main-path (B, n, dtype) at STURM_CHECK_STEPS steps as the wrapper
+    schedules them (the tree's top only), and with a top of one level and
+    the main path's s so that the walk runs one full round of s levels and
+    one of a level; n = 512 at the full step count in both dtypes."""
+    cases = []
+    for b, n, dname in main_sturm:
+        full = s3.default_bisect_iters(getattr(torch, dname))
+        s = bisect.schedule(b, n, full)[1]
+        cases.append((b, n, dname, STURM_CHECK_STEPS,
+                      *bisect.schedule(b, n, STURM_CHECK_STEPS), True))
+        if n > 1:
+            cases.append((b, n, dname, 2 + max(s, 1), 1, s, True))
+    for dname in STURM_TOLS:
+        full = s3.default_bisect_iters(getattr(torch, dname))
+        cases.append((1, 512, dname, full, *bisect.schedule(1, 512, full),
+                      False))
+    return cases
+
+
+def sturm_run(torch, fn, z, bound, n, max_iter, d, s):
+    """sigma (B, n) from ``fn`` (``sturm_bisect_<dtype>`` of the package's
+    build or of a copy, ``bisect._fn``) with the schedule (d, s)."""
+    b = z.shape[0]
+    counts = torch.empty((b, 1 << d), dtype=torch.int32, device=z.device)
+    out = z.new_empty((b, n))
+    err = fn(z.data_ptr(), bound.data_ptr(), counts.data_ptr(),
+             out.data_ptr(), b, n, max_iter, d, s,
+             float(torch.finfo(z.dtype).tiny) * 4,
+             torch.cuda.current_stream().cuda_stream)
+    check(err == 0, f"sturm_bisect (d={d}, s={s}): CUDA error {err}")
+    torch.cuda.synchronize()
+    return out
 
 
 def tape_apply_calls(bc, runs):
@@ -1079,67 +1166,87 @@ def build_copies(tmp: str, faults: dict) -> dict:
 
 
 def chase_planted_faults(args, torch) -> int:
-    """How far the faults of CHASE_FAULTS, each built into its own copy of
-    chase.cu, move the band entry's band and tape from the plain version,
-    at super-cycle T // 2 of every main-path fuse-K stage in its run's
-    dtype, with ragged live masks (the kernels_vs_plain comparison), beside
-    the sound kernel: max |err| over the chase tolerance times the scale.
-    One JSON line per fault; fails unless the sound kernel reads at most 1
-    and every fault above 1 at some shape."""
-    import ctypes
+    """How far the faults of CHASE_FAULTS and STURM_FAULTS, each built into
+    its own copy of chase.cu or sturm.cu, move their kernel's output from
+    the plain version, beside the sound kernel: the chase faults through
+    the band entries (band and tape) at (super-)cycle T // 2 of every
+    main-path stage of their fuse depth, in its run's dtype, with ragged
+    live masks (the kernels_vs_plain comparison); the Sturm fault at the
+    bisection's checks (sturm_cases).  Readings are max |err| over the
+    kernel's tolerance times the scale.  One JSON line per fault; fails
+    unless the sound kernels read at most 1 and every fault above 1 at
+    some shape."""
     import tempfile
 
     import numpy as np
 
+    from repro_torch.core import bidiag_svd as s3
     from repro_torch.core import bulge_chasing as bc
-    from repro_torch.kernels import bulge_chase, ref
+    from repro_torch.kernels import bisect, bulge_chase, ref
 
     tmp = tempfile.TemporaryDirectory()
-    libs = build_copies(tmp.name, {f: ("chase", e)
-                                   for f, e in CHASE_FAULTS.items()})
+    libs = build_copies(tmp.name, {
+        **{f: ("chase", e) for f, (_, e) in CHASE_FAULTS.items()},
+        **{f: ("sturm", e) for f, e in STURM_FAULTS.items()}})
     rng = np.random.default_rng(args.seed)
-    suffix = {torch.float64: "f64", torch.float32: "f32",
-              torch.bfloat16: "bf16"}
-    shapes = main_path_shapes(bc, fuse4_runs(torch))[3]
-    readings = {f: [] for f in ["sound", *CHASE_FAULTS]}
-    for n, b_in, tw, b, k, dname in shapes:
-        dtype = getattr(torch, dname)
-        stage = band_stage(torch, bc, rng, n, b_in, tw, k, b, dtype)
-        bandp, p32, first, live, t, tape = stage
-        kw = dict(b_in=b_in, tw=tw, fuse=k)
-        want_tape = tuple(x.clone() for x in tape)
-        want = ref.chase_superstep_band_ref(bandp.clone(), p32, first, live,
-                                            t, tape=want_tape, **kw)
-        for fault in readings:
-            got, got_tape = bandp.clone(), tuple(x.clone() for x in tape)
-            if fault == "sound":
-                bulge_chase.chase_superstep_band_cuda(
-                    got, p32, first, live, t, tape=got_tape, **kw)
-            else:
-                fn = getattr(libs[fault],
-                             f"chase_superstep_band_{suffix[dtype]}")
-                fn.argtypes = bulge_chase._ARGTYPES["chase_superstep_band"]
-                err = fn(*bulge_chase.band_args(got, p32, first, live, t,
-                                                tape=got_tape, **kw),
-                         ctypes.c_void_p(
-                             torch.cuda.current_stream().cuda_stream))
-                check(err == 0, f"{fault}: CUDA error {err}")
-            torch.cuda.synchronize()
-            ratio = max(max_err(torch, g_, w_)[0]
-                        / (TOLS[dname] * max_err(torch, g_, w_)[1])
-                        for g_, w_ in ((got, want),
-                                       (got_tape[0][:, t], want_tape[0][:, t]),
-                                       (got_tape[1][:, t], want_tape[1][:, t])))
-            readings[fault].append((ratio, (n, b_in, tw, b, k, dname)))
-        del stage, bandp, tape, want_tape, want
+    runs = fuse1_runs(torch) + fuse4_runs(torch)
+    shapes = main_path_shapes(bc, runs)
+    stages = {1: shapes[4], 4: shapes[3]}
+    readings = {f: [] for f in ["sound fuse 1", "sound fuse 4",
+                                *CHASE_FAULTS]}
+    for fuse, cases in stages.items():
+        for n, b_in, tw, b, k, dname in cases:
+            dtype = getattr(torch, dname)
+            stage = band_stage(torch, bc, rng, n, b_in, tw, k, b, dtype)
+            bandp, p32, first, live, t, tape = stage
+            kw = dict(b_in=b_in, tw=tw, fuse=k)
+            want, want_tape = bandp.clone(), tuple(x.clone() for x in tape)
+            ref.BandStageRef(want, p32, first, live, tape=want_tape,
+                             **kw)(t)
+            for fault in readings:
+                if fault.startswith("sound"):
+                    if fault != f"sound fuse {fuse}":
+                        continue
+                    lib = None
+                elif CHASE_FAULTS[fault][0] != fuse:
+                    continue
+                else:
+                    lib = libs[fault]
+                got, got_tape = bandp.clone(), tuple(x.clone() for x in tape)
+                with bulge_chase.BandStage(got, p32, first, live,
+                                           tape=got_tape, lib=lib,
+                                           **kw) as run_t:
+                    run_t(t)
+                torch.cuda.synchronize()
+                ratio = max(
+                    max_err(torch, g_, w_)[0]
+                    / (TOLS[dname] * max_err(torch, g_, w_)[1])
+                    for g_, w_ in ((got, want),
+                                   (got_tape[0][:, t], want_tape[0][:, t]),
+                                   (got_tape[1][:, t], want_tape[1][:, t])))
+                readings[fault].append((ratio, (n, b_in, tw, b, k, dname)))
+            del stage, bandp, tape, want_tape, want
+    readings.update({"sound sturm": [], **{f: [] for f in STURM_FAULTS}})
+    for case in sturm_cases(torch, bisect, s3, shapes[2]):
+        b, n, dname, iters, d, s, _ = case
+        z, bound = gk_inputs(torch, rng, s3, n, b, getattr(torch, dname))
+        want = s3.bisect_plain(z, bound, n=n, max_iter=iters)
+        for fault in ["sound sturm", *STURM_FAULTS]:
+            got = sturm_run(torch, bisect._fn(z.dtype, libs.get(fault)), z,
+                            bound, n, iters, d, s)
+            err, scale = max_err(torch, got, want)
+            readings[fault].append((err / (STURM_TOLS[dname] * scale),
+                                    case[:6]))
     for fault, r in readings.items():
         emit({"fault": fault, "cases": len(r),
               "err_over_tol_min": min(r), "err_over_tol_max": max(r),
               "caught": max(r)[0] > 1.0})
-    check(max(readings["sound"])[0] <= 1.0, "the sound kernel reads above "
-          "its tolerance")
-    check(all(max(r)[0] > 1.0 for f, r in readings.items() if f != "sound"),
-          "a planted chase fault passed the compare")
+    check(all(max(r)[0] <= 1.0 for f, r in readings.items()
+              if f.startswith("sound")),
+          "a sound kernel reads above its tolerance")
+    check(all(max(r)[0] > 1.0 for f, r in readings.items()
+              if not f.startswith("sound")),
+          "a planted fault passed the compare")
     tmp.cleanup()
     return 0
 
@@ -1149,18 +1256,22 @@ def chase_bounds(args, torch) -> int:
     fp32, b_in 64, tw 32, K 4, every cycle live: its device time
     (torch.profiler, mean of 50 launches) in the repository's build and in
     copies of chase.cu without parts of it (CHASE_PROBES), on the same
-    blocks.  One JSON line; changes nothing."""
+    blocks; and the one-cycle kernel's in place on cycle T // 2 of the n =
+    16384 fp32 stage (b_in 64, tw 32, every slot live, no tape) in the
+    repository's build and without its cycle (CYCLE_PROBES).  One JSON
+    line; changes nothing."""
     import ctypes
     import tempfile
 
     import numpy as np
 
+    from repro_torch.core import bulge_chasing as bc
     from repro_torch.core import tuning
     from repro_torch.kernels import bulge_chase
 
     tmp = tempfile.TemporaryDirectory()
-    libs = build_copies(tmp.name, {f: ("chase", e)
-                                   for f, e in CHASE_PROBES.items()})
+    libs = build_copies(tmp.name, {f: ("chase", e) for f, e in
+                                   {**CHASE_PROBES, **CYCLE_PROBES}.items()})
     b_in, tw, k, g = 64, 32, 4, 32
     h, wk = b_in + 2 * tw + 1, k * b_in + tw + 1
     rng = np.random.default_rng(args.seed)
@@ -1170,8 +1281,8 @@ def chase_bounds(args, torch) -> int:
     live = torch.ones((g, k), dtype=torch.bool, device="cuda")
     smem = tuning.check_smem_budget(b_in, tw, torch.float32, k)
     fns = {"repository": bulge_chase._fn("chase_superstep", torch.float32)}
-    for name, lib in libs.items():
-        fns[name] = lib.chase_superstep_f32
+    for name in CHASE_PROBES:
+        fns[name] = libs[name].chase_superstep_f32
         fns[name].argtypes = bulge_chase._ARGTYPES["chase_superstep"]
     out = {}
     for name, fn in fns.items():
@@ -1183,9 +1294,23 @@ def chase_bounds(args, torch) -> int:
         call()
         prof = profiler_ms(torch, call, "chase_superstep_kernel", 50)
         out[name] = prof[0] if prof is not None else None
+    bandp, p32, firstb, liveb, t, _ = band_stage(
+        torch, bc, rng, 16384, b_in, tw, 1, 1, torch.float32, ragged=False)
+    cycle = {}
+    for name in ["repository", *CYCLE_PROBES]:
+        stage = bulge_chase.BandStage(bandp, p32, firstb, liveb, b_in=b_in,
+                                      tw=tw, fuse=1, lib=libs.get(name))
+        check(stage.route == "tma", "the stage did not take kernel 3")
+        prof = profiler_ms(torch, lambda st=stage: st(t),
+                           "chase_cycle_band_kernel", 50)
+        cycle[name] = prof[0] if prof is not None else None
     tmp.cleanup()
     emit({"chase_bounds": f"blocks ({g}, {h}, {wk}) fp32, b_in={b_in}, "
                           f"tw={tw}, K={k}", "ms": out,
+          "cycle_band": f"band (1, {h}, {bandp.shape[2]}) fp32, cycle {t} "
+                        f"of the n = 16384 stage, {p32.shape[1]} slots, "
+                        f"b_in={b_in}, tw={tw}, no tape",
+          "cycle_band_ms": cycle,
           "card": subprocess.run(
               ["nvidia-smi", "--query-gpu=name,power.limit",
                "--format=csv,noheader"], capture_output=True, text=True,
@@ -1444,6 +1569,7 @@ def run(args, torch) -> int:
     from repro_torch.core import bulge_chasing as bc
     from repro_torch.core import svd as tsvd
     from repro_torch.core import transforms as tr
+    from repro_torch.core import tuning
     from repro_torch.core.tuning import PipelineConfig
     from repro_torch.kernels import (_build, bisect, bulge_chase,
                                      flash_attention, fused_small, hh_apply,
@@ -1479,10 +1605,8 @@ def run(args, torch) -> int:
     n4, bw4 = 16384, 64                   # phase 4: the paper's scale
     b5, n5, bw5 = 32, 1024, 32            # phase 5: batched
     f64, f32 = torch.float64, torch.float32
-    cfg1 = PipelineConfig.resolve(bw=bw3, dtype=f64, n=n3, fuse=1)
-    cfg32 = PipelineConfig.resolve(bw=bw3, dtype=f32, n=n3)
-    c1 = PipelineConfig.resolve(bw=bw4, dtype=f32, n=n4, fuse=1)
-    c5 = PipelineConfig.resolve(bw=bw5, dtype=f64, n=n5)
+    runs1 = fuse1_runs(torch)
+    cfg1, cfg32, c1, c5 = (cfg for _, _, cfg in runs1[:4])
     nd, bwd = 4096, 64                    # dense fp64 full SVD, tw = 16
     b7, n7, bw7 = 16, 512, 32             # batched fp32 full SVD
     runs4 = fuse4_runs(torch)
@@ -1490,10 +1614,9 @@ def run(args, torch) -> int:
     tw4 = c1.tw
     # the fused small-n tier: (B, n, bw, dtype) of its two runs
     fused_main = [(64, 64, 8, "float64"), (64, 256, 32, "float32")]
-    runs = [((), n3, cfg1), ((), n3, cfg32), ((), n4, c1),
-            ((b5,), n5, c5)] + runs4
-    main_cycle, main_super, main_sturm, main_band = main_path_shapes(bc,
-                                                                     runs)
+    runs = runs1 + runs4
+    (main_cycle, main_super, main_sturm, main_band,
+     main_cycle_band) = main_path_shapes(bc, runs)
     main_tape = tape_apply_calls(bc, [((), nd, cd), ((b7,), n7, c7)])
 
     # ---- 2. kernels against their plain versions ------------------------
@@ -1613,23 +1736,75 @@ def run(args, torch) -> int:
     n_cmp += 1
     del bandp, tape, blocks, want
 
-    def gk_inputs(n, b, dtype):
-        d = torch.from_numpy(rng.standard_normal((b, n))).to(dev, dtype)
-        e = torch.from_numpy(rng.standard_normal((b, n))).to(dev, dtype)
-        return s3.gk_problem(d, e)[:2]
-
-    n_s = 512
-    sturm_cases = [(b, n, d, STURM_CHECK_STEPS, True)
-                   for b, n, d in main_sturm] + [
-        (1, n_s, d, s3.default_bisect_iters(dtypes[d]), False)
-        for d in STURM_TOLS]
-    for b, n, dname, iters, main in sturm_cases:
-        z, bound = gk_inputs(n, b, dtypes[dname])
-        want = s3.bisect_plain(z, bound, n=n, max_iter=iters)
-        got = bisect.sturm_bisect_cuda(z, bound, n=n, max_iter=iters)
+    # the fuse-1 band entry: cycle T // 2 of every main-path fuse-1 stage,
+    # in every dtype, with ragged live masks: band and tape against the
+    # plain version on the same padded band, and bit for bit (band, v, the
+    # live taus; tau = 0 where not live) against the windows entry on the
+    # gathered windows and the super-step kernel at K = 1
+    cycle_band_cases = sorted({s[:5] + (d,) for s in main_cycle_band
+                               for d in TOLS})
+    cycle_band = {"cases": 0, "routes": {}, "bitwise_vs_windows": True,
+                  "bitwise_vs_superstep_k1": True}
+    for n, b_in, tw, b, _, dname in cycle_band_cases:
+        bandp, p32, first, live, t, tape = band_stage(
+            torch, bc, rng, n, b_in, tw, 1, b, dtypes[dname])
+        kw = dict(b_in=b_in, tw=tw)
+        bands = [bandp.clone() for _ in range(4)]
+        tapes = [tuple(x.clone() for x in tape) for _ in range(4)]
+        with bulge_chase.BandStage(bands[0], p32, first, live, fuse=1,
+                                   tape=tapes[0], **kw) as stage:
+            stage(t)
+        with bulge_chase.BandStage(bands[1], p32, first, live, fuse=1,
+                                   tape=tapes[1], tma=False, **kw) as k1:
+            k1(t)
+        ref.chase_cycle_band_ref(bands[2], p32, first, live, t,
+                                 tape=tapes[2], cycle=bulge_chase.
+                                 chase_cycle_cuda, **kw)
+        ref.chase_cycle_band_ref(bands[3], p32, first, live, t,
+                                 tape=tapes[3], **kw)
         torch.cuda.synchronize()
-        compare("sturm_bisect_cuda", [got], [want], STURM_TOLS[dname],
-                (b, n, dname, iters), main)
+        key = ("band", n, b_in, tw, b, dname)
+        cycle_band["routes"][str(key)] = stage.route
+        on = live[t][None, :, :, None].expand_as(tapes[0][1][:, t])
+        for name, i in (("bitwise_vs_superstep_k1", 1),
+                        ("bitwise_vs_windows", 2)):
+            same = (torch.equal(bands[0], bands[i])
+                    and torch.equal(tapes[0][0][:, t], tapes[i][0][:, t])
+                    and torch.equal(tapes[0][1][:, t][on],
+                                    tapes[i][1][:, t][on])
+                    and bool((tapes[0][1][:, t][~on] == 0).all()))
+            cycle_band[name] = cycle_band[name] and same
+            check(same, f"chase_cycle_cuda: band entry at {key} against "
+                  f"{name[11:]} not bit for bit")
+        compare("chase_cycle_cuda", [bands[0], tapes[0][0][:, t],
+                                     tapes[0][1][:, t]],
+                [bands[3], tapes[3][0][:, t], tapes[3][1][:, t]],
+                TOLS[dname], key, (n, b_in, tw, b, 1, dname)
+                in main_cycle_band)
+        cycle_band["cases"] += 1
+        del bandp, tape, bands, tapes
+    check(all(r == "tma" for k_, r in cycle_band["routes"].items()
+              if "float32" in k_ or "float64" in k_),
+          f"a main-path fuse-1 stage did not take the one-cycle kernel: "
+          f"{cycle_band['routes']}")
+
+    # the bisection (sturm_cases), each against the plain version within
+    # STURM_TOLS and, reported, bit for bit
+    sturm_bitwise = {}
+    for b, n, dname, iters, d, s, main in sturm_cases(torch, bisect, s3,
+                                                      main_sturm):
+        z, bound = gk_inputs(torch, rng, s3, n, b, dtypes[dname])
+        want = s3.bisect_plain(z, bound, n=n, max_iter=iters)
+        if (d, s) == bisect.schedule(b, n, iters):
+            got = bisect.sturm_bisect_cuda(z, bound, n=n, max_iter=iters)
+        else:
+            got = sturm_run(torch, bisect._fn(z.dtype), z, bound, n, iters,
+                            d, s)
+        torch.cuda.synchronize()
+        key = (b, n, dname, iters, d, s)
+        sturm_bitwise[str(key)] = torch.equal(got, want)
+        compare("sturm_bisect_cuda", [got], [want], STURM_TOLS[dname], key,
+                main)
     # the compact-WY apply: the reference's shapes (one slot and five),
     # contiguous, and every main-path call as the main path addresses it
     # (views of the trailing block and of the rows below a pivot; row
@@ -1758,6 +1933,8 @@ def run(args, torch) -> int:
     emit({"phase": "kernels_vs_plain", "ok": True, "comparisons": n_cmp,
           "main_path_shapes": {
               "chase_cycle_cuda (b_in, tw, slots, dtype)": main_cycle,
+              "chase_cycle_cuda band entry (n, b_in, tw, B, K, dtype)":
+                  main_cycle_band,
               "chase_superstep_cuda (b_in, tw, slots, K, dtype)": main_super,
               "chase_superstep_cuda band entry (n, b_in, tw, B, K, dtype)":
                   main_band,
@@ -1771,6 +1948,8 @@ def run(args, torch) -> int:
                   FLASH_MAIN + (FLASH_GROUP, "float32")},
           "band_cases": len(band_cases),
           "band_vs_blocks_bitwise": band_bitwise,
+          "cycle_band": cycle_band,
+          "sturm_bitwise_vs_plain": sturm_bitwise,
           "flash_cases": flash_cases,
           "fused_cases": len(fused_cases),
           "fused_worst_err_over_scale": fused_errs,
@@ -1831,6 +2010,39 @@ def run(args, torch) -> int:
         lambda: ref.chase_cycle_ref(win, first, **kw), 500, 20,
         f"windows ({g1},{bw4 + 2 * tw4 + 1},{bw4 + tw4 + 1}) fp32, "
         f"b_in={bw4}, tw={tw4}", chase_bound(bw4, tw4, g1, 1, "float32", 4))
+    # the same cycle in place on the main path's stage: cycle T // 2 of the
+    # n = 16384 fp32 stage (every slot live), through the band entry as
+    # reduce_stage_packed launches it for banded_singular_values (no
+    # tape): the one-cycle kernel, its rectangles moved by TMA, beside the
+    # super-step kernel at K = 1 on the same cycle, whose moves walk the
+    # panels' cells
+    bandp, p32, firstb, liveb, tb, _ = band_stage(
+        torch, bc, rng, n4, bw4, tw4, 1, 1, torch.float32, ragged=False)
+    stages = {route: bulge_chase.BandStage(bandp, p32, firstb, liveb,
+                                           fuse=1, tma=route == "tma", **kw)
+              for route in ("tma", "panels")}
+    check(stages["tma"].route == "tma", "the n = 16384 fp32 stage did not "
+          "take the one-cycle kernel")
+    band_ms = {}
+    for route, symbol in (("tma", "chase_cycle_band_kernel"),
+                          ("panels", "chase_superstep_kernel")):
+        call = (lambda st=stages[route]: st(tb))
+        prof = profiler_ms(torch, call, symbol, 50)
+        band_ms[route] = (prof[0] if prof is not None else None,
+                          gpu_ms(torch, call, iters=500, warmup=2))
+    timing["chase_cycle_cuda"].update(
+        main_path_ms=band_ms["tma"][0] or band_ms["tma"][1],
+        main_path_events_ms=band_ms["tma"][1],
+        superstep_k1_main_path_ms=band_ms["panels"][0] or band_ms["panels"][1],
+        superstep_k1_main_path_events_ms=band_ms["panels"][1],
+        main_path_shape=f"in place: band (1, {bandp.shape[1]}, "
+                        f"{bandp.shape[2]}) fp32, cycle {tb} of "
+                        f"{p32.shape[0]}, {p32.shape[1]} slots, b_in={bw4}, "
+                        f"tw={tw4}, no tape; one TMA box of "
+                        f"{tuning.cycle_tile(bw4, tw4, torch.float32)[0]} "
+                        f"columns each way per slot",
+        main_path_bound=chase_bound(bw4, tw4, g1, 1, "float32", 4))
+    del bandp, stages
 
     wk = 4 * bw4 + tw4 + 1
     blk = torch.from_numpy(rng.standard_normal(
@@ -1866,15 +2078,30 @@ def run(args, torch) -> int:
     # the library yardstick computes the same values from the dense
     # bidiagonal whose Golub-Kahan off-diagonal is z (built outside the
     # timing)
-    z, bound = gk_inputs(n_s, 1, torch.float64)
+    n_s = 512
+    z, bound = gk_inputs(torch, rng, s3, n_s, 1, torch.float64)
     dense_b = (torch.diag(z[0, 0::2]) + torch.diag(z[0, 1::2], 1))
     time_kernel(
-        "sturm_bisect_cuda", "sturm_bisect_kernel",
+        "sturm_bisect_cuda", "sturm_bisect",
         lambda: bisect.sturm_bisect_cuda(z, bound, n=n_s, max_iter=60),
         lambda: s3.bisect_plain(z, bound, n=n_s, max_iter=60), 5, 1,
-        f"B=1, n={n_s} fp64, 60 steps",
+        f"B=1, n={n_s} fp64, 60 steps, (d, s) = "
+        f"{bisect.schedule(1, n_s, 60)}",
         sturm_bound(1, n_s, 60, "float64", 8),
         library=lambda: torch.linalg.svdvals(dense_b))
+    timing["sturm_bisect_cuda"]["bitwise_vs_plain"] = torch.equal(
+        bisect.sturm_bisect_cuda(z, bound, n=n_s, max_iter=60),
+        s3.bisect_plain(z, bound, n=n_s, max_iter=60))
+    # the kernels alone at the main path's largest bisection, n = 16384
+    # fp32 (phase 4 reads the whole call, prescale included)
+    z, bound = gk_inputs(torch, rng, s3, n4, 1, torch.float32)
+    big = profiler_ms(torch, lambda: bisect.sturm_bisect_cuda(
+        z, bound, n=n4, max_iter=40), "sturm_bisect", 2)
+    timing["sturm_bisect_cuda"].update(
+        main_path_kernel_ms=big and big[0],
+        main_path_ms_by_kernel=big and big[2],
+        main_path_schedule=bisect.schedule(1, n4, 40))
+    del z, bound
     # the compact-WY apply at the stage-1 panel shape (contiguous, the
     # shape earlier designs were timed at) and at the last chase stage's
     # replay shape of the dense run, through its row table into the padded
@@ -2283,10 +2510,11 @@ def run(args, torch) -> int:
         cycles = bc.stage_schedule(n6, bw4, tw4, f)[1]
         eager = {key: sum(ev.count for ev in ka if ev.key == key)
                  for key in ("aten::index", "aten::index_put_")}
-        symbol = "chase_cycle_kernel" if f == 1 else "chase_superstep_kernel"
-        # at fuse K a super-cycle is one launch (the wrapper's count) and
-        # nothing else; the trace's kernel count is reported beside it
-        ok_f = f == 1 or (launches == cycles and not any(eager.values()))
+        symbol = ("chase_cycle_band_kernel" if f == 1
+                  else "chase_superstep_kernel")
+        # a (super-)cycle is one launch (the wrapper's count) and nothing
+        # else; the trace's kernel count is reported beside it
+        ok_f = launches == cycles and not any(eager.values())
         emit({"phase": "stage2_profile", "ok": ok_f, "n": n6, "b_in": bw4,
               "tw": tw4, "fuse": f, "dtype": "float32", "cycles": cycles,
               "eager_ops": eager, "kernel": symbol,
@@ -2306,8 +2534,8 @@ def run(args, torch) -> int:
                   {"kernel": ev.key[:80], "count": ev.count,
                    "device_ms": ev.device_time_total / 1e3}
                   for ev in kern]})
-        check(ok_f, f"stage2_profile fuse {f}: {launches} super-step "
-              f"launches for {cycles} super-cycles, eager ops {eager}")
+        check(ok_f, f"stage2_profile fuse {f}: {launches} launches for "
+              f"{cycles} (super-)cycles, eager ops {eager}")
 
     # ---- summary ---------------------------------------------------------
     sources = {"chase_cycle_cuda": "src/repro_torch/kernels/csrc/chase.cu",
@@ -2363,6 +2591,11 @@ def run(args, torch) -> int:
             row.update(main_path_ms=t["main_path_ms"],
                        main_path_shape=t["main_path_shape"],
                        main_path_bound_ms=t["main_path_bound"][0])
+        for field in ("superstep_k1_main_path_ms", "main_path_kernel_ms",
+                      "main_path_ms_by_kernel", "main_path_schedule",
+                      "bitwise_vs_plain"):
+            if field in t:
+                row[field] = t[field]
         for suffix, field in ((" (replay)", "replay_shape"),
                               (" (second shape)", "second_shape")):
             second = timing.get(f"{name}{suffix}")

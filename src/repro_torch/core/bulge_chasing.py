@@ -13,11 +13,11 @@ block (``_chase_loop``).
 
 The band is updated in place.  The reference rebuilds its arrays with
 ``.at[].set`` inside a ``fori_loop``; here each stage pads the band once into
-a new tensor.  At fuse 1 every cycle gathers its windows from it, runs the
-kernel on them, and writes the changed cells back with ``index_put_``; at
-fuse K each super-cycle is one ``ops.chase_superstep_band`` call, which on
-the card is one launch that chases every slot's block where it lies and
-writes the tape.  The schedule of all T cycles is computed on the device
+a new tensor.  Each (super-)cycle is one call of the stage that
+``ops.band_stage`` makes (``ops.chase_cycle_band`` at fuse 1,
+``ops.chase_superstep_band`` at fuse K), which on the card is one launch
+that chases every slot's window or block where it lies and writes the
+tape.  The schedule of all T cycles is computed on the device
 once per stage as (T, G) tensors, so the loop does no ``.item()`` and no
 host-to-device copy.
 """
@@ -95,52 +95,23 @@ def _chase_loop(bandp: torch.Tensor, p_safe, first, live, *, n: int,
     The one place a cycle is launched: a CUDA graph or a persistent kernel
     can replace this loop without touching its callers.
 
-    Windows of inactive slots come from their dump zones, which are all
-    zero; a zero window's reflectors have tau = 0, so the kernel leaves it
-    zero and writing it back changes nothing.  ``tape``, when given, is the
-    pair of buffers ``(vs (B, T, G, K, 2, tw+1), taus (B, T, G, K, 2))``;
-    each cycle's reflectors are stored there, with tau set to 0 on inactive
-    slots and cycles, so that their replay is the identity.  The band
-    arithmetic is the same with and without it.
+    Slots that are not live point at their dump zones and leave the band
+    as it was.  ``tape``, when given, is the pair of buffers ``(vs (B, T,
+    G, K, 2, tw+1), taus (B, T, G, K, 2))``; each cycle's reflectors are
+    stored there, with tau set to 0 on inactive slots and cycles, so that
+    their replay is the identity.  The band arithmetic is the same with and
+    without it.
 
-    At fuse K a super-cycle is one ``ops.chase_superstep_band`` call and no
-    other torch op; at fuse 1 a cycle gathers its windows, launches, records
-    the tape and scatters."""
+    The stage is checked once (``ops.band_stage``); then each (super-)cycle
+    is one call of the stage, ``ops.chase_cycle_band`` at fuse 1 and
+    ``ops.chase_superstep_band`` at fuse K, which on the card is one launch
+    and no other torch op."""
     from repro_torch.kernels import ops
-    B, H, _ = bandp.shape
-    T, G = p_safe.shape
-    if fuse > 1:
-        p32 = p_safe.to(torch.int32)
-        for t in range(T):
-            ops.chase_superstep_band(bandp, p32, first, live, t, n=n,
-                                     b_in=b_in, tw=tw, fuse=fuse, tape=tape,
-                                     backend=backend, config=config)
-        return
-    dev = bandp.device
-    with_tape = tape is not None
-    zero = torch.zeros((), dtype=bandp.dtype, device=dev)
-    W = b_in + tw + 1
-    yy = torch.arange(H, device=dev)[:, None]
-    ww = torch.arange(W, device=dev)[None, :]
-    # window cell (y, w) <- band cell (H-1+w-y, p+w); cells with y < w are
-    # not stored, read a clamped neighbour, and are never used
-    d_gather = (H - 1 + ww - yy).clamp(0, H - 1)
-    vy, vw = (yy >= ww).nonzero(as_tuple=True)
-    vd = H - 1 + vw - vy
-    vcell = vy * W + vw
-    for t in range(T):
-        p = p_safe[t]
-        win = bandp[:, d_gather, p[:, None, None] + ww]           # (B,G,H,W)
-        out = ops.chase_cycle(win.reshape(B * G, H, W), first[t], b_in=b_in,
-                              tw=tw, backend=backend, config=config,
-                              with_tape=with_tape)
-        if with_tape:
-            out, vs, taus = out
-            tape[0][:, t] = vs.reshape(tape[0].shape[:1] + tape[0].shape[2:])
-            taus = taus.reshape(tape[1].shape[:1] + tape[1].shape[2:])
-            tape[1][:, t] = torch.where(live[t][None, :, :, None], taus, zero)
-        vals = out.reshape(B, G, H * W)[:, :, vcell]
-        bandp[:, vd, p[:, None] + vw] = vals
+    with ops.band_stage(bandp, p_safe.to(torch.int32), first, live, n=n,
+                        b_in=b_in, tw=tw, fuse=fuse, tape=tape,
+                        backend=backend, config=config) as stage:
+        for t in range(p_safe.shape[0]):
+            stage(t)
 
 
 def reduce_stage_packed(band: torch.Tensor, *, n: int, b_in: int, tw: int,
@@ -178,8 +149,7 @@ def reduce_stage_packed(band: torch.Tensor, *, n: int, b_in: int, tw: int,
             return band.clone()
         empty = band.new_zeros(lead + (0,) + pair + (tw + 1,))
         return band.clone(), empty, band.new_zeros(lead + (0,) + pair)
-    wk = fuse * b_in + tw + 1
-    n_pad = n + wk + G * wk               # dump zones of the G slots at the end
+    n_pad = tuning.band_padding(n, b_in, tw, fuse, G)   # dump zones at the end
     bandp = bandmod.pad_columns(band3, max(n_pad - ncols0, 0))
     p_safe, first, live = _cycle_table(n, b_in, tw, fuse, T, G, B,
                                        band.device)

@@ -23,7 +23,7 @@ from repro_torch.core.householder import acc_dtype
 __all__ = [
     "SMEM_PER_BLOCK", "default_tilewidth", "sweep_separation",
     "max_concurrent_sweeps", "check_disjoint_blocks", "smem_bytes",
-    "check_smem_budget",
+    "check_smem_budget", "band_padding", "cycle_tile",
     "fused_smem_bytes", "check_fused_smem_budget", "default_fuse_depth",
     "stage_plan", "PipelineConfig",
 ]
@@ -107,22 +107,55 @@ def check_disjoint_blocks(n: int, b_in: int, tw: int, fuse: int,
 
 
 def smem_bytes(b_in: int, tw: int, dtype=torch.float32, fuse: int = 1) -> int:
-    """Shared memory one block of a chase kernel holds, in bytes.
+    """Shared memory one block of a chase kernel that stages panels holds,
+    in bytes: the windows entry of the cycle kernel and the super-step.
 
-    Both kernels stage the two panels a cycle changes, in the accumulation
-    type: the column panel rows ``[tw, H)`` x cols ``[0, tw]`` and the part
-    of the row panel (rows ``[H-1-tw, H)``) right of it, cols ``[tw+1, W)``.
-    The cycle kernel (``fuse=1``) adds the two reflectors and four scalars.
-    The super-step kernel (``fuse > 1``) keeps its reflectors in registers;
-    it pads the row panel's rows by one word and adds a copy of column 0 for
-    the left reflector, four words fewer in all.  It chases its K cycles in
-    the same panels, carrying the corner two cycles share, so the count
-    does not grow with ``fuse``."""
+    They stage the two panels a cycle changes, in the accumulation type:
+    the column panel rows ``[tw, H)`` x cols ``[0, tw]`` and the part of the
+    row panel (rows ``[H-1-tw, H)``) right of it, cols ``[tw+1, W)``, its
+    rows padded by one word, and a copy of column 0 for the left
+    reflector.  The reflectors stay in registers.  The super-step chases
+    its K cycles in the same panels, carrying the corner two cycles share,
+    so the count does not grow with ``fuse``."""
     assert fuse >= 1, fuse
     h = b_in + 2 * tw + 1
-    panels = (h - tw) * (tw + 1) + (tw + 1) * b_in
-    words = panels + 2 * (tw + 1) + (4 if fuse == 1 else 0)
+    panels = (h - tw) * (tw + 1) + (tw + 1) * (b_in + 1)
+    words = panels + (tw + 1)
     return words * _itemsize(acc_dtype(dtype_of(dtype)))
+
+
+def band_padding(n: int, b_in: int, tw: int, fuse: int, slots: int) -> int:
+    """Columns of a stage's padded band: the n columns, a gap of one block
+    and the dump zones of the ``slots`` slots (``fuse*b_in + tw + 1``
+    columns each), rounded up to 8 columns so that a band row starts on a
+    16-byte boundary in every dtype (what a TMA copy of the band needs)."""
+    wk = fuse * b_in + tw + 1
+    return -(-(n + wk + slots * wk) // 8) * 8
+
+
+def cycle_tile(b_in: int, tw: int, dtype=torch.float32):
+    """``(box_w, bytes)`` of the one-cycle band kernel (``chase.cu`` kernel
+    3): it moves a slot's band rectangle, rows ``[0, H)`` x ``box_w``
+    columns from the window's first column rounded down to 16 bytes, as one
+    TMA box in the storage type; ``box_w`` covers W = b_in + tw + 1 columns
+    from any start, W + 16 bytes - 1 element rounded up to 16 bytes, and
+    ``bytes`` counts the box, a copy of column 0 in the accumulation type,
+    an mbarrier and 128 bytes to align the box.  None where the kernel does
+    not take the stage: a box side above TMA's 256, a box wider than the
+    slots' separation of 3*b_in - 1 columns less 16 bytes (the boxes of one
+    launch must not overlap), or more shared memory than a block has; the
+    stage then goes through the super-step kernel at K = 1."""
+    es = _itemsize(dtype)
+    per = 16 // es
+    box_w = -(-(b_in + tw + per) // per) * per
+    h = b_in + 2 * tw + 1
+    if h > 256 or box_w > 256 or box_w > 3 * b_in - per:
+        return None
+    x2_off = -(-(h * box_w * es) // 16) * 16
+    bar_off = -(-(x2_off + (tw + 1) * _itemsize(acc_dtype(dtype_of(dtype))))
+                // 8) * 8
+    need = bar_off + 8 + 128
+    return (box_w, need) if need <= SMEM_PER_BLOCK else None
 
 
 def check_smem_budget(b_in: int, tw: int, dtype=torch.float32,
@@ -174,9 +207,8 @@ def check_fused_smem_budget(n: int, dtype=torch.float32, *,
 def default_fuse_depth(b_in: int, tw: int, dtype=torch.float32, *,
                        cap: int = 4) -> int:
     """Fuse depth K for ``fuse=None``: the cap, once ``check_smem_budget``
-    has shown that a K-cycle block fits (the count does not grow with K and
-    is below the cycle kernel's, so shared memory never forces a shallower
-    K).  Past K = 2 the super-cycle
+    has shown that a K-cycle block fits (the count does not grow with K, so
+    shared memory never forces a shallower K).  Past K = 2 the super-cycle
     count stops falling (sweep starts set it), so the cap is small."""
     cap = max(int(cap), 1)
     check_smem_budget(b_in, tw, dtype, cap)

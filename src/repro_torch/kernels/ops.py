@@ -23,7 +23,8 @@ import torch
 
 from repro_torch.core.tuning import LATER, check_disjoint_blocks
 
-__all__ = ["chase_cycle", "chase_superstep_band", "sturm_bisect",
+__all__ = ["chase_cycle", "chase_cycle_band", "chase_superstep_band",
+           "band_stage", "sturm_bisect",
            "tape_apply", "hh_block_apply",
            "fused_svd", "flash_attention", "register_backend", "check_device",
            "resolve_backend", "backend_names", "launch_counts",
@@ -85,11 +86,23 @@ def _ref_chase(windows, is_first, *, b_in, tw, with_tape, fuse, active):
                                    tw=tw, fuse=fuse, with_tape=with_tape)
 
 
+def _ref_cycle_band(bandp, p_safe, first, live, t, *, b_in, tw, tape):
+    from repro_torch.kernels import ref
+    return ref.chase_cycle_band_ref(bandp, p_safe, first, live, t, b_in=b_in,
+                                    tw=tw, tape=tape)
+
+
 def _ref_superstep_band(bandp, p_safe, first, live, t, *, b_in, tw, fuse,
                         tape):
     from repro_torch.kernels import ref
     return ref.chase_superstep_band_ref(bandp, p_safe, first, live, t,
                                         b_in=b_in, tw=tw, fuse=fuse, tape=tape)
+
+
+def _ref_band_stage(bandp, p_safe, first, live, *, b_in, tw, fuse, tape):
+    from repro_torch.kernels import ref
+    return ref.BandStageRef(bandp, p_safe, first, live, b_in=b_in, tw=tw,
+                            fuse=fuse, tape=tape)
 
 
 def _ref_bisect(z, bound, *, n, max_iter):
@@ -119,7 +132,9 @@ def _ref_flash(q, k, v):
 
 
 register_backend("ref", chase_cycle=_ref_chase,
+                 chase_cycle_band=_ref_cycle_band,
                  chase_superstep_band=_ref_superstep_band,
+                 band_stage=_ref_band_stage,
                  sturm_bisect=_ref_bisect,
                  tape_apply=_ref_tape, hh_block_apply=_ref_hh,
                  fused_svd=_ref_fused, flash_attention=_ref_flash)
@@ -137,11 +152,23 @@ def _cuda_chase(windows, is_first, *, b_in, tw, with_tape, fuse, active):
                                             with_tape=with_tape)
 
 
+def _cuda_cycle_band(bandp, p_safe, first, live, t, *, b_in, tw, tape):
+    from repro_torch.kernels import bulge_chase
+    return bulge_chase.chase_cycle_band_cuda(bandp, p_safe, first, live, t,
+                                             b_in=b_in, tw=tw, tape=tape)
+
+
 def _cuda_superstep_band(bandp, p_safe, first, live, t, *, b_in, tw, fuse,
                          tape):
     from repro_torch.kernels import bulge_chase
     return bulge_chase.chase_superstep_band_cuda(
         bandp, p_safe, first, live, t, b_in=b_in, tw=tw, fuse=fuse, tape=tape)
+
+
+def _cuda_band_stage(bandp, p_safe, first, live, *, b_in, tw, fuse, tape):
+    from repro_torch.kernels import bulge_chase
+    return bulge_chase.BandStage(bandp, p_safe, first, live, b_in=b_in, tw=tw,
+                                 fuse=fuse, tape=tape)
 
 
 def _cuda_bisect(z, bound, *, n, max_iter):
@@ -174,7 +201,9 @@ def _cuda_flash(q, k, v):
 
 
 register_backend("cuda", chase_cycle=_cuda_chase,
+                 chase_cycle_band=_cuda_cycle_band,
                  chase_superstep_band=_cuda_superstep_band,
+                 band_stage=_cuda_band_stage,
                  sturm_bisect=_cuda_bisect,
                  tape_apply=_cuda_tape, hh_block_apply=_cuda_hh,
                  fused_svd=_cuda_fused, flash_attention=_cuda_flash)
@@ -209,6 +238,44 @@ def chase_cycle(windows: torch.Tensor, is_first: torch.Tensor, *, b_in: int,
     impl = _impl("chase_cycle", backend, config, windows.device)
     return impl(windows, is_first, b_in=b_in, tw=tw, with_tape=with_tape,
                 fuse=fuse, active=active)
+
+
+def chase_cycle_band(bandp: torch.Tensor, p_safe: torch.Tensor,
+                     first: torch.Tensor, live: torch.Tensor, t: int, *,
+                     n: int, b_in: int, tw: int, tape=None,
+                     backend: str = "auto", config=None) -> torch.Tensor:
+    """Cycle ``t`` of one fuse-1 stage on the padded band bandp (B, H,
+    n_pad), in place, given the stage's tables (``bulge_chasing.
+    _cycle_table``): p_safe (T, G) (int32 for "cuda"), first (T, B*G), live
+    (T, G, 1); with ``tape`` also row t of the stage's tape (B, T, G, 1, 2,
+    tw+1), (B, T, G, 1, 2), tau = 0 where not live.  "cuda": one launch,
+    each slot addressing its window where it lies, a slot that is not live
+    touching nothing in the band; "ref": gather, ``chase_cycle_ref``,
+    scatter.  Returns ``bandp``.
+
+    The slots' windows are chased in place at once, so they must be
+    pairwise disjoint in band columns: a schedule or a padding that would
+    let them overlap raises (``tuning.check_disjoint_blocks``)."""
+    check_disjoint_blocks(n, b_in, tw, 1, p_safe.shape[-1], bandp.shape[-1])
+    impl = _impl("chase_cycle_band", backend, config, bandp.device)
+    return impl(bandp, p_safe, first, live, t, b_in=b_in, tw=tw, tape=tape)
+
+
+def band_stage(bandp: torch.Tensor, p_safe: torch.Tensor,
+               first: torch.Tensor, live: torch.Tensor, *, n: int, b_in: int,
+               tw: int, fuse: int, tape=None, backend: str = "auto",
+               config=None):
+    """One stage's (super-)cycles on the padded band, in place: a context
+    manager whose call ``stage(t)`` is :func:`chase_cycle_band` (fuse 1) or
+    :func:`chase_superstep_band` at t, with what those check each call
+    checked once here.  "cuda": ``bulge_chase.BandStage``, one launch and
+    no other host work than a ``ctypes`` call per (super-)cycle; "ref":
+    ``ref.BandStageRef``."""
+    check_disjoint_blocks(n, b_in, tw, fuse, p_safe.shape[-1],
+                          bandp.shape[-1])
+    impl = _impl("band_stage", backend, config, bandp.device)
+    return impl(bandp, p_safe, first, live, b_in=b_in, tw=tw, fuse=fuse,
+                tape=tape)
 
 
 def chase_superstep_band(bandp: torch.Tensor, p_safe: torch.Tensor,

@@ -30,8 +30,8 @@ import torch
 from repro_torch.core.bidiag_svd import bidiag_singular_values
 from repro_torch.core.householder import acc_dtype, make_reflector
 
-__all__ = ["chase_cycle_ref", "chase_superstep_ref",
-           "chase_superstep_band_ref", "tape_apply_ref",
+__all__ = ["chase_cycle_ref", "chase_superstep_ref", "chase_cycle_band_ref",
+           "chase_superstep_band_ref", "BandStageRef", "tape_apply_ref",
            "hh_block_apply_ref", "effective_bw", "fused_walk",
            "fused_small_svd_ref", "flash_attention_ref", "gqa_group"]
 
@@ -133,6 +133,46 @@ def chase_superstep_ref(blocks: torch.Tensor, is_first: torch.Tensor,
     return out
 
 
+def chase_cycle_band_ref(bandp: torch.Tensor, p_safe: torch.Tensor,
+                         first: torch.Tensor, live: torch.Tensor, t: int, *,
+                         b_in: int, tw: int, tape=None,
+                         cycle=chase_cycle_ref) -> torch.Tensor:
+    """Cycle ``t`` of one fuse-1 stage on the padded band (B, H, n_pad), in
+    place, as ``chase_cycle_band_cuda`` runs it: each slot's rolled window,
+    ``window[y, w] = band[H-1-(y-w), p_safe[t, g] + w]``, is gathered from
+    every band, chased by ``cycle`` (``first[t]``), and its stored cells
+    (y >= w) are scattered back where ``live[t, g, 0]``; with ``tape``
+    (``vs (B, T, G, 1, 2, tw+1)``, ``taus (B, T, G, 1, 2)``) row t of the
+    tape is written, tau = 0 where not live.  Returns ``bandp``.
+    ``cycle`` is :func:`chase_cycle_ref`, or the windows entry
+    ``chase_cycle_cuda`` when the band entry is held to it."""
+    b, h, _ = bandp.shape
+    g = p_safe.shape[1]
+    w = b_in + tw + 1
+    dev = bandp.device
+    yy = torch.arange(h, device=dev)[:, None]
+    ww = torch.arange(w, device=dev)[None, :]
+    # window cell (y, w) <- band cell (H-1+w-y, p+w); cells with y < w are
+    # not stored, read a clamped neighbour, and are never used
+    d_gather = (h - 1 + ww - yy).clamp(0, h - 1)
+    vy, vw = (yy >= ww).nonzero(as_tuple=True)
+    p = p_safe[t]
+    win = bandp[:, d_gather, p[:, None, None] + ww].reshape(b * g, h, w)
+    out = cycle(win.clone(), first[t], b_in=b_in, tw=tw,
+                with_tape=tape is not None)
+    on = live[t][:, 0]
+    zero = torch.zeros((), dtype=bandp.dtype, device=dev)
+    if tape is not None:
+        out, vs, taus = out
+        tape[0][:, t] = vs.reshape(tape[0].shape[:1] + tape[0].shape[2:])
+        taus = taus.reshape(tape[1].shape[:1] + tape[1].shape[2:])
+        tape[1][:, t] = torch.where(on[None, :, None, None], taus, zero)
+    out = torch.where(on.repeat(b)[:, None, None], out, win)
+    bandp[:, h - 1 + vw - vy, p[:, None] + vw] = out.reshape(b, g, h, w)[
+        :, :, vy, vw]
+    return bandp
+
+
 def chase_superstep_band_ref(bandp: torch.Tensor, p_safe: torch.Tensor,
                              first: torch.Tensor, live: torch.Tensor, t: int,
                              *, b_in: int, tw: int, fuse: int, tape=None):
@@ -160,6 +200,31 @@ def chase_superstep_band_ref(bandp: torch.Tensor, p_safe: torch.Tensor,
         tape[1][:, t] = torch.where(live[t][None, :, :, None], taus, zero)
     bandp[:, rows, cols] = res.reshape(b, g, h, wk)
     return bandp
+
+
+class BandStageRef:
+    """The plain version of ``bulge_chase.BandStage``: ``stage(t)`` runs
+    (super-)cycle t of the stage through :func:`chase_cycle_band_ref`
+    (fuse 1) or :func:`chase_superstep_band_ref`, on any device."""
+
+    def __init__(self, bandp, p_safe, first, live, *, b_in: int, tw: int,
+                 fuse: int, tape=None):
+        self._args = (bandp, p_safe, first, live)
+        self._kw = dict(b_in=b_in, tw=tw, tape=tape)
+        if fuse > 1:
+            self._kw["fuse"] = fuse
+        self._fn = chase_cycle_band_ref if fuse == 1 else \
+            chase_superstep_band_ref
+        self.cycles = p_safe.shape[0]
+
+    def __call__(self, t: int) -> None:
+        self._fn(*self._args, t, **self._kw)
+
+    def __enter__(self) -> "BandStageRef":
+        return self
+
+    def __exit__(self, *exc) -> None:
+        pass
 
 
 def tape_apply_ref(v: torch.Tensor, t: torch.Tensor, c: torch.Tensor,

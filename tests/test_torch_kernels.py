@@ -25,6 +25,7 @@ from torch_port_common import (DTYPES, close, cuda, torch_dtype,  # noqa: F401
 
 from repro_torch.core import bidiag_svd as s3
 from repro_torch.core import svd as tsvd
+from repro_torch.core import tuning
 from repro_torch.core.tuning import PipelineConfig, stage_plan
 from repro_torch.kernels import bisect as tbisect
 from repro_torch.kernels import bulge_chase as tkern
@@ -215,10 +216,10 @@ def _stage_tables(n, b_in, tw, fuse, b, seed, dtype, device, ragged=True):
     per started slot."""
     from repro_torch.core import bulge_chasing as bc
     _, T, G = bc.stage_schedule(n, b_in, tw, fuse)
-    wk = fuse * b_in + tw + 1
     h = b_in + 2 * tw + 1
     rng = np.random.default_rng(seed)
-    bandp = torch.zeros((b, h, n + wk + G * wk), dtype=torch.float64)
+    bandp = torch.zeros((b, h, tuning.band_padding(n, b_in, tw, fuse, G)),
+                        dtype=torch.float64)
     bandp[..., :n] = torch.from_numpy(rng.standard_normal((b, h, n)))
     p_safe, first, live = bc._cycle_table(n, b_in, tw, fuse, T, G, b,
                                           device)
@@ -490,6 +491,106 @@ def test_tape_apply_cuda_replay_shape_is_one_launch(cuda):
         counts = sum(ev.count for ev in prof.key_averages()
                      if "tape_apply_kernel" in ev.key)
         assert counts == 4 * kernels and len(names) == kernels, names
+
+
+# (n, bw, tw, B) of chip_smoke.py's main-path runs at fuse 1: fp64 n = 4096
+# and the warm-up at n = 256 (tw 16), fp32 n = 4096, n = 16384 and the
+# stage-2 profile at n = 2048 (tw 32), fp64 B = 32 n = 1024 (bw 32, tw 16);
+# each of their stages is a fuse-1 band stage (n, b_in, tw, B)
+MAIN_FUSE1_RUNS = [(4096, 64, 16, 1), (256, 64, 16, 1), (4096, 64, 32, 1),
+                   (16384, 64, 32, 1), (2048, 64, 32, 1), (1024, 32, 16, 32)]
+MAIN_CYCLE_STAGES = sorted({(n, b_in, tw, b)
+                            for n, bw, tw0, b in MAIN_FUSE1_RUNS
+                            for b_in, tw in stage_plan(bw, tw0)})
+
+
+@pytest.mark.cuda
+@pytest.mark.parametrize("dtype,tol", DTYPES)
+@pytest.mark.parametrize("n,b_in,tw,b", MAIN_CYCLE_STAGES)
+def test_chase_cycle_band_matches_windows_and_plain(cuda, n, b_in, tw, b,
+                                                    dtype, tol):
+    """The fuse-1 band entry (the one-cycle kernel, its band rectangle
+    moved by TMA) at a cycle of every main-path fuse-1 stage, with ragged
+    live masks: bit for bit the windows entry on the gathered windows and
+    the super-step kernel at K = 1 (band, v, live taus; tau = 0 where not
+    live; other tape rows untouched), and the plain version within the
+    reference's tolerance."""
+    dt = torch_dtype(dtype)
+    bandp, p32, first, live, t = _stage_tables(n, b_in, tw, 1, b, n + tw, dt,
+                                               cuda)
+    T, G = p32.shape
+    tapes = [_tape_bufs(bandp, T, G, 1, tw) for _ in range(4)]
+    bands = [bandp.clone() for _ in range(4)]
+    stage = tkern.BandStage(bands[0], p32, first, live, b_in=b_in, tw=tw,
+                            fuse=1, tape=tapes[0])
+    assert stage.route == "tma"
+    with stage:
+        stage(t)
+    with tkern.BandStage(bands[1], p32, first, live, b_in=b_in, tw=tw,
+                         fuse=1, tape=tapes[1], tma=False) as floor:
+        assert floor.route == "panels"
+        floor(t)
+    kw = dict(b_in=b_in, tw=tw)
+    tref.chase_cycle_band_ref(bands[2], p32, first, live, t, tape=tapes[2],
+                              cycle=tkern.chase_cycle_cuda, **kw)
+    tref.chase_cycle_band_ref(bands[3], p32, first, live, t, tape=tapes[3],
+                              **kw)
+    torch.cuda.synchronize()
+    on = live[t][None, :, :, None].expand_as(tapes[0][1][:, t])
+    for band_, tape_ in zip(bands[1:3], tapes[1:3]):
+        assert torch.equal(bands[0], band_)
+        assert torch.equal(tapes[0][0][:, t], tape_[0][:, t])
+        assert torch.equal(tapes[0][1][:, t][on], tape_[1][:, t][on])
+    assert bool((tapes[0][1][:, t][~on] == 0).all())
+    assert bool((tapes[0][0][:, :t] == 7).all()
+                and (tapes[0][1][:, t + 1:] == 7).all())
+    close(bands[0], bands[3], tol)
+    close(tapes[0][0][:, t], tapes[3][0][:, t], tol)
+    close(tapes[0][1][:, t], tapes[3][1][:, t], tol)
+
+
+@pytest.mark.cuda
+def test_chase_cycle_band_stage_matches_the_plain_loop(cuda):
+    """A whole fuse-1 stage on the card through ``ops.band_stage``: T
+    launches of the one-cycle kernel and no eager gather or scatter, the
+    band and tape within the stage tolerance of the same stage on the
+    CPU."""
+    from repro_torch.core import band as tband
+    from repro_torch.core import bulge_chasing as bc
+    n, bw, tw = 300, 12, 5
+    _, T, _ = bc.stage_schedule(n, bw, tw, 1)
+    a = np.random.default_rng(12).standard_normal((2, n, n))
+    a = np.triu(a) - np.triu(a, bw + 1)
+    packed = tband.pack(torch.from_numpy(a), bw, tw)
+    kw = dict(n=n, b_in=bw, tw=tw, fuse=1, tape=True)
+    want = bc.reduce_stage_packed(packed, backend="ref", **kw)
+    before = ops.launch_counts()["chase_cycle_cuda"]
+    got = bc.reduce_stage_packed(packed.to(cuda), backend="cuda", **kw)
+    torch.cuda.synchronize()
+    assert ops.launch_counts()["chase_cycle_cuda"] == before + T
+    # the band within test_torch_svd.py's stage tolerance, the reflectors'
+    # entries within 1e-9 as in the fuse-4 stage test below: they carry the
+    # band's rounding over the pivot gap
+    close(got[0], want[0], 1e-11)
+    for g_, r_ in zip(got[1:], want[1:]):
+        close(g_, r_, 1e-9)
+
+
+@pytest.mark.cuda
+@pytest.mark.parametrize("dtype", ["float64", "float32"])
+@pytest.mark.parametrize("b,n", [(1, 2), (4, 3), (3, 33), (1, 512), (2, 513),
+                                 (64, 128), (256, 64), (512, 64),
+                                 (2048, 32), (4096, 32)])
+def test_sturm_bisect_cuda_is_bitwise_plain(cuda, b, n, dtype):
+    """The tree's top counted once, then the walk s levels at a time: the
+    same midpoints as the plain bisection, so the same bits, at every s
+    that ``bisect.schedule`` picks (5 down to 0 as B*n grows)."""
+    z, bound = _gk(n, b, b + n, torch_dtype(dtype), cuda)
+    iters = s3.default_bisect_iters(z.dtype)
+    got = tbisect.sturm_bisect_cuda(z, bound, n=n, max_iter=iters)
+    want = s3.bisect_plain(z, bound, n=n, max_iter=iters)
+    torch.cuda.synchronize()
+    assert torch.equal(got, want), tbisect.schedule(b, n, iters)
 
 
 @pytest.mark.cuda
