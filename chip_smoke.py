@@ -4,7 +4,9 @@
     python3 chip_smoke.py [--seed N] [--lm-planted-faults |
                            --flash-planted-faults | --chase-planted-faults |
                            --chase-bounds | --wy-planted-faults |
-                           --wy-bounds | --svd-parts TREE]
+                           --wy-bounds | --fused-planted-faults |
+                           --fused-threads | --fused-bounds |
+                           --svd-parts TREE]
 
 Builds the port's CUDA kernels from ``src/repro_torch/kernels/csrc`` (one
 ``nvcc`` per source, all at once), holds each kernel against its plain
@@ -174,6 +176,51 @@ STURM_FAULTS = {
         "    if (cb[j] - n >= k) { hi = mid; j = 2 * j; }",
         "    if ((cb[j] - n >= k) != (l == d / 2)) { hi = mid; j = 2 * j; }",
         1)]}
+# Faults planted in copies of fused_small.cu (--fused-planted-faults), read
+# at every fused check case: fault -> [(text, replacement, times it occurs)]
+FUSED_FAULTS = {
+    # a right reflector's lines one row short: row hi keeps its entries
+    "extent_one_row_short": [(
+        "          right ? hi : min(hi + bw, n - 1)};",
+        "          right ? hi - 1 : min(hi + bw, n - 1)};", 1)],
+    # the reflectors' band index one column off (the band is filled and
+    # read out by its own map, which stays right)
+    "band_index_off_by_one": [(
+        "    return (j - i + dlo) * ld + j;",
+        "    return (j - i + dlo) * ld + j - (j > 0);", 1)],
+    # a wrong pick at one level of the walk down the in-launch tree top
+    "wrong_pick_at_one_top_level":
+        STURM_FAULTS["wrong_pick_at_one_top_level"]}
+# Probes of where the fused kernel's time goes (--fused-bounds): copies of
+# fused_small.cu that stop before phase 3, that stop after phase 1, that
+# stop where phase 1's trailing block would move into shared memory, whose
+# reflectors stop after they are built (no lines updated), and whose
+# reflectors are a block barrier only
+_PHASE_3 = "  // phase 3: sigma by Sturm bisection (csrc/sturm_device.cuh)\n"
+_NO_PHASE_3 = (_PHASE_3, "  if (n > 0) return;\n" + _PHASE_3, 1)
+FUSED_PROBES = {
+    "without_phase_3": [_NO_PHASE_3],
+    "phase_1_only": [(
+        "  // the band into shared memory: rows still in the trailing block",
+        "  if (n > 0) return;\n"
+        "  // the band into shared memory: rows still in the trailing block",
+        1)],
+    "phase_1_device_memory_only": [(
+        "      if (j == a.j0 && j > 0) {              // the trailing block",
+        "      if (n > 0) return;\n"
+        "      if (j == a.j0 && j > 0) {              // the trailing block",
+        1)],
+    "reflectors_built_only": [_NO_PHASE_3, (
+        "  if (tid < 32) bar_sync_1(busy); else bar_arrive_1(busy);\n",
+        "  if (tid < 32) bar_sync_1(busy); else bar_arrive_1(busy);\n"
+        "  if (n > 0) return;\n", 1)],
+    "reflectors_barrier_only": [_NO_PHASE_3, (
+        "  if constexpr (Mat::kGlobal) {\n", "  if (G < 0) {\n", 1), (
+        "  } else {\n    reflect_fast<A, Right, Mat, UV>(m, uv, r, G, n);",
+        "  } else if (G < 0) {\n"
+        "    reflect_fast<A, Right, Mat, UV>(m, uv, r, G, n);", 1)]}
+# the fused small-n tier's main-path runs: (B, n, bw, dtype)
+FUSED_MAIN = [(64, 64, 8, "float64"), (64, 256, 32, "float32")]
 # Probes of what bounds the large-m path (--wy-bounds): copies of
 # hh_apply.cu with kernel 1's or kernel 3's products left out, and with
 # kernel 1's staging left out (its ring multiplies stale shared memory)
@@ -279,6 +326,20 @@ def main() -> int:
                     help="only read how far faults planted in copies of "
                     "the compact-WY apply move its output at the main "
                     "shapes, against the fp64 wy_tol, then exit")
+    ap.add_argument("--fused-planted-faults", action="store_true",
+                    help="only read how far faults planted in copies of "
+                    "fused_small.cu (an extent one row short, a band index "
+                    "off by one, a wrong pick at one level of the tree "
+                    "top) move the fused kernel's output at its checks, "
+                    "against CHECK_TOLS, then exit")
+    ap.add_argument("--fused-threads", action="store_true",
+                    help="only time the fused kernel's values mode at the "
+                    "main shapes with 512 threads a block (the "
+                    "repository's build) and 256 (a copy), then exit")
+    ap.add_argument("--fused-bounds", action="store_true",
+                    help="only time the fused kernel's values mode at the "
+                    "main shapes in the repository's build and in copies "
+                    "without parts of it (FUSED_PROBES), then exit")
     args = ap.parse_args()
 
     import torch
@@ -304,6 +365,12 @@ def main() -> int:
             return wy_planted_faults(args, torch)
         if args.wy_bounds:
             return wy_bounds(args, torch)
+        if args.fused_planted_faults:
+            return fused_planted_faults(args, torch)
+        if args.fused_threads:
+            return fused_threads(args, torch)
+        if args.fused_bounds:
+            return fused_bounds(args, torch)
         if args.svd_parts:
             return svd_parts(args, torch, tree)
         return run(args, torch)
@@ -605,25 +672,29 @@ def tape_call_inputs(torch, bc, tr, call, dtype, gen):
     return vpar[:, r0:], t, c, None, whole
 
 
-def fused_bound(b, n, bw, max_iter, dtype, itemsize):
+def fused_bound(b, n, bw, max_iter, dtype, itemsize, compute_uv=False):
     """Values mode: the matrices read once and sigma written once; per
     reflector of the walk (support L) 3L flops to build it and 5L per
     nonzero row or column it meets (dot products 2, update 3); 3 flops per
-    step of the bisection's pivot recurrences.
+    step of the bisection's pivot recurrences.  uv mode: d, e, U2 and V2^T
+    written instead of sigma, 5L flops per row of U2 or V2 a reflector
+    updates (all n), no bisection.
 
-    The nonzeros a reflector meets: a right one on row k over columns
-    [lo, hi] meets rows [k, hi] (above k the band ends before lo); a left
-    one on column lo over rows [lo, hi] meets columns [lo, min(hi + bw,
-    n - 1)] (the band, and the bulge, end there).  This holds for both
-    phases.  The kernel does more work than this: like the reference, it
-    applies every reflector across all n rows or columns."""
-    from repro_torch.kernels.ref import effective_bw, fused_walk
+    The nonzeros a reflector meets (``ref.fused_lines``): a right one on
+    row k over columns [lo, hi] meets rows [k, hi] (above k the band ends
+    before lo); a left one on column lo over rows [lo, hi] meets columns
+    [lo, min(hi + bw, n - 1)] (the band, and the bulge, end there).  This
+    holds for both phases, and the kernel applies each reflector to those
+    lines only."""
+    from repro_torch.kernels.ref import effective_bw, fused_lines, fused_walk
     bw = effective_bw(n, bw)
-    flops = 3 * b * n * max_iter * (2 * n - 1)
+    flops = 0 if compute_uv else 3 * b * n * max_iter * (2 * n - 1)
     for right, k, lo, hi in fused_walk(n, bw):
-        meets = hi - k + 1 if right else min(hi + bw, n - 1) - lo + 1
+        first, last = fused_lines(right, k, lo, hi, n, bw)
+        meets = last - first + 1 + (n if compute_uv else 0)
         flops += b * (3 + 5 * meets) * (hi - lo + 1)
-    nbytes = (b * n * n + b * n) * itemsize
+    nbytes = (b * n * n + b * n * (2 + 2 * n if compute_uv else 1)) \
+        * itemsize
     t_bytes = nbytes / HBM_BYTES_PER_S
     t_ops = flops / PEAK_FLOPS[dtype]
     return (max(t_bytes, t_ops) * 1e3,
@@ -1141,13 +1212,17 @@ def build_copies(tmp: str, faults: dict) -> dict:
     """Build one copy of a kernel source per fault (fault -> (source name,
     [(text, replacement, times it occurs)])), each with its edits, all
     ``nvcc`` at once in the directory ``tmp``; returns fault -> loaded
-    library."""
+    library.  The headers of ``csrc/`` a source includes are copied into
+    it first, so an edit may act on them."""
     import ctypes
+    import re
 
     from repro_torch.kernels import _build
     procs = {}
     for fault, (source, edits) in faults.items():
-        text = (_build.CSRC / _build.SOURCES[source]).read_text()
+        text = re.sub(r'#include "(\w+\.cuh)"',
+                      lambda m: (_build.CSRC / m.group(1)).read_text(),
+                      (_build.CSRC / _build.SOURCES[source]).read_text())
         for old, new, times in edits:
             check(text.count(old) == times, f"{fault}: {old!r} occurs "
                   f"{text.count(old)} times, expected {times}")
@@ -1247,6 +1322,193 @@ def chase_planted_faults(args, torch) -> int:
     check(all(max(r)[0] > 1.0 for f, r in readings.items()
               if not f.startswith("sound")),
           "a planted fault passed the compare")
+    tmp.cleanup()
+    return 0
+
+
+def fused_check_cases(fused_small) -> list:
+    """(B, n, bw, dtype) of the fused kernel's checks: the reference's
+    shapes and the main path's, each in fp64 and fp32."""
+    return sorted({sh + (d,) for sh in fused_small.CHECK_SHAPES
+                   for d in fused_small.CHECK_TOLS} | {
+        sh[:3] + (d,) for sh in FUSED_MAIN for d in fused_small.CHECK_TOLS})
+
+
+def fused_route_label(tuning, n, bw, dtype, compute_uv) -> str:
+    """The fused launch's route (``tuning.fused_route``) in a few words."""
+    r = tuning.fused_route(n, bw, dtype, compute_uv=compute_uv)
+    label = r.name + (f", phase 1 in shared memory from column {r.j0}"
+                      if r.name == "smem" and r.j0 < n - 1 else "")
+    if compute_uv:
+        label += (", U2 and V2 in shared memory" if r.uv_smem
+                  else ", U2 and V2 in device memory")
+    return label
+
+
+def fused_planted_faults(args, torch) -> int:
+    """How far the faults of FUSED_FAULTS, each built into its own copy of
+    fused_small.cu, move the fused kernel's output from the plain version,
+    beside the sound kernel, at every fused check (fused_check_cases):
+    the largest of sigma (values mode), the sigma of uv mode's (d, e) and
+    the uv invariants, each over its CHECK_TOLS, and at fp64 the uv entries
+    over ENTRY_TOL_FP64 (NaN read as inf).  One JSON line per fault; fails
+    unless the sound kernel reads at most 1 and every fault above 1 at some
+    check."""
+    import tempfile
+
+    import numpy as np
+
+    from repro_torch.core import bidiag_svd as s3
+    from repro_torch.core import tuning
+    from repro_torch.kernels import fused_small, ref
+
+    def over(err, tol):
+        return math.inf if math.isnan(err) else err / tol
+
+    tmp = tempfile.TemporaryDirectory()
+    libs = build_copies(tmp.name, {f: ("fused_small", e)
+                                   for f, e in FUSED_FAULTS.items()})
+    rng = np.random.default_rng(args.seed)
+    readings = {f: [] for f in ["sound", *FUSED_FAULTS]}
+    for b, n, bw, dname in fused_check_cases(fused_small):
+        dtype = getattr(torch, dname)
+        a = torch.from_numpy(rng.standard_normal((b, n, n))).to("cuda",
+                                                                dtype)
+        tol, tol_uv = fused_small.CHECK_TOLS[dname]
+        want = ref.fused_small_svd_ref(a, bw=bw)
+        want_uv = ref.fused_small_svd_ref(a, bw=bw, compute_uv=True)
+        sig_uv = s3.bidiag_singular_values(want_uv[0], want_uv[1])
+        where = (b, n, bw, dname, fused_route_label(tuning, n, bw, dtype,
+                                                     True))
+        for fault in readings:
+            lib = libs.get(fault)
+            got = fused_small.fused_small_svd_cuda(a, bw=bw, lib=lib)
+            got_uv = fused_small.fused_small_svd_cuda(a, bw=bw, lib=lib,
+                                                      compute_uv=True)
+            torch.cuda.synchronize()
+            err, scale = max_err(torch, got, want)
+            r = [over(err, tol * scale)]
+            err, scale = max_err(torch, s3.bidiag_singular_values(
+                got_uv[0], got_uv[1]), sig_uv)
+            r.append(over(err, tol * scale))
+            r.append(over(max(fused_small.uv_invariants(a, *got_uv)), tol_uv))
+            if dname == "float64":
+                r.append(over(fused_small.entry_error(got_uv, want_uv),
+                              fused_small.ENTRY_TOL_FP64))
+            readings[fault].append((max(r), where))
+        del a, want, want_uv
+    for fault, r in readings.items():
+        emit({"fault": fault, "cases": len(r),
+              "cases_above_tol": sum(x[0] > 1.0 for x in r),
+              "err_over_tol_min": min(r), "err_over_tol_max": max(r),
+              "caught": max(r)[0] > 1.0})
+    check(max(readings["sound"])[0] <= 1.0,
+          "the sound fused kernel reads above its tolerance")
+    check(all(max(r)[0] > 1.0 for f, r in readings.items() if f != "sound"),
+          "a planted fault passed the compare")
+    tmp.cleanup()
+    return 0
+
+
+def fused_launch(torch, fused_small, tuning, lib, a, bw, sig, threads=512):
+    """One values-mode launch of the fused kernel of ``lib`` (None: the
+    repository's build) on ``a`` with the route of its shape and the
+    bisection's s chosen for a block of ``threads`` as bisect_schedule
+    chooses it; sigma into ``sig``."""
+    from repro_torch.core.bidiag_svd import default_bisect_iters
+    b, n, _ = a.shape
+    iters = default_bisect_iters(a.dtype)
+    r = tuning.fused_route(n, bw, a.dtype)
+    s = max(x for x in range(6) if n << x <= threads or x == 0)
+    ws = torch.empty((b, n, n), dtype=a.dtype, device="cuda")
+    code = fused_small._fn(a.dtype, lib)(
+        a.data_ptr(), ws.data_ptr(), None, None, sig.data_ptr(), None, None,
+        None, None, b, n, bw, iters, float(torch.finfo(a.dtype).tiny) * 4,
+        0, int(r.name == "smem"), r.j0, 0, r.scratch, r.region, r.ldt, r.ldb,
+        r.ldu, r.dlo, r.h, fused_small.bisect_schedule(n, iters)[0],
+        0 if s == 1 else s, r.smem_bytes,
+        torch.cuda.current_stream().cuda_stream)
+    check(code == 0, f"fused ({threads} threads): CUDA error {code}")
+
+
+def fused_bounds(args, torch) -> int:
+    """Where the fused kernel's time goes at FUSED_MAIN, values mode: its
+    device ms (CUDA events over 10 back-to-back launches) in the
+    repository's build and in copies without parts of it (FUSED_PROBES),
+    on the same inputs, the build first and last.  One JSON line per
+    shape."""
+    import tempfile
+
+    import numpy as np
+
+    from repro_torch.core import tuning
+    from repro_torch.kernels import fused_small, ref
+
+    tmp = tempfile.TemporaryDirectory()
+    libs = build_copies(tmp.name, {f: ("fused_small", e)
+                                   for f, e in FUSED_PROBES.items()})
+    rng = np.random.default_rng(args.seed)
+    for b, n, bw, dname in FUSED_MAIN:
+        a = torch.from_numpy(rng.standard_normal((b, n, n))).to(
+            "cuda", getattr(torch, dname))
+        sig = a.new_empty((b, n))
+        ms = {}
+        for name in ["build", *FUSED_PROBES, "build again"]:
+            lib = libs.get(name)
+            ms[name] = gpu_ms(torch, lambda: fused_launch(
+                torch, fused_small, tuning, lib, a, bw, sig), iters=10,
+                warmup=1)
+        emit({"phase": "fused_bounds", "B": b, "n": n, "bw": bw,
+              "dtype": dname,
+              "reflectors_per_matrix": len(list(ref.fused_walk(n, bw))),
+              "route": fused_route_label(tuning, n, bw, a.dtype, False),
+              "ms": ms})
+        del a
+    tmp.cleanup()
+    return 0
+
+
+def fused_threads(args, torch) -> int:
+    """The fused kernel's values mode at FUSED_MAIN with 512 threads a
+    block (the repository's build) and 256 (a copy of fused_small.cu with
+    kThreads = 256), on the same layout and inputs, in turns (512, 256,
+    256, 512): device ms per launch from CUDA events over back-to-back
+    launches, the bisection's s chosen for each block size as
+    bisect_schedule chooses it (n * 2^s lanes at most the block's)."""
+    import tempfile
+
+    import numpy as np
+
+    from repro_torch.core import tuning
+    from repro_torch.kernels import fused_small, ref
+
+    tmp = tempfile.TemporaryDirectory()
+    lib256 = build_copies(tmp.name, {"threads_256": ("fused_small", [(
+        "constexpr int kThreads = 512;", "constexpr int kThreads = 256;",
+        1)])})["threads_256"]
+    rng = np.random.default_rng(args.seed)
+    for b, n, bw, dname in FUSED_MAIN:
+        a = torch.from_numpy(rng.standard_normal((b, n, n))).to(
+            "cuda", getattr(torch, dname))
+        want = ref.fused_small_svd_ref(a, bw=bw)
+        out, err = {}, {}
+        for threads, lib in ((512, None), (256, lib256), (256, lib256),
+                             (512, None)):
+            sig = a.new_empty((b, n))
+            out.setdefault(threads, []).append(gpu_ms(
+                torch, lambda: fused_launch(torch, fused_small, tuning, lib,
+                                            a, bw, sig, threads),
+                iters=10, warmup=1))
+            e, scale = max_err(torch, sig, want)
+            err[threads] = e / scale
+        emit({"phase": "fused_threads", "B": b, "n": n, "bw": bw,
+              "dtype": dname, "ms_by_threads": out,
+              "err_over_scale_by_threads": err,
+              "tol": fused_small.CHECK_TOLS[dname][0]})
+        check(all(x <= fused_small.CHECK_TOLS[dname][0]
+                  for x in err.values()),
+              "a block size read above the tolerance")
+        del a
     tmp.cleanup()
     return 0
 
@@ -1612,8 +1874,7 @@ def run(args, torch) -> int:
     runs4 = fuse4_runs(torch)
     cfg4, c4, cd, c7 = (cfg for _, _, cfg in runs4)
     tw4 = c1.tw
-    # the fused small-n tier: (B, n, bw, dtype) of its two runs
-    fused_main = [(64, 64, 8, "float64"), (64, 256, 32, "float32")]
+    fused_main = FUSED_MAIN               # the fused small-n tier's runs
     runs = runs1 + runs4
     (main_cycle, main_super, main_sturm, main_band,
      main_cycle_band) = main_path_shapes(bc, runs)
@@ -1855,7 +2116,7 @@ def run(args, torch) -> int:
     # of how far the plain version's own (d, e, U2, V2^T) move: on the CPU
     # against on the card, and on the card when each entry of A moves by
     # about one ulp.
-    fused_errs, witness = {}, {}
+    fused_errs, witness, fused_routes, fused_bitwise = {}, {}, {}, {}
 
     def fused_err(kind, dname, err):
         fused_errs[f"{kind} {dname}"] = max(
@@ -1865,15 +2126,17 @@ def run(args, torch) -> int:
         err, scale = max_err(torch, got_, want_)
         return err / scale
 
-    fused_cases = sorted({sh + (d,) for sh in fused_small.CHECK_SHAPES
-                          for d in fused_small.CHECK_TOLS} | {
-        sh[:3] + (d,) for sh in fused_main for d in fused_small.CHECK_TOLS})
+    fused_cases = fused_check_cases(fused_small)
     name = "fused_small_svd_cuda"
     for b, n, bw, dname in fused_cases:
         a = torch.from_numpy(rng.standard_normal((b, n, n))).to(
             dev, dtypes[dname])
         tol, tol_uv = fused_small.CHECK_TOLS[dname]
         key = (b, n, bw, dname)
+        label = f"B={b} n={n} bw={bw} {dname}"
+        fused_routes[label] = {
+            mode: fused_route_label(tuning, n, bw, dtypes[dname], uv)
+            for mode, uv in (("values", False), ("uv", True))}
         want = ref.fused_small_svd_ref(a, bw=bw)
         got = fused_small.fused_small_svd_cuda(a, bw=bw)
         torch.cuda.synchronize()
@@ -1884,6 +2147,10 @@ def run(args, torch) -> int:
         torch.cuda.synchronize()
         sg, sw = (s3.bidiag_singular_values(x[0], x[1]) for x in (got, want))
         compare(name, [sg], [sw], tol, key + ("uv sigma of (d, e)",), False)
+        # values mode: bit for bit the plain bisection on uv mode's (d, e)
+        fused_bitwise[label] = torch.equal(
+            fused_small.fused_small_svd_cuda(a, bw=bw),
+            s3.bidiag_singular_values(got[0], got[1], backend="ref"))
         inv = fused_small.uv_invariants(a, *got)
         worst[name] = max(worst[name], max(inv) / tol_uv)
         fused_err("uv invariants", dname, max(inv))
@@ -1930,6 +2197,8 @@ def run(args, torch) -> int:
                     and dname == flash_main[name],
                     err_of=flash_attention.row_error)
             del q, k, v, want, got
+    check(all(fused_bitwise.values()), "fused values-mode sigma is not bit "
+          "for bit the plain bisection on uv mode's (d, e)")
     emit({"phase": "kernels_vs_plain", "ok": True, "comparisons": n_cmp,
           "main_path_shapes": {
               "chase_cycle_cuda (b_in, tw, slots, dtype)": main_cycle,
@@ -1952,6 +2221,8 @@ def run(args, torch) -> int:
           "sturm_bitwise_vs_plain": sturm_bitwise,
           "flash_cases": flash_cases,
           "fused_cases": len(fused_cases),
+          "fused_routes": fused_routes,
+          "fused_sigma_bitwise_vs_plain_bisection": fused_bitwise,
           "fused_worst_err_over_scale": fused_errs,
           "fused_uv_entries_witness": witness,
           "tape_apply_cases": len(tape_cases) + len(main_tape) * len(TOLS),
@@ -2146,15 +2417,31 @@ def run(args, torch) -> int:
         a = torch.from_numpy(rng.standard_normal((b, n, n))).to(
             dev, dtypes[dname])
         iters = s3.default_bisect_iters(dtypes[dname])
+        key = "fused_small_svd_cuda" + ("" if i == 0 else " (second shape)")
+        route = fused_route_label(tuning, n, bw, dtypes[dname], False)
         time_kernel(
-            "fused_small_svd_cuda" + ("" if i == 0 else " (second shape)"),
-            "fused_small_kernel",
+            key, "fused_small_kernel",
             lambda a=a, bw=bw: fused_small.fused_small_svd_cuda(a, bw=bw),
             lambda a=a, bw=bw: ref.fused_small_svd_ref(a, bw=bw),
             20 if i == 0 else 10, 1, f"B={b}, n={n}, bw={bw} {dname}, "
-            f"values", fused_bound(b, n, bw, iters, dname,
-                                   a.element_size()),
+            f"values, route {route}, (d, s) = "
+            f"{fused_small.bisect_schedule(n, iters)}",
+            fused_bound(b, n, bw, iters, dname, a.element_size()),
             library=lambda a=a: torch.linalg.svdvals(a))
+        timing[key]["route"] = route
+        if i == 0:        # uv mode at the same shape; no PyTorch call
+            route = fused_route_label(tuning, n, bw, dtypes[dname], True)
+            time_kernel(
+                "fused_small_svd_cuda (uv)", "fused_small_kernel",
+                lambda a=a, bw=bw: fused_small.fused_small_svd_cuda(
+                    a, bw=bw, compute_uv=True),
+                lambda a=a, bw=bw: ref.fused_small_svd_ref(
+                    a, bw=bw, compute_uv=True),
+                20, 1, f"B={b}, n={n}, bw={bw} {dname}, uv (d, e, U2, "
+                f"V2^T), route {route}",
+                fused_bound(b, n, bw, iters, dname, a.element_size(),
+                            compute_uv=True))
+            timing["fused_small_svd_cuda (uv)"]["route"] = route
         del a
     # causal flash attention at the main path's shape with grouped KV
     # heads: the wgmma kernel in bf16 (the serving run), flash_attn.cu in
@@ -2593,16 +2880,18 @@ def run(args, torch) -> int:
                        main_path_bound_ms=t["main_path_bound"][0])
         for field in ("superstep_k1_main_path_ms", "main_path_kernel_ms",
                       "main_path_ms_by_kernel", "main_path_schedule",
-                      "bitwise_vs_plain"):
+                      "bitwise_vs_plain", "route"):
             if field in t:
                 row[field] = t[field]
         for suffix, field in ((" (replay)", "replay_shape"),
-                              (" (second shape)", "second_shape")):
+                              (" (second shape)", "second_shape"),
+                              (" (uv)", "uv_shape")):
             second = timing.get(f"{name}{suffix}")
             if second is None:
                 continue
             row[field] = {
                 "shape": second["shape"], "ms": second["ms"],
+                "route": second.get("route"),
                 "ms_from": second["ms_from"],
                 "kernels_per_call": second["kernels_per_call"],
                 "plain_ms": second["plain_ms"],

@@ -9,12 +9,15 @@ must agree exactly.  The TPU's VMEM budget is NOT copied.  In its place
 (``kernels/csrc/chase.cu``) hold in shared memory per block; it is the one
 copy of that layout's size, and the kernels' wrappers launch with exactly
 this many bytes.  ``check_smem_budget`` holds them to Hopper's 232,448 B per
-block.
+block.  ``fused_route`` does the same for the fused small-n kernel
+(``kernels/csrc/fused_small.cu``): it picks the kernel's route and lays
+out its shared memory.
 """
 
 from __future__ import annotations
 
 import dataclasses
+import functools
 
 import torch
 
@@ -24,7 +27,8 @@ __all__ = [
     "SMEM_PER_BLOCK", "default_tilewidth", "sweep_separation",
     "max_concurrent_sweeps", "check_disjoint_blocks", "smem_bytes",
     "check_smem_budget", "band_padding", "cycle_tile",
-    "fused_smem_bytes", "check_fused_smem_budget", "default_fuse_depth",
+    "FUSED_THREADS", "FusedRoute", "fused_route", "fused_smem_bytes",
+    "check_fused_smem_budget", "default_fuse_depth",
     "stage_plan", "PipelineConfig",
 ]
 
@@ -171,30 +175,107 @@ def check_smem_budget(b_in: int, tw: int, dtype=torch.float32,
     return need
 
 
-def fused_smem_bytes(n: int, dtype=torch.float32, *,
+FUSED_THREADS = 512          # threads of a fused block (fused_small.cu)
+
+
+@dataclasses.dataclass(frozen=True)
+class FusedRoute:
+    """Where one block of the fused small-n kernel keeps its working set.
+
+    ``name`` is "smem" (phases 2 and 3 in shared memory; phase 1 moves in
+    at column ``j0``, before it the trailing block is read and written in
+    device memory; ``j0 >= n - 1``: never) or "global" (every phase on the
+    matrix in device memory, phase 3's z and counts in shared memory).
+    ``uv_smem``: U2 and V2 in shared memory too (uv mode).  The layout, in
+    words of the accumulation type: ``scratch`` words (phases 1-2: partial
+    sums, ``FUSED_THREADS``, and the reflector, n; phase 3 over them: z,
+    two scalars and n int32 counts), then ``region`` words (the trailing
+    block with row stride ``ldt``, then the band: ``h`` diagonals of
+    stride ``ldb``, the first ``dlo`` below the main one), then U2 and V2
+    (row stride ``ldu``) where ``uv_smem``.  Strides are odd, so a warp's
+    lanes on consecutive rows of one column meet distinct banks."""
+    name: str
+    j0: int
+    uv_smem: bool
+    scratch: int
+    region: int
+    ldt: int
+    ldb: int
+    ldu: int
+    dlo: int
+    h: int
+    smem_bytes: int
+
+
+def _fused_scratch(n: int, compute_uv: bool, itemsize: int) -> int:
+    words = FUSED_THREADS + n
+    if not compute_uv:
+        words = max(words, 2 * n + 2 + -(-4 * n // itemsize))
+    return words
+
+
+@functools.lru_cache(maxsize=256)
+def _fused_route(n: int, bw: int, itemsize: int,
+                 compute_uv: bool) -> FusedRoute:
+    budget = SMEM_PER_BLOCK // itemsize
+    # the values mode's scratch decides the route in both modes, so that
+    # both reduce A by the same arithmetic
+    x_val = _fused_scratch(n, False, itemsize)
+    x = x_val if (not compute_uv or x_val <= budget) else \
+        _fused_scratch(n, True, itemsize)
+    dlo = min(bw - 1, n - 1)
+    h = dlo + min(2 * bw - 1, n - 1) + 1
+    ldb = n | 1
+    band = h * ldb
+    # (the kernel relies on it: in shared memory every support fits the
+    # lanes of a warp, 32 x 8 entries)
+    if x_val + band <= budget and bw <= 256:
+        name = "smem"
+        j0 = next((j for j in range(n - 1)
+                   if x_val + max((n - j) * ((n - j) | 1), band) <= budget),
+                  n - 1)
+        ldt = (n - j0) | 1 if j0 < n - 1 else 0
+        region = max((n - j0) * ldt, band)
+    else:
+        name, j0, ldt, region, ldb, dlo, h = "global", n - 1, 0, 0, 0, 0, 0
+    ldu = n | 1
+    uv_smem = compute_uv and x + region + 2 * n * ldu <= budget
+    words = x + region + (2 * n * ldu if uv_smem else 0)
+    return FusedRoute(name, j0, uv_smem, x, region, ldt, ldb,
+                      ldu if uv_smem else 0, dlo, h, words * itemsize)
+
+
+def fused_route(n: int, bw: int, dtype=torch.float32, *,
+                compute_uv: bool = False) -> FusedRoute:
+    """The route and shared-memory layout of the fused kernel for (n, bw)
+    (bw clamped as ``ref.effective_bw``), in the accumulation type of
+    ``dtype``: the "smem" route wherever the band (3bw - 1 diagonals, fewer
+    where n is smaller) fits beside the scratch, phase 1 in shared memory
+    from the first column whose trailing block fits there too.  The kernel
+    checks the layout and the byte count it is launched with."""
+    n = max(int(n), 1)
+    bw = max(1, min(int(bw), max(n - 1, 1)))
+    return _fused_route(n, bw, _itemsize(acc_dtype(dtype_of(dtype))),
+                        bool(compute_uv))
+
+
+def fused_smem_bytes(n: int, dtype=torch.float32, *, bw: int,
                      compute_uv: bool = False) -> int:
     """Dynamic shared memory of one block of the fused small-n kernel, in
-    bytes.
-
-    The (n, n) matrix and, in uv mode, U and V^T stay in device memory; the
-    block holds O(n) words in the accumulation type: the reflector (which
-    is first the row or column it reduces), the dot products w of the
-    matrix, two scalars (tau, beta), and either the dot products of the
-    transform being accumulated (uv mode) or the Golub–Kahan z of length
-    2n - 1 (values mode)."""
-    n = max(int(n), 1)
-    words = 2 * n + 2 + (n if compute_uv else 2 * n - 1)
-    return words * _itemsize(acc_dtype(dtype_of(dtype)))
+    bytes: that of its route (``fused_route``)."""
+    return fused_route(n, bw, dtype, compute_uv=compute_uv).smem_bytes
 
 
 def check_fused_smem_budget(n: int, dtype=torch.float32, *,
                             compute_uv: bool = False) -> int:
-    """Raise when one block of the fused kernel would not fit Hopper's
-    shared memory; return the bytes it needs.
+    """Raise when the fused kernel's O(n) scratch (what even its "global"
+    route keeps in shared memory) would not fit Hopper's shared memory;
+    return its bytes.
 
     The fused tier has no tiled fallback, so such an n belongs on the
     staged pipeline."""
-    need = fused_smem_bytes(n, dtype, compute_uv=compute_uv)
+    itemsize = _itemsize(acc_dtype(dtype_of(dtype)))
+    need = _fused_scratch(max(int(n), 1), compute_uv, itemsize) * itemsize
     if need > SMEM_PER_BLOCK:
         raise ValueError(
             f"fused_small kernel for n={n}, dtype={dtype_name(dtype)} "

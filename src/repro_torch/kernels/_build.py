@@ -6,7 +6,9 @@ PyTorch headers.  Libraries go to ``kernels/build/`` (ignored by git), named
 by a hash of the source and the flags, so an edited source is rebuilt and an
 unchanged one is reused.  Nothing is built when the package is imported:
 the first launch on a CUDA tensor builds what it needs, and
-``build_all`` starts one ``nvcc`` per source, all at once.
+``build_all`` starts one ``nvcc`` per source, all at once.  A library's
+name also hashes the headers of ``csrc/`` (``sturm_device.cuh``), so an
+edited header rebuilds the sources that include it.
 """
 
 from __future__ import annotations
@@ -50,6 +52,8 @@ def nvcc_command(source: Path, target: Path) -> list[str]:
 
 def _target(name: str) -> Path:
     h = hashlib.sha256((CSRC / SOURCES[name]).read_bytes())
+    for header in sorted(CSRC.glob("*.cuh")):       # what a source includes
+        h.update(header.read_bytes())
     h.update(" ".join(FLAGS).encode())
     return BUILD / f"lib{name}-{h.hexdigest()[:16]}.so"
 

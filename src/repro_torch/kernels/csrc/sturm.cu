@@ -41,54 +41,16 @@
 //     so sigma is bit for bit the plain version's.  The wrapper picks s
 //     from B*n (bisect.schedule): enough lanes to hold about 32 warps per
 //     SM, no more.
+// The device code is csrc/sturm_device.cuh, shared with csrc/fused_small.cu.
 // Build without --use_fast_math: the division must be IEEE.
 
 #include <cuda_runtime.h>
 
+#include "sturm_device.cuh"
+
 namespace {
 
 constexpr int kThreads = 128;
-
-// one step of the pivot recurrence, counting a negative pivot
-template <typename A>
-__device__ __forceinline__ void sturm_step(A& t, int& cnt, A zz, A mid,
-                                           A tiny) {
-  if ((t < A(0) ? -t : t) < tiny) t = t < A(0) ? -tiny : tiny;
-  t = -mid - (zz * zz) / t;
-  cnt += t < A(0);
-}
-
-// negative pivots of T_GK - mid I: the plain version's sturm_count.  The
-// entries of z come in groups of kChunk, loaded before the group's steps,
-// so that no load waits on the chain of divisions.
-constexpr int kChunk = 8;
-
-template <typename A>
-__device__ __forceinline__ int sturm_count(const A* __restrict__ zb, int m,
-                                           A mid, A tiny) {
-  A t = -mid;
-  int cnt = t < A(0);
-  int j = 1;
-  for (; j + kChunk <= m; j += kChunk) {
-    A zz[kChunk];
-#pragma unroll
-    for (int u = 0; u < kChunk; ++u) zz[u] = zb[j - 1 + u];
-#pragma unroll
-    for (int u = 0; u < kChunk; ++u) sturm_step(t, cnt, zz[u], mid, tiny);
-  }
-  for (; j < m; ++j) sturm_step(t, cnt, zb[j - 1], mid, tiny);
-  return cnt;
-}
-
-// [lo, hi] becomes the bracket of node j (heap order, j >= 1) of the tree
-// under it: the halvings of j's path, top bit first
-template <typename A>
-__device__ __forceinline__ void descend(int j, A& lo, A& hi) {
-  for (int l = 30 - __clz(j); l >= 0; --l) {
-    const A mid = A(0.5) * (lo + hi);
-    if ((j >> l) & 1) lo = mid; else hi = mid;
-  }
-}
 
 // counts[b * 2^d + j], j in [1, 2^d): the count at node j's midpoint
 template <typename A>
@@ -112,12 +74,11 @@ __global__ void __launch_bounds__(kThreads)
 sturm_bisect_walk_kernel(const A* __restrict__ z, const A* __restrict__ bound,
                   const int* __restrict__ counts, A* __restrict__ out, int B,
                   int n, int max_iter, int d, int s, A tiny) {
-  const int S = 1 << s;                      // lanes of a group
-  const long total = (long)B * n * S;
+  const long total = ((long)B * n) << s;
   const long idx = (long)blockIdx.x * blockDim.x + threadIdx.x;
   if (idx - (threadIdx.x & 31) >= total) return;   // a whole warp past the end
   const long q = idx < total ? idx : total - 1;    // lanes past it shadow the
-  const int lane = (int)(idx & (S - 1));           //   last group
+  const int lane = (int)(idx & ((1 << s) - 1));  //   last group
   const long bk = q >> s;
   const int b = (int)(bk / n);
   const int k = (int)(bk % n) + 1;           // 1-indexed, ascending
@@ -125,29 +86,8 @@ sturm_bisect_walk_kernel(const A* __restrict__ z, const A* __restrict__ bound,
   const int* cb = counts + ((long)b << d);
   A lo = 0;
   A hi = bound[b];
-  int j = 1;
-  for (int l = 0; l < d; ++l) {              // down the counted top
-    const A mid = A(0.5) * (lo + hi);
-    if (cb[j] - n >= k) { hi = mid; j = 2 * j; }
-    else { lo = mid; j = 2 * j + 1; }
-  }
-  for (int done = d; done < max_iter;) {
-    const int lev = min(s > 0 ? s : 1, max_iter - done);
-    int c = 0;
-    if (lane < (1 << lev) - 1) {
-      A l2 = lo, h2 = hi;
-      descend(lane + 1, l2, h2);
-      c = sturm_count(zb, 2 * n, A(0.5) * (l2 + h2), tiny);
-    }
-    int jj = 1;
-    for (int l = 0; l < lev; ++l) {
-      const int cj = __shfl_sync(0xffffffffu, c, jj - 1, S);
-      const A mid = A(0.5) * (lo + hi);
-      if (cj - n >= k) { hi = mid; jj = 2 * jj; }
-      else { lo = mid; jj = 2 * jj + 1; }
-    }
-    done += lev;
-  }
+  walk_top(cb, n, k, d, lo, hi);             // down the counted top
+  bisect_rounds(zb, n, k, lane, s, d, max_iter, tiny, lo, hi);
   if (idx < total && lane == 0)
     out[(size_t)b * n + (n - k)] = A(0.5) * (lo + hi);
 }

@@ -8,6 +8,11 @@ launch, one block per matrix.  Values mode returns sigma (B, n), descending;
 stage 3.  float64 and float32 work in their type, bfloat16 in float32,
 rounded once at the store.
 
+``tuning.fused_route`` picks the kernel's route ("smem": the band, and
+phase 1's trailing block once it fits, in shared memory; "global": the
+matrix in device memory) and lays out its shared memory;
+``bisect_schedule`` picks the in-launch bisection's (d, s).
+
 It takes CUDA tensors only: it launches the kernel or raises, and counts
 the launch in ``launches``.  The plain version ``ref.fused_small_svd_ref``
 is chosen for CPU tensors by ``kernels/ops.py``, not here.  The library is
@@ -23,11 +28,12 @@ import torch
 from repro_torch.core import tuning
 from repro_torch.core.bidiag_svd import default_bisect_iters
 from repro_torch.core.householder import acc_dtype
-from repro_torch.kernels import _build
+from repro_torch.kernels import _build, bisect
 from repro_torch.kernels.ref import effective_bw
 
-__all__ = ["fused_small_svd_cuda", "launches", "CHECK_SHAPES", "CHECK_TOLS",
-           "ENTRY_TOL_FP64", "uv_invariants", "entry_error"]
+__all__ = ["fused_small_svd_cuda", "bisect_schedule", "launches",
+           "CHECK_SHAPES", "CHECK_TOLS", "ENTRY_TOL_FP64", "uv_invariants",
+           "entry_error"]
 
 launches = {"fused_small_svd_cuda": 0}
 
@@ -78,27 +84,45 @@ def entry_error(got, want) -> float:
     return worst
 
 
-def _fn(dtype: torch.dtype):
-    f = _FNS.get(dtype)
+def _fn(dtype: torch.dtype, lib=None):
+    """The C function of the built library for ``dtype``, or of ``lib`` (a
+    copy of ``fused_small.cu`` built elsewhere)."""
+    f = _FNS.get(dtype) if lib is None else None
     if f is None:
-        lib = _build.load("fused_small")
-        f = getattr(lib, f"fused_small_{_SUFFIX[dtype]}")
+        f = getattr(lib or _build.load("fused_small"),
+                    f"fused_small_{_SUFFIX[dtype]}")
         p, i = ctypes.c_void_p, ctypes.c_int
-        f.argtypes = [p, p, p, p, p, p, p, p, p, i, i, i, i, ctypes.c_double,
-                      i, i, p]
+        f.argtypes = [p] * 9 + [i, i, i, i, ctypes.c_double] + [i] * 14 + [p]
         f.restype = ctypes.c_int
-        _FNS[dtype] = f
+        if lib is None:
+            _FNS[dtype] = f
     return f
+
+
+def bisect_schedule(n: int, max_iter: int) -> tuple[int, int]:
+    """(d, s) of the bisection inside the fused launch, one block of
+    ``tuning.FUSED_THREADS`` threads per matrix: the tree's top d =
+    min(floor(log2 n), max_iter) levels counted once, then s levels a round
+    over groups of 2^s lanes, the largest s in [0, 5] whose n * 2^s lanes
+    the block holds without passing the warps per SM at which the count
+    chain turns throughput-bound (``bisect._WARPS_AT_THROUGHPUT``); s = 1
+    counts one node a round, as s = 0 does, so it becomes 0."""
+    d = min(n.bit_length() - 1, max_iter)
+    lanes = min(tuning.FUSED_THREADS, 32 * bisect._WARPS_AT_THROUGHPUT)
+    s = max((x for x in range(6) if n << x <= lanes), default=0)
+    return d, 0 if s == 1 else s
 
 
 def fused_small_svd_cuda(mats: torch.Tensor, *, bw: int,
                          compute_uv: bool = False,
-                         max_iter: int | None = None):
+                         max_iter: int | None = None, lib=None):
     """Whole-pipeline SVD of a (B, n, n) stack in one launch.
 
     Values mode returns sigma (B, n), descending; ``compute_uv=True``
     returns ``(d, e, U2, V2^T)``.  bw goes through ``ref.effective_bw``;
-    ``max_iter=None`` is 60 bisection steps at fp64 and 40 otherwise."""
+    ``max_iter=None`` is 60 bisection steps at fp64 and 40 otherwise.
+    ``lib``: a copy of ``fused_small.cu`` built elsewhere (planted-fault
+    checks); by default the package's build."""
     if mats.device.type != "cuda":
         raise ValueError(f"mats must be a CUDA tensor, got {mats.device}")
     if mats.dtype not in _SUFFIX:
@@ -117,24 +141,30 @@ def fused_small_svd_cuda(mats: torch.Tensor, *, bw: int,
     elif max_iter < 1:
         raise ValueError(f"max_iter must be None (auto) or >= 1, got "
                          f"{max_iter}")
-    smem = tuning.check_fused_smem_budget(n, mats.dtype, compute_uv=compute_uv)
+    bw = effective_bw(n, bw)
+    tuning.check_fused_smem_budget(n, mats.dtype, compute_uv=compute_uv)
+    route = tuning.fused_route(n, bw, mats.dtype, compute_uv=compute_uv)
     ws = torch.empty((b, n, n), dtype=acc, device=mats.device)
-    sig = d = e = u = vt = uws = vtws = None
+    sig = d = e = u = vt = uws = vws = None
     if compute_uv:
         d, e = mats.new_empty((b, n)), mats.new_empty((b, n))
         u, vt = mats.new_empty((b, n, n)), mats.new_empty((b, n, n))
-        uws, vtws = (u, vt) if acc == mats.dtype else (
-            torch.empty_like(ws), torch.empty_like(ws))
+        if not route.uv_smem:
+            uws, vws = torch.empty_like(ws), torch.empty_like(ws)
     else:
         sig = mats.new_empty((b, n))
     if b * n:
         tiny = float(torch.finfo(acc).tiny) * 4
+        dtop, s = bisect_schedule(n, max_iter)
         ptr = [x.data_ptr() if x is not None else None
-               for x in (mats, ws, uws, vtws, sig, d, e, u, vt)]
+               for x in (mats, ws, uws, vws, sig, d, e, u, vt)]
         with torch.cuda.device(mats.device):
             stream = torch.cuda.current_stream().cuda_stream
-            err = _fn(mats.dtype)(*ptr, b, n, effective_bw(n, bw), max_iter,
-                                  tiny, int(compute_uv), smem, stream)
+            err = _fn(mats.dtype, lib)(
+                *ptr, b, n, bw, max_iter, tiny, int(compute_uv),
+                int(route.name == "smem"), route.j0, int(route.uv_smem),
+                route.scratch, route.region, route.ldt, route.ldb, route.ldu,
+                route.dlo, route.h, dtop, s, route.smem_bytes, stream)
         if err != 0:
             raise RuntimeError(f"fused_small_svd_cuda: CUDA error {err}")
         launches["fused_small_svd_cuda"] += 1

@@ -32,8 +32,9 @@ from repro_torch.core.householder import acc_dtype, make_reflector
 
 __all__ = ["chase_cycle_ref", "chase_superstep_ref", "chase_cycle_band_ref",
            "chase_superstep_band_ref", "BandStageRef", "tape_apply_ref",
-           "hh_block_apply_ref", "effective_bw", "fused_walk",
-           "fused_small_svd_ref", "flash_attention_ref", "gqa_group"]
+           "hh_block_apply_ref", "effective_bw", "fused_walk", "fused_lines",
+           "fused_reduce_band", "fused_small_svd_ref", "flash_attention_ref",
+           "gqa_group"]
 
 
 def _chase_window(win: torch.Tensor, first: torch.Tensor, *, b_in: int,
@@ -370,6 +371,126 @@ def _reduce(a: torch.Tensor, *, bw: int, compute_uv: bool):
     e = torch.zeros_like(d)
     e[:, 1:] = a.diagonal(1, -2, -1)
     return d, e, u, vt
+
+
+class _Store:
+    """A working matrix as ``csrc/fused_small.cu`` stores it, a flat
+    (B, words) buffer: row-major with origin (o, o) and row stride ``ld``
+    ("dense": the matrix in device memory, or phase 1's trailing block), or
+    diagonal-major ("band": A[i, j] at (j - i + dlo) * ld + j, ``h``
+    diagonals)."""
+
+    def __init__(self, buf, kind, ld, o=0, dlo=0, h=0):
+        self.buf, self.kind, self.ld, self.o = buf, kind, ld, o
+        self.dlo, self.h = dlo, h
+
+    def index(self, i: torch.Tensor, j: torch.Tensor) -> torch.Tensor:
+        if self.kind == "band":
+            dd = j - i + self.dlo
+            if bool(((dd < 0) | (dd >= self.h)).any()):
+                raise IndexError("a reflector reaches outside the stored "
+                                 "diagonals of the band")
+            return dd * self.ld + j
+        if bool(((i < self.o) | (j < self.o)).any()):
+            raise IndexError("a reflector reaches outside the trailing block")
+        return (i - self.o) * self.ld + (j - self.o)
+
+
+def fused_lines(right: bool, k: int, lo: int, hi: int, n: int,
+                bw: int) -> tuple[int, int]:
+    """The lines a reflector of the walk meets, first to last: a right one
+    on row k over columns [lo, hi] meets rows [k, hi], a left one on column
+    lo over rows [lo, hi] meets columns [lo, min(hi + bw, n - 1)].  Every
+    other entry of its support's columns (rows) is an exact zero when it
+    acts.  The first line is the pivot line."""
+    return (k, hi) if right else (lo, min(hi + bw, n - 1))
+
+
+def _reflect_lines(store: _Store, uv, right, k, lo, hi, n, bw) -> None:
+    """One reflector on its lines only, in place: the block (B, lines, L)
+    of line l's support entries, updated as ``_reduce`` updates the whole
+    matrix; the pivot line gets beta and exact zeros where tau != 0.  ``uv``
+    (B, n, n), U2 or V2 (V2^T transposed), gets all n rows."""
+    first, last = fused_lines(right, k, lo, hi, n, bw)
+    dev = store.buf.device
+    lines = torch.arange(first, last + 1, device=dev)[:, None]
+    sup = torch.arange(lo, hi + 1, device=dev)[None, :]
+    i, j = (lines, sup) if right else (sup, lines)
+    idx = store.index(*torch.broadcast_tensors(i, j)).reshape(-1)
+    b, m, ln = store.buf.shape[0], last - first + 1, hi - lo + 1
+    blk = store.buf[:, idx].reshape(b, m, ln)
+    v, tau, beta = make_reflector(blk[:, 0, :])
+    w = (blk @ v[:, :, None])[..., 0]
+    new = blk - tau[:, None, None] * (w[:, :, None] * v[:, None, :])
+    new[:, 0, :] = _fixed(new[:, 0, :], beta, tau)
+    store.buf[:, idx] = new.reshape(b, -1)
+    if uv is not None:
+        seg = uv[:, :, lo:hi + 1]
+        w2 = (seg @ v[:, :, None])[..., 0]
+        uv[:, :, lo:hi + 1] = seg - tau[:, None, None] * (w2[:, :, None]
+                                                         * v[:, None, :])
+
+
+def fused_reduce_band(a: torch.Tensor, *, bw: int, compute_uv: bool = False,
+                      route=None):
+    """Phases 1 and 2 of ``fused_small_svd_cuda`` on its own storage, in
+    plain torch (B, n, n) in the accumulation type: each reflector on the
+    lines it meets (``fused_lines``); phase 1 on the whole matrix until
+    column ``route.j0``, then on the trailing block A[j0:, j0:] (row stride
+    ``route.ldt``); the band entries then move to the band storage (``h``
+    diagonals of stride ``ldb``, the first ``dlo`` below the main one), on
+    which phase 2 runs.  On the "global" route every phase runs on the
+    whole matrix.  ``route`` defaults to ``tuning.fused_route``.  Returns
+    ``(d, e, u, vt)`` as ``_reduce``; a reflector that reached outside its
+    storage raises ``IndexError``."""
+    from repro_torch.core import tuning
+    b, n, _ = a.shape
+    bw = effective_bw(n, bw)
+    if route is None:
+        route = tuning.fused_route(n, bw, a.dtype, compute_uv=compute_uv)
+    dense = _Store(a.clone().reshape(b, n * n), "dense", n)
+    u = v = None
+    if compute_uv:
+        eye = torch.eye(n, dtype=a.dtype, device=a.device).expand(b, n, n)
+        u, v = eye.clone(), eye.clone()
+    smem = route.name == "smem"
+    store = dense
+    for j in range(n - 1):
+        if smem and j == route.j0:         # the trailing block moves in
+            blk = dense.buf.reshape(b, n, n)[:, j:, j:]
+            buf = torch.zeros((b, n - j, route.ldt), dtype=a.dtype,
+                              device=a.device)
+            buf[:, :, :n - j] = blk
+            store = _Store(buf.reshape(b, -1), "dense", route.ldt, o=j)
+        _reflect_lines(store, u, False, j, j, n - 1, n, bw)
+        if j + bw < n - 1:
+            _reflect_lines(store, v, True, j, j + bw, n - 1, n, bw)
+    if store is not dense:                 # its rows back, then the band
+        full = dense.buf.reshape(b, n, n)
+        j0 = store.o
+        full[:, j0:, j0:] = store.buf.reshape(b, n - j0, route.ldt)[
+            :, :, :n - j0]
+    if smem:
+        full = dense.buf.reshape(b, n, n)
+        dd = torch.arange(route.h, device=a.device)[:, None]
+        c = torch.arange(route.ldb, device=a.device)[None, :]
+        i = c + route.dlo - dd
+        keep = (c < n) & (i >= 0) & (i <= c) & (c - i <= bw)
+        vals = full[:, i.clamp(0, n - 1), c.clamp(max=n - 1)]
+        band = torch.where(keep, vals, torch.zeros((), dtype=a.dtype,
+                                                   device=a.device))
+        store = _Store(band.reshape(b, -1), "band", route.ldb,
+                       dlo=route.dlo, h=route.h)
+    if bw >= 2 and n >= 3:
+        phase1 = (n - 1) + max(0, n - 1 - bw)
+        for right, k, lo, hi in list(fused_walk(n, bw))[phase1:]:
+            _reflect_lines(store, v if right else u, right, k, lo, hi, n, bw)
+    kk = torch.arange(n, device=a.device)
+    fin = store.buf[:, store.index(kk, kk)]
+    e = torch.zeros_like(fin)
+    if n > 1:
+        e[:, 1:] = store.buf[:, store.index(kk[:-1], kk[1:])]
+    return fin, e, u, (v.mT.contiguous() if compute_uv else None)
 
 
 def fused_small_svd_ref(mats: torch.Tensor, *, bw: int,

@@ -204,18 +204,29 @@ def test_fused_matches_dense_reference_oracle():
 # ---------------------------------------------------------------------------
 
 def test_fused_smem_budget():
-    # values: reflector n, w n, tau and beta, z 2n - 1; uv: w2 n for z
-    assert tuning.fused_smem_bytes(64, torch.float32) == (4 * 64 + 1) * 4
-    assert tuning.fused_smem_bytes(64, torch.float64) == (4 * 64 + 1) * 8
-    assert tuning.fused_smem_bytes(64, torch.float64, compute_uv=True) == \
-        (3 * 64 + 2) * 8
-    assert tuning.fused_smem_bytes(64, torch.bfloat16) == \
-        tuning.fused_smem_bytes(64, torch.float32)
-    assert tuning.check_fused_smem_budget(256, torch.float64) == 1025 * 8
+    # the route's layout (tuning.fused_route): scratch (512 partial sums and
+    # the reflector, n; in values mode at least z 2n - 1, two scalars and n
+    # int32 counts), the region (phase 1's trailing block, here the whole
+    # (64, 65) matrix, or the band), and in uv mode U2 and V2 where they fit
+    assert tuning.fused_smem_bytes(64, torch.float32, bw=8) == \
+        (512 + 64 + 64 * 65) * 4
+    assert tuning.fused_smem_bytes(64, torch.float64, bw=8) == \
+        (512 + 64 + 64 * 65) * 8
+    assert tuning.fused_smem_bytes(64, torch.float64, bw=8,
+                                   compute_uv=True) == \
+        (512 + 64 + 3 * 64 * 65) * 8
+    assert tuning.fused_smem_bytes(64, torch.bfloat16, bw=8) == \
+        tuning.fused_smem_bytes(64, torch.float32, bw=8)
+    # what every route needs: the O(n) scratch, max(512 + n, 2n + 2 + n/2)
+    # words at fp64
+    assert tuning.check_fused_smem_budget(256, torch.float64) == \
+        (512 + 256) * 8
+    assert tuning.check_fused_smem_budget(4096, torch.float64) == \
+        (2 * 4096 + 2 + 2048) * 8
     with pytest.raises(ValueError, match="staged"):
-        tuning.check_fused_smem_budget(8192, torch.float64)
+        tuning.check_fused_smem_budget(16384, torch.float64)
     with pytest.raises(ValueError, match="staged"):
-        PipelineConfig.resolve(bw=32, dtype=torch.float64, n=8192,
+        PipelineConfig.resolve(bw=32, dtype=torch.float64, n=16384,
                                backend="fused_small", device="cpu")
     cfg = PipelineConfig.resolve(bw=32, dtype=torch.float32, n=256,
                                  backend="fused_small", device="cpu")

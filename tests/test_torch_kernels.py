@@ -47,6 +47,14 @@ WY_SHAPES = [(64, 8, 100), (128, 16, 64), (33, 4, 7), (256, 32, 512),
 # the fused kernel: the reference's shapes and the two main-path runs of
 # chip_smoke.py, held to fused_small's CHECK_TOLS and ENTRY_TOL_FP64
 FUSED_SHAPES = tfused.CHECK_SHAPES + [(64, 64, 8), (64, 256, 32)]
+# each route of the fused kernel (tuning.fused_route), with what it keeps in
+# shared memory: (B, n, bw, dtype, route, j0, uv_smem)
+FUSED_ROUTE_CASES = [
+    (3, 64, 8, "float64", "smem", 0, True),       # all of it, U2 and V2 too
+    (2, 256, 32, "float32", "smem", 17, False),   # phase 1 moves in at 17
+    (2, 256, 40, "float64", "global", 255, False),
+    (2, 300, 4, "float64", "smem", 133, False),    # supports past 256
+    (2, 300, 8, "float32", "smem", 61, False)]
 
 
 def wy_inputs(s, m, k, w, seed, dtype, device):
@@ -690,6 +698,45 @@ def test_fused_small_svd_cuda_bf16(cuda, B, n, bw):
     assert u.dtype == torch.bfloat16 and bool((e[:, 0] == 0).all())
     close(s3.bidiag_singular_values(d, e),
           tref.fused_small_svd_ref(a, bw=bw), 1e-2)
+
+
+@pytest.mark.cuda
+@pytest.mark.parametrize("case", FUSED_ROUTE_CASES)
+def test_fused_small_svd_cuda_routes_match_plain(cuda, case):
+    """Every route against the plain version, values and uv mode, within
+    CHECK_TOLS and ENTRY_TOL_FP64."""
+    B, n, bw, dtype, name, j0, uv_smem = case
+    dt = torch_dtype(dtype)
+    route = tuning.fused_route(n, bw, dt, compute_uv=True)
+    assert (route.name, route.j0, route.uv_smem) == (name, j0, uv_smem)
+    a = torch.from_numpy(np.random.default_rng(n + bw).standard_normal(
+        (B, n, n))).to(cuda, dt)
+    tol, tol_uv = tfused.CHECK_TOLS[dtype]
+    close(tfused.fused_small_svd_cuda(a, bw=bw),
+          tref.fused_small_svd_ref(a, bw=bw), tol)
+    got = tfused.fused_small_svd_cuda(a, bw=bw, compute_uv=True)
+    want = tref.fused_small_svd_ref(a, bw=bw, compute_uv=True)
+    torch.cuda.synchronize()
+    assert max(tfused.uv_invariants(a, *got)) <= tol_uv
+    if dtype == "float64":
+        assert tfused.entry_error(got, want) <= tfused.ENTRY_TOL_FP64
+
+
+@pytest.mark.cuda
+@pytest.mark.parametrize("dtype", ["float64", "float32"])
+@pytest.mark.parametrize("B,n,bw", sorted(
+    {(b, n, bw) for b, n, bw, *_ in FUSED_ROUTE_CASES}
+    | set(tfused.CHECK_SHAPES)))
+def test_fused_small_values_sigma_is_bitwise_plain_bisection(cuda, B, n, bw,
+                                                             dtype):
+    """Values mode reduces A as uv mode does and bisects in the launch as
+    bisect_plain does: its sigma is bit for bit the plain bisection's on the
+    (d, e) that uv mode returns, on the same route."""
+    a = torch.from_numpy(np.random.default_rng(n * 3 + bw).standard_normal(
+        (B, n, n))).to(cuda, torch_dtype(dtype))
+    d, e, _, _ = tfused.fused_small_svd_cuda(a, bw=bw, compute_uv=True)
+    sig = tfused.fused_small_svd_cuda(a, bw=bw)
+    assert torch.equal(sig, s3.bidiag_singular_values(d, e, backend="ref"))
 
 
 @pytest.mark.cuda
