@@ -17,7 +17,13 @@ of a dense fp64 matrix at n = 4096 (U, sigma, V^T, timed part by part),
 ``svd_batched(..., compute_uv=True)`` on 16 fp32 matrices, and the fused
 small-n tier (``backend="fused_small"``, one launch per batch) on 64 fp64
 matrices of n = 64 and 64 fp32 matrices of n = 256, each timed against the
-staged pipeline on the same batch.  Results are checked against
+staged pipeline on the same batch.  Stage 3 by divide and conquer
+(``stage3="dc"``, the kernels of ``dc.cu``) runs on the banded fp64 n =
+4096 and fp32 n = 16384 matrices beside their bisection, and in the full
+SVD of a dense fp64 n = 1024; then the autotuner searches (tw, fuse) at
+fp64 n = 4096 and the stage-3 crossover on the bidiagonals the pipeline
+makes of banded inputs (fp64 and fp32, one matrix and four), and reads
+them back from a temporary cache.  Results are checked against
 ``torch.linalg.svdvals``, which serves here only as a yardstick, and U and
 V^T by reconstruction and orthogonality.  Then the LM serving path with
 phi3-medium-14b at full width: a four-layer fp32 prefill (b = 2, s = 2048)
@@ -603,6 +609,132 @@ def sturm_run(torch, fn, z, bound, n, max_iter, d, s):
     check(err == 0, f"sturm_bisect (d={d}, s={s}): CUDA error {err}")
     torch.cuda.synchronize()
     return out
+
+
+# the divide-and-conquer kernels' ops, their kernels and their plain
+# versions, and the tolerance of the secular roots against the plain
+# version's, times the pole scale of the row (max|d| + sum w)
+DC_OPS = {"dc_leaf": ("dc_leaf_cuda", "leaf_eigen_plain"),
+          "dc_deflate": ("dc_deflate_cuda", "deflate_plain"),
+          "dc_secular": ("dc_secular_cuda", "secular_plain")}
+DC_ROOT_TOLS = {"float64": 1e-13, "float32": 1e-5}
+# the first and last eigenvector rows of a leaf with no two eigenvalues in
+# one Gram-Schmidt cluster (1e-3 of its scale apart) are well conditioned
+# and held to these; a leaf with a cluster may hold any basis of it, so
+# there each resolved cluster (dc_cluster_sums) is held by what no rotation
+# inside it changes, and the rows' own difference is reported only
+DC_ROW_TOLS = {"float64": 1e-12, "float32": 1e-4}
+
+
+def dc_cluster_sums(torch, lam, f, l, ctol):
+    """Per cluster of each leaf (a run of eigenvalues whose neighbours are
+    within ``ctol``, the Gram-Schmidt's reach), at the cluster's index:
+    the sums of f^2, f*l and l^2 over its members (3, P, lm), zeros past
+    the last cluster, which do not change when the basis of the cluster
+    rotates; its members' count (P, lm); and (P, lm) whether the cluster
+    is resolved, no two of its
+    eigenvalues closer than 64 eps times the leaf's scale (``ctol``'s
+    floor; the scale is ctol / 1e-3).  Inside an unresolved cluster (a
+    degenerate eigenvalue: the tail of a random banded matrix's bidiagonal
+    is ~1e-26 at fp32 n = 16384) inverse iteration cannot tell the vectors
+    apart and one Gram-Schmidt pass leaves rounding that no fixed
+    tolerance bounds, in the plain version as in the kernel."""
+    eps = torch.finfo(lam.dtype).eps
+    gap = lam[:, 1:] - lam[:, :-1]
+    start = torch.ones_like(lam, dtype=torch.bool)
+    start[:, 1:] = gap >= ctol[:, None]
+    cid = torch.cumsum(start.to(torch.int64), -1) - 1
+    tight = (gap < 64 * eps * 1e3 * ctol[:, None]).to(torch.int64)
+    unresolved = torch.zeros_like(cid).scatter_add_(-1, cid[:, 1:], tight)
+    sums = torch.zeros((3,) + tuple(lam.shape), dtype=lam.dtype,
+                       device=lam.device).scatter_add_(
+        -1, cid.expand(3, -1, -1), torch.stack((f * f, f * l, l * l)))
+    size = torch.zeros_like(cid).scatter_add_(-1, cid, torch.ones_like(cid))
+    return sums, size, unresolved == 0
+
+
+def dc_recorded(torch, ops, s3dc, d, e):
+    """sigma of the bidiagonals (d, e) by ``bidiag_dc_singular_values``
+    through the kernels, and every kernel op call it made: (op, the
+    arguments, cloned before the call, keywords)."""
+    calls = []
+    kept = {op: getattr(ops, op) for op in DC_OPS}
+
+    def recorder(op):
+        def call(*a, **kw):
+            calls.append((op, tuple(x.clone() if isinstance(x, torch.Tensor)
+                                    else x for x in a), kw))
+            return kept[op](*a, **kw)
+        return call
+
+    for op in DC_OPS:
+        setattr(ops, op, recorder(op))
+    try:
+        sig = s3dc.bidiag_dc_singular_values(d, e, backend="cuda")
+    finally:
+        for op, fn in kept.items():
+            setattr(ops, op, fn)
+    torch.cuda.synchronize()
+    return sig, calls
+
+
+def dc_run(torch, dc, s3dc, op, args, kw, plain=False):
+    """The kernel of one recorded call (or its plain version), on clones of
+    its arguments (the deflation works in place)."""
+    kw = {k: v for k, v in kw.items() if k != "backend"}
+    args = tuple(x.clone() if isinstance(x, torch.Tensor) else x
+                 for x in args)
+    kernel, twin = DC_OPS[op]
+    fn = getattr(s3dc, twin) if plain else getattr(dc, kernel)
+    return fn(*args, **kw)
+
+
+def dc_call_shape(op, args, kw) -> tuple:
+    """(op, P, m, nact or None, dtype) of a recorded call."""
+    p, m = args[0].shape
+    return (op, p, m, kw.get("nact"), str(args[0].dtype).removeprefix(
+        "torch."))
+
+
+def dc_leaf_bound(p, lm, iters, inv_iters, dname, itemsize):
+    """Leaves: a, b, brackets and start vectors read once, lam, f, l written
+    once; per leaf and index: ``iters`` counts of lm steps (subtract,
+    multiply, divide, subtract: 4), ``inv_iters`` solves (8 per row) and
+    norms (3 per row), and the Gram-Schmidt's two projections (4 per
+    earlier vector and row); a division counted as one."""
+    nbytes = (p * (2 * lm - 1 + 3) + lm * lm + 3 * p * lm) * itemsize
+    flops = p * (lm * (iters * lm * 4 + inv_iters * lm * 11)
+                 + 2 * lm * lm * (lm - 1))
+    t_bytes, t_ops = nbytes / HBM_BYTES_PER_S, flops / PEAK_FLOPS[dname]
+    return (max(t_bytes, t_ops) * 1e3,
+            "bytes" if t_bytes >= t_ops else "operations", nbytes, flops)
+
+
+def dc_deflate_bound(p, m, dname, itemsize):
+    """The scan: d, z, fe, le and the active flags read and written once,
+    tol read; about 24 operations a column step (the rotation, its test,
+    the emitted and the carried column), a square root counted as one."""
+    nbytes = 2 * p * m * (4 * itemsize + 1) + p * itemsize
+    flops = 24 * p * max(m - 1, 0)
+    t_bytes, t_ops = nbytes / HBM_BYTES_PER_S, flops / PEAK_FLOPS[dname]
+    return (max(t_bytes, t_ops) * 1e3,
+            "bytes" if t_bytes >= t_ops else "operations", nbytes, flops)
+
+
+def dc_secular_bound(p, m, nact, roots, kh, newton_iters, dname, itemsize):
+    """The roots: d, w, gap, the next poles and the flags read once, the
+    heavy poles' indices read once, anc and tau written once.  Operations:
+    what every active root needs at the least, its midpoint pass and one
+    polish pass over the prefix (subtract, subtract, two divisions and two
+    sums: 6 per pole), and the windowed iterations over its 128 + kh poles
+    (6 per pole); the polish passes past the first depend on the data and
+    are not counted, so this is a bound from below."""
+    nbytes = (p * m * (4 * itemsize + 2) + p * kh * 8
+              + 2 * p * nact * itemsize)
+    flops = roots * (2 * 6 * nact + newton_iters * 6 * (128 + kh))
+    t_bytes, t_ops = nbytes / HBM_BYTES_PER_S, flops / PEAK_FLOPS[dname]
+    return (max(t_bytes, t_ops) * 1e3,
+            "bytes" if t_bytes >= t_ops else "operations", nbytes, flops)
 
 
 def tape_apply_calls(bc, runs):
@@ -1824,16 +1956,228 @@ def wy_planted_faults(args, torch) -> int:
 # the run
 # ---------------------------------------------------------------------------
 
+DC_PATH = ["dc_leaf_cuda", "dc_deflate_cuda", "dc_secular_cuda"]
+
+
+def dc_profile(torch, fn):
+    """Where one stage-3 call's time goes: device ms by kernel (the three
+    dc kernels and the rest, summed by name), busy ms and wall seconds,
+    from torch.profiler."""
+    from torch.profiler import ProfilerActivity, profile
+    torch.cuda.synchronize()
+    with profile(activities=[ProfilerActivity.CPU,
+                             ProfilerActivity.CUDA]) as prof:
+        t0 = time.perf_counter()
+        fn()
+        torch.cuda.synchronize()
+        wall = time.perf_counter() - t0
+    on_card = [ev for ev in prof.key_averages()
+               if "CUDA" in str(ev.device_type) and ev.device_time_total > 0]
+    by = {}
+    for ev in on_card:
+        key = next((k for k in ("dc_leaf_kernel", "dc_deflate_kernel",
+                                "dc_secular_kernel") if k in ev.key),
+                   "other")
+        by[key] = by.get(key, 0.0) + ev.device_time_total / 1e3
+    busy = sum(by.values())
+    top = sorted(on_card, key=lambda ev: ev.device_time_total,
+                 reverse=True)[:6]
+    return {"wall_s": wall, "device_busy_ms": busy or None,
+            "device_idle_share": 1 - busy / 1e3 / wall if busy else None,
+            "device_ms_by_kernel": by,
+            "launches_of_other_kernels": sum(
+                ev.count for ev in on_card
+                if not any(k in ev.key for k in ("dc_leaf", "dc_deflate",
+                                                 "dc_secular"))),
+            "top_device_kernels": [{"kernel": ev.key[:60],
+                                    "count": ev.count,
+                                    "device_ms": ev.device_time_total / 1e3}
+                                   for ev in top]}
+
+
+def stage3_dc(torch, tsvd, s3, s3dc, drive, PipelineConfig, gen, mats):
+    """Banded sigma with stage3="dc" on the matrices of phases 3 and 4
+    (fp64 n = 4096 and fp32 n = 16384, bw 64, fuse 1), held to those
+    phases' yardsticks and to their bisection's sigma (fp64: 1e-12 *
+    sigma_max, the reference's gate; fp32: 1e-4 * sigma_max); stage 3
+    alone on each bidiagonal, dc beside bisection (CUDA events, 3 calls
+    after a warm-up) and dc profiled; then the full SVD of a dense fp64
+    n = 1024 with stage3="dc"."""
+    out = {"phase": "stage3_dc"}
+    oks = []
+    for a, cfg, sig_bi, yard, (d, e) in mats:
+        n, dname = a.shape[-1], cfg.dtype
+        cfg_dc = PipelineConfig.resolve(bw=cfg.bw, dtype=a.dtype, n=n,
+                                        fuse=cfg.fuse, stage3="dc")
+        sig, run_ = drive(f"{dname} n={n} fuse={cfg.fuse} stage3=dc "
+                          f"banded_singular_values",
+                          lambda: tsvd.banded_singular_values(
+                              a, config=cfg_dc, check=True),
+                          ["chase_cycle_cuda"] + DC_PATH)
+        smax = float(sig_bi.max())
+        vs_bisect = float((sig.double() - sig_bi.double()).abs().max())
+        row = {"n": n, "dtype": dname, "bw": cfg.bw, "tw": cfg.tw,
+               "leaf_n": cfg_dc.dc_leaf_n, "sigma_max": smax,
+               "dc_vs_bisect_max_abs": vs_bisect, "runs": [run_]}
+        if dname == "float64":
+            row.update(tol_vs_bisect=1e-12 * smax,
+                       err_vs_svdvals=float((sig - yard).abs().max()),
+                       tol_vs_svdvals=1e-10 * smax)
+            ok = (vs_bisect <= row["tol_vs_bisect"]
+                  and row["err_vs_svdvals"] <= row["tol_vs_svdvals"])
+        else:
+            rel = abs(float((sig.double() ** 2).sum()) - yard) / yard
+            row.update(tol_vs_bisect=1e-4 * smax, frobenius_rel_err=rel,
+                       tol_frobenius=1e-4)
+            ok = vs_bisect <= row["tol_vs_bisect"] and rel <= 1e-4
+        times = {}
+        for solver, fn in (
+                ("bisect", lambda: s3.bidiag_singular_values(d, e)),
+                ("dc", lambda: s3dc.bidiag_dc_singular_values(d, e)),
+                ("bisect again", lambda: s3.bidiag_singular_values(d, e)),
+                ("dc again", lambda: s3dc.bidiag_dc_singular_values(d, e))):
+            times[solver] = gpu_ms(torch, fn, iters=3, warmup=1)
+        row["stage3_alone_ms"] = times
+        row["stage3_dc_profile"] = dc_profile(
+            torch, lambda: s3dc.bidiag_dc_singular_values(d, e))
+        oks.append(ok)
+        out[f"banded_{dname}_n{n}"] = row
+    nd = 1024
+    cfg_sd = PipelineConfig.resolve(bw=64, dtype=torch.float64, n=nd,
+                                    fuse=4, stage3="dc")
+    ad = torch.randn((nd, nd), generator=gen, dtype=torch.float64,
+                     device="cuda")
+    uv_path = ["chase_superstep_cuda", "tape_apply_cuda"] + DC_PATH
+    (u, sg, vt), ru = drive("fp64 n=1024 fuse=4 stage3=dc svd",
+                            lambda: tsvd.svd(ad, config=cfg_sd), uv_path)
+    sv, rv = drive("fp64 n=1024 fuse=4 stage3=dc singular_values",
+                   lambda: tsvd.singular_values(ad, config=cfg_sd),
+                   ["chase_superstep_cuda"] + DC_PATH)
+    eye = torch.eye(nd, dtype=torch.float64, device="cuda")
+    recon = float(torch.linalg.norm(ad - (u * sg) @ vt)
+                  / torch.linalg.norm(ad))
+    dense = {"n": nd, "bw": 64, "fuse": 4, "recon_rel_fro": recon,
+             "tol_recon": 50 * nd * torch.finfo(torch.float64).eps,
+             "orth_u": float((u.mT @ u - eye).abs().max()),
+             "orth_v": float((vt @ vt.mT - eye).abs().max()),
+             "tol_orth": 1e-9, "sigma_bitwise_vs_singular_values":
+                 torch.equal(sg, sv),
+             "err_vs_svdvals_over_sigma_max": float(
+                 (sg - torch.linalg.svdvals(ad)).abs().max() / sg.max()),
+             "runs": [ru, rv]}
+    oks.append(recon <= dense["tol_recon"] and dense["orth_u"] <= 1e-9
+               and dense["orth_v"] <= 1e-9 and torch.equal(sg, sv)
+               and dense["err_vs_svdvals_over_sigma_max"] <= 1e-10)
+    out["dense_fp64_n1024_svd"] = dense
+    out["ok"] = all(oks)
+    emit(out)
+    check(out["ok"], "stage3_dc: dc sigma off its yardsticks, or the dense "
+          "dc svd off its bounds")
+
+
+def autotune_phase(torch, PipelineConfig) -> None:
+    """The autotuner on the card: the (tw, fuse) search at fp64 n = 4096,
+    bw 64 (top-k 2, with the model's predicted against the measured
+    times), and the stage-3 crossover over n = 512 ... 16384 on the
+    bidiagonals stage 2 makes of banded bw-64 inputs (what the pipeline
+    hands stage 3), fp64 and fp32, B = 1 (the banded entry point's one
+    matrix) and B = 4 up to n = 4096; beside them the reference's sweep on
+    i.i.d. normal bidiagonals (fp64, B = 4).  The search and the B = 1
+    crossovers are persisted to a temporary cache that
+    ``PipelineConfig.resolve(autotune=True)`` then reads back.  ``DEFAULT_DC_N_MIN`` is compared
+    with the largest banded reading: dc only where it won in every sweep."""
+    import os
+    import tempfile
+
+    from repro_torch.autotune import cache as at_cache
+    from repro_torch.autotune import search as at_search
+    from repro_torch.core import tuning
+    f64, f32 = torch.float64, torch.float32
+    ns = (512, 1024, 2048, 4096, 8192, 16384)
+    t0 = time.perf_counter()
+    res = at_search.search(4096, 64, dtype=f64, backend="cuda", top_k=2,
+                           warmup=1, iters=2, device="cuda")
+    t1 = time.perf_counter()
+    random = at_search.search_stage3_crossover(
+        dtype=f64, ns=ns, batch=4, warmup=1, iters=5, backend="cuda",
+        device="cuda")
+    # B = 4 up to 4096, the sizes the batched entry points are driven at
+    # here; no warm-up beyond the agreement call that precedes the timing
+    banded = {(dt, b): at_search.search_stage3_crossover(
+        dtype=dt, ns=ns if b == 1 else ns[:4], batch=b, warmup=0, iters=3,
+        backend="cuda", device="cuda", bw=64)
+        for dt in (f64, f32) for b in (1, 4)}
+    t2 = time.perf_counter()
+    with tempfile.TemporaryDirectory() as tmp:
+        path = os.path.join(tmp, "cache.json")
+        at_cache.store(res.to_entry(), device_kind=res.device_kind, n=4096,
+                       bw=64, dtype="float64", compute_uv=False,
+                       backend="cuda", path=path)
+        for dt in (f64, f32):
+            cross = banded[(dt, 1)]
+            at_cache.store_stage3(cross.to_entry(),
+                                  device_kind=cross.device_kind,
+                                  dtype=cross.dtype, compute_uv=False,
+                                  path=path)
+        cfg = PipelineConfig.resolve(bw=64, dtype=f64, n=4096,
+                                     stage3="auto", autotune=True,
+                                     autotune_cache=path)
+        free = {dt: PipelineConfig.resolve(bw=64, dtype=dt, stage3="auto",
+                                           autotune=True,
+                                           autotune_cache=path)
+                for dt in (f64, f32)}
+    sweeps = [random] + list(banded.values())
+    agree = max(p[3] for c in sweeps if c.dtype == "float64"
+                for p in c.points)
+    agree32 = max(p[3] for c in sweeps if c.dtype == "float32"
+                  for p in c.points)
+    reading = max(c.dc_n_min for c in banded.values())
+    ok = ((cfg.tw, cfg.fuse) == (res.best.tw, res.best.fuse)
+          and all(free[dt].dc_n_min == banded[(dt, 1)].dc_n_min
+                  for dt in (f64, f32))
+          and agree <= 1e-12 and agree32 <= 1e-4)
+    emit({"phase": "autotune", "ok": ok,
+          "search_table": res.table().splitlines(),
+          "model_rank_of_measured_best": res.model_rank_of_best(),
+          "candidates": len(res.candidates),
+          "measured": [{"tw": c.tw, "fuse": c.fuse,
+                        "predicted_us": c.predicted_s * 1e6,
+                        "measured_us": c.measured_s * 1e6,
+                        "error_pct": c.error_pct} for c in res.measured],
+          "best": res.to_entry(), "search_s": t1 - t0,
+          "stage3_random_fp64_B4": {
+              "table": random.table().splitlines(),
+              "dc_n_min": random.dc_n_min},
+          "stage3_banded_bw64": {
+              f"{c.dtype} B={b}": {"table": c.table().splitlines(),
+                                   "points": c.to_entry()["points"],
+                                   "dc_n_min": c.dc_n_min,
+                                   "predicted_dc_n_min": c.predicted_n_min}
+              for (_, b), c in banded.items()},
+          "dc_n_min_reading": reading,
+          "stage3_search_s": t2 - t1, "max_agree_fp64": agree,
+          "max_agree_fp32": agree32,
+          "default_dc_n_min": tuning.DEFAULT_DC_N_MIN,
+          "default_equals_reading": tuning.DEFAULT_DC_N_MIN == reading,
+          "read_back": {"tw": cfg.tw, "fuse": cfg.fuse,
+                        "stage3_at_n4096": cfg.stage3,
+                        "dc_n_min": {tuning.dtype_name(dt): c.dc_n_min
+                                     for dt, c in free.items()}}})
+    check(ok, "autotune: the cache did not read back what the searches "
+          "measured, or dc and bisection disagreed")
+
+
 def run(args, torch) -> int:
     import numpy as np
 
+    from repro_torch.core import bidiag_dc as s3dc
     from repro_torch.core import bidiag_svd as s3
     from repro_torch.core import bulge_chasing as bc
     from repro_torch.core import svd as tsvd
     from repro_torch.core import transforms as tr
     from repro_torch.core import tuning
     from repro_torch.core.tuning import PipelineConfig
-    from repro_torch.kernels import (_build, bisect, bulge_chase,
+    from repro_torch.kernels import (_build, bisect, bulge_chase, dc,
                                      flash_attention, fused_small, hh_apply,
                                      ops, ref)
 
@@ -1897,7 +2241,8 @@ def run(args, torch) -> int:
     worst = {"chase_cycle_cuda": 0.0, "chase_superstep_cuda": 0.0,
              "sturm_bisect_cuda": 0.0, "tape_apply_cuda": 0.0,
              "fused_small_svd_cuda": 0.0, "flash_attention_cuda": 0.0,
-             "flash_attention_wgmma_cuda": 0.0}
+             "flash_attention_wgmma_cuda": 0.0, "dc_leaf_cuda": 0.0,
+             "dc_deflate_cuda": 0.0, "dc_secular_cuda": 0.0}
     main_err = dict.fromkeys(worst, 0.0)
     n_cmp = 0
 
@@ -2197,6 +2542,95 @@ def run(args, torch) -> int:
                     and dname == flash_main[name],
                     err_of=flash_attention.row_error)
             del q, k, v, want, got
+    # the divide-and-conquer kernels at every level shape of the two
+    # main-path dc calls (phase stage3_dc): bidiagonals of banded matrices
+    # of those sizes go through bidiag_dc on the kernels, and every kernel
+    # call's inputs are given again to the kernel and to its plain version
+    # on the card.  Leaf eigenvalues and the deflation bit for bit, the
+    # leaves' rows within DC_ROW_TOLS where no cluster is in the leaf, and
+    # in the other leaves each resolved cluster's sums of f^2, f*l and l^2
+    # within DC_ROW_TOLS; the roots within DC_ROOT_TOLS of the pole scale
+    dc_gen = torch.Generator(device="cuda")
+    dc_gen.manual_seed(args.seed + 1)
+    dc_calls, dc_bitwise, dc_rows = {}, {}, {}
+    for n, dt, cfg in ((n3, f64, cfg1), (n4, f32, c1)):
+        d_, e_ = tsvd.bidiagonal_of(banded_matrix(torch, (), n, bw3, dt,
+                                                  dc_gen), config=cfg)
+        dc_calls[n] = dc_recorded(torch, ops, s3dc, d_, e_)[1]
+        del d_, e_
+    for n, calls in dc_calls.items():
+        for op, a_, kw in calls:
+            key = dc_call_shape(op, a_, kw)
+            dname = key[-1]
+            kernel = DC_OPS[op][0]
+            got = dc_run(torch, dc, s3dc, op, a_, kw)
+            want = dc_run(torch, dc, s3dc, op, a_, kw, plain=True)
+            torch.cuda.synchronize()
+            if op == "dc_leaf":
+                same = torch.equal(got[0], want[0])
+                dc_bitwise[str(key) + " lam"] = same
+                check(same, f"{kernel} at {key}: eigenvalues not bit for "
+                      f"bit the plain version's")
+                lam, ctol = want[0], a_[4]
+                gaps = (lam[:, 1:] - lam[:, :-1]).amin(-1)
+                sep = gaps >= ctol
+                err_rows = [float((g_ - w_).abs().amax(-1)[sep].max())
+                            if bool(sep.any()) else 0.0
+                            for g_, w_ in zip(got[1:], want[1:])]
+                sums_g, size, resolved = dc_cluster_sums(
+                    torch, got[0], *got[1:], ctol)
+                sums_w = dc_cluster_sums(torch, want[0], *want[1:], ctol)[0]
+                held = resolved & ~sep[:, None]
+                dc_rows[str(key)] = {
+                    "separated_leaves": int(sep.sum()),
+                    "max_row_err_separated": max(err_rows),
+                    "max_row_err_clustered": max(
+                        float((g_ - w_).abs()[~sep].max()) if bool(
+                            (~sep).any()) else 0.0
+                        for g_, w_ in zip(got[1:], want[1:])),
+                    "held_clusters_of_two_or_more": int(
+                        (held & (size >= 2)).sum()),
+                    "largest_held_cluster": int(size[held].max()) if bool(
+                        held.any()) else 0,
+                    "unresolved_clusters": int((~resolved).sum()),
+                    "max_cluster_sum_err_held": float(
+                        (sums_g - sums_w)[:, held].abs().max()) if bool(
+                            held.any()) else 0.0,
+                    "max_cluster_sum_err_unresolved": float(
+                        (sums_g - sums_w)[:, ~resolved].abs().max()) if bool(
+                            (~resolved).any()) else 0.0}
+                compare(kernel, [g_[sep] for g_ in got[1:]],
+                        [w_[sep] for w_ in want[1:]], DC_ROW_TOLS[dname],
+                        key, False)
+                if bool(held.any()):
+                    compare(kernel, [sums_g[:, held]], [sums_w[:, held]],
+                            DC_ROW_TOLS[dname], key + ("cluster sums",),
+                            False)
+                main_err[kernel] = max(main_err[kernel],
+                                       float((got[0] - want[0]).abs().max()))
+            elif op == "dc_deflate":
+                same = all(torch.equal(g_, w_) for g_, w_ in zip(got, want))
+                dc_bitwise[str(key)] = same
+                check(same, f"{kernel} at {key}: not bit for bit the plain "
+                      f"scan")
+                n_cmp += 1
+                main_err[kernel] = max(main_err[kernel], max(
+                    float((g_.double() - w_.double()).abs().max())
+                    for g_, w_ in zip(got, want)))
+            else:
+                scale = float((a_[0].abs().amax(-1)
+                               + a_[1].sum(-1)).max())
+                mu_g, mu_w = got[0] + got[1], want[0] + want[1]
+                compare(kernel, [mu_g], [mu_w], DC_ROOT_TOLS[dname], key,
+                        False, err_of=lambda g_, w_, s_=scale: float(
+                            (g_ - w_).abs().max()) / s_ if w_.numel()
+                        else 0.0)
+                main_err[kernel] = max(main_err[kernel], float(
+                    (mu_g - mu_w).abs().max()) if mu_w.numel() else 0.0)
+            del got, want
+    dc_shapes = sorted({dc_call_shape(op, a_, kw)[:4] + (
+        dc_call_shape(op, a_, kw)[4],) for calls in dc_calls.values()
+        for op, a_, kw in calls}, key=str)
     check(all(fused_bitwise.values()), "fused values-mode sigma is not bit "
           "for bit the plain bisection on uv mode's (d, e)")
     emit({"phase": "kernels_vs_plain", "ok": True, "comparisons": n_cmp,
@@ -2225,6 +2659,9 @@ def run(args, torch) -> int:
           "fused_sigma_bitwise_vs_plain_bisection": fused_bitwise,
           "fused_worst_err_over_scale": fused_errs,
           "fused_uv_entries_witness": witness,
+          "dc_level_shapes (op, P, m, nact, dtype)": dc_shapes,
+          "dc_bitwise_vs_plain": dc_bitwise,
+          "dc_leaf_rows": dc_rows,
           "tape_apply_cases": len(tape_cases) + len(main_tape) * len(TOLS),
           "sturm_steps_at_main_path_shapes": STURM_CHECK_STEPS,
           "worst_err_over_tol": {k: round(v, 6) for k, v in worst.items()},
@@ -2238,6 +2675,12 @@ def run(args, torch) -> int:
                              [fused_small.CHECK_TOLS["float64"],
                               fused_small.CHECK_TOLS["float32"]],
                          "fused uv entries fp64": fused_small.ENTRY_TOL_FP64,
+                         "dc leaf rows fp64/fp32 (leaves with no cluster; "
+                         "resolved clusters' sums of f^2, f*l, l^2 in the "
+                         "others)":
+                             list(DC_ROW_TOLS.values()),
+                         "dc roots fp64/fp32 (times max|d| + sum w)":
+                             list(DC_ROOT_TOLS.values()),
                          "flash fp32/bf16/fp16 (per query row: "
                          "|got - plain| / |plain|)":
                              list(flash_attention.CHECK_TOLS.values()),
@@ -2471,6 +2914,51 @@ def run(args, torch) -> int:
         timing[name]["fma_bound_ms"] = flash_bound(
             bh, bkv, sl, d, dname, q.element_size(), fma=True)[0]
         del q, k, v, kr, vr
+    # the divide-and-conquer kernels at the fp64 n = 4096 call's shapes (the
+    # calls recorded for kernels_vs_plain): the leaves, and the deflation
+    # scan and the secular roots of the top merge level.  The library
+    # yardstick of the leaves is torch.linalg.eigh of the batch of dense
+    # leaves (eigenvalues and all eigenvectors, more than the kernel
+    # returns); the scan and the roots have no PyTorch counterpart
+    top = {}
+    for op, a_, kw in dc_calls[n3]:
+        if op not in top or a_[0].shape[-1] >= top[op][1][0].shape[-1]:
+            top[op] = (op, a_, kw)
+    _, a_, kw = top["dc_leaf"]
+    p_, lm_ = a_[0].shape
+    dense_leaves = (torch.diag_embed(a_[0]) + torch.diag_embed(a_[1], 1)
+                    + torch.diag_embed(a_[1], -1))
+    time_kernel(
+        "dc_leaf_cuda", "dc_leaf_kernel",
+        lambda: dc_run(torch, dc, s3dc, "dc_leaf", a_, kw),
+        lambda: dc_run(torch, dc, s3dc, "dc_leaf", a_, kw, plain=True), 20,
+        1, f"P={p_} leaves of lm={lm_} fp64, {kw['bisect_iters']} bisection "
+        f"steps, {kw['inv_iters']} inverse iterations",
+        dc_leaf_bound(p_, lm_, kw["bisect_iters"], kw["inv_iters"],
+                      "float64", 8),
+        library=lambda: torch.linalg.eigh(dense_leaves))
+    _, a_, kw = top["dc_deflate"]
+    p_, m_ = a_[0].shape
+    scan = tuple(x.clone() for x in a_)
+    time_kernel(
+        "dc_deflate_cuda", "dc_deflate_kernel",
+        lambda: dc.dc_deflate_cuda(*scan),
+        lambda: dc_run(torch, dc, s3dc, "dc_deflate", a_, kw, plain=True),
+        20, 1, f"P={p_}, m={m_} fp64 (the top merge level)",
+        dc_deflate_bound(p_, m_, "float64", 8))
+    _, a_, kw = top["dc_secular"]
+    p_, m_ = a_[0].shape
+    nact_ = kw["nact"]
+    roots = int(a_[3][:, :nact_].sum())
+    time_kernel(
+        "dc_secular_cuda", "dc_secular_kernel",
+        lambda: dc_run(torch, dc, s3dc, "dc_secular", a_, kw),
+        lambda: dc_run(torch, dc, s3dc, "dc_secular", a_, kw, plain=True),
+        10, 1, f"P={p_}, m={m_}, nact={nact_}, {roots} active roots fp64 "
+        f"(the top merge level)",
+        dc_secular_bound(p_, m_, nact_, roots, a_[6].shape[-1],
+                         kw["newton_iters"], "float64", 8))
+    del scan, dense_leaves, top
     emit({"phase": "kernel_times", "ok": True, "card": smi_line,
           "kernels": {k: {kk: (vv if kk != "bound" else
                                {"ms": vv[0], "by": vv[1], "bytes": vv[2],
@@ -2541,7 +3029,6 @@ def run(args, torch) -> int:
                        ["chase_cycle_cuda", "sturm_bisect_cuda"])
     err32 = float((sig32.double() - sv3).abs().max())
     ok32 = err32 <= 2e-4 * smax3
-    del a3
 
     # ---- 4. fp32 at the paper's scale, n = 16384, bw = 64 ----------------
     a4 = banded_matrix(torch, (), n4, bw4, torch.float32, gen)
@@ -2581,7 +3068,11 @@ def run(args, torch) -> int:
         f"B=1, n={n4} fp32, 40 steps"
     timing["sturm_bisect_cuda"]["main_path_bound"] = sturm_bound(
         1, n4, 40, "float32", 4)
-    del a4
+
+    # ---- stage 3 by divide and conquer, on the matrices of phases 3-4 ---
+    stage3_dc(torch, tsvd, s3, s3dc, drive, PipelineConfig, gen,
+              [(a3, cfg1, sig1, sv3, (d4, e4)), (a4, c1, s41, fro2, (d, e))])
+    del a3, a4
 
     # ---- 5. batched, B = 32, n = 1024, bw = 32, fp64 --------------------
     a5 = banded_matrix(torch, (b5,), n5, bw5, torch.float64, gen)
@@ -2757,6 +3248,9 @@ def run(args, torch) -> int:
     check(ok_g, "phase 9: fused fp32 sigma off the fp64 yardstick")
     del ag
 
+    # ---- the autotuner on the card --------------------------------------
+    autotune_phase(torch, PipelineConfig)
+
     # ---- 10 and 11. the LM serving path: phi3-medium-14b ---------------
     lm_phases(args, torch, rng, drive, gen)
 
@@ -2834,7 +3328,10 @@ def run(args, torch) -> int:
                "flash_attention_cuda":
                    "src/repro_torch/kernels/csrc/flash_attn.cu",
                "flash_attention_wgmma_cuda":
-                   "src/repro_torch/kernels/csrc/flash_attn_wgmma.cu"}
+                   "src/repro_torch/kernels/csrc/flash_attn_wgmma.cu",
+               "dc_leaf_cuda": "src/repro_torch/kernels/csrc/dc.cu",
+               "dc_deflate_cuda": "src/repro_torch/kernels/csrc/dc.cu",
+               "dc_secular_cuda": "src/repro_torch/kernels/csrc/dc.cu"}
     replaces = {
         "chase_cycle_cuda": "src/repro/kernels/bulge_chase.py:126",
         "chase_superstep_cuda": "src/repro/kernels/bulge_chase.py:225",
@@ -2848,7 +3345,15 @@ def run(args, torch) -> int:
                                 "(pallas_call :74), fp32 and other D",
         "flash_attention_wgmma_cuda": "src/repro/kernels/flash_attention.py:"
                                       "64 (pallas_call :74), bf16/fp16 at "
-                                      "D in {64, 128}"}
+                                      "D in {64, 128}",
+        "dc_leaf_cuda": "src/repro/core/bidiag_dc.py:171 (_leaf_eigen, with "
+                        "_tridiag_count :114 and _tridiag_solve_diag :134; "
+                        "jnp, no pallas_call)",
+        "dc_deflate_cuda": "src/repro/core/bidiag_dc.py:574 (the Givens "
+                           "scan of _merge_pair, :574-605; lax.scan, no "
+                           "pallas_call)",
+        "dc_secular_cuda": "src/repro/core/bidiag_dc.py:297 (_secular_roots"
+                           "; jnp, no pallas_call)"}
     # the flash kernels' counters keep the op's name, under which
     # ops.launch_counts() reports them; the others are named after their
     # kernel

@@ -16,7 +16,8 @@ __all__ = ["pipeline_config_from_reference", "band_from_numpy",
            "model_params_from_reference"]
 
 _BACKENDS = {"pallas": "cuda", "ref": "ref", "fused_small": "fused_small"}
-_KEPT = ("bw", "tw", "fuse", "dtype", "compute_uv")
+_KEPT = ("bw", "tw", "fuse", "dtype", "compute_uv", "stage3", "dc_leaf_n",
+         "dc_n_min")
 
 
 def pipeline_config_from_reference(fields: dict, device: str = "cuda"
@@ -26,23 +27,22 @@ def pipeline_config_from_reference(fields: dict, device: str = "cuda"
 
     "pallas" becomes "cuda"; "ref" and "fused_small" keep their names (the
     fused tier runs its kernel on the card and its plain version on the
-    CPU); ``bw``, ``tw``, ``fuse``, ``dtype`` and ``compute_uv`` are kept.
-    ``interpret`` is dropped, and so are ``max_batch`` (serving's bucket
-    size) and ``unroll`` (the reference's loop unrolling), which nothing in
-    this package reads yet.
-    What this package lacks raises ``NotImplementedError``: a stage 3 other
-    than bisection."""
-    stage3 = fields.get("stage3", "bisect")
-    if stage3 != "bisect":
-        raise NotImplementedError(tuning.LATER.get(stage3, stage3))
+    CPU); ``bw``, ``tw``, ``fuse``, ``dtype``, ``compute_uv``, ``stage3``,
+    ``dc_leaf_n`` and ``dc_n_min`` are kept.  ``interpret`` is dropped,
+    and so are ``max_batch`` (serving's bucket size) and ``unroll`` (the
+    reference's loop unrolling), which nothing in this package reads yet.
+    A backend this package lacks raises ``NotImplementedError``."""
     backend = fields["backend"]
     if backend not in _BACKENDS:
-        raise NotImplementedError(tuning.LATER.get(
-            backend, f"backend {backend!r} has no counterpart here"))
+        raise NotImplementedError(
+            f"backend {backend!r} has no counterpart here")
     kept = {k: fields[k] for k in _KEPT if k in fields}
     cfg = tuning.PipelineConfig(backend=_BACKENDS[backend], device=str(device),
                                 **kept)
     tuning.dtype_of(cfg.dtype)
+    if cfg.stage3 not in tuning.STAGE3_CHOICES:
+        raise ValueError(f"stage3 must be one of {tuning.STAGE3_CHOICES}, "
+                         f"got {cfg.stage3!r}")
     from repro_torch.kernels import ops
     ops.resolve_backend(cfg.backend, cfg.device)
     return cfg

@@ -1,7 +1,7 @@
 """The three-stage SVD pipeline, batch-native:
 
   dense --stage 1--> banded --stage 2 (bulge chasing)--> bidiagonal
-        --stage 3 (Sturm bisection)--> singular values
+        --stage 3 (Sturm bisection or divide and conquer)--> singular values
         [+ U, V^T by reflector-tape replay and inverse iteration]
 
 ``banded_singular_values`` enters at stage 2 (the paper's own use case);
@@ -10,13 +10,19 @@ dense (..., n, n) input; ``svd`` / ``banded_svd`` / ``svd_batched(...,
 compute_uv=True)`` return ``(U, sigma, V^T)``.  For those, stages 1 and 2
 record their reflectors (``tape=True``), ``core/transforms.py`` replays them
 into U and V^T, and stage 3 adds the bidiagonal's vectors; sigma comes from
-the same band arithmetic and the same bisection call as the values path, so
-it is bit-identical to it.
+the same band arithmetic and the same stage-3 call as the values path, so
+it is bit-identical to it.  ``config.stage3`` picks that call: Sturm
+bisection (``core/bidiag_svd.py``) or divide and conquer
+(``core/bidiag_dc.py``), "auto" by n through ``stage3_for``.
 
 A config with ``backend="fused_small"`` sends every entry point through
 ``_fused_path`` in place of the staged pipeline: the one-launch small-n
 tier (``ops.fused_svd``), whose in-kernel stage 1 is an exact no-op on a
-banded input.
+banded input.  Its values mode solves stage 3 by the kernel's own
+bisection whatever ``config.stage3`` says; its uv mode by the config's
+solver.  So under ``stage3="dc"`` (or "auto" at a dc n) the fused tier's
+sigma from ``svd`` is divide and conquer's and agrees with
+``singular_values``' to rounding only; under "bisect" it is bit-identical.
 
 Every entry point runs on the card unless the caller asks for the CPU: the
 config's ``device`` is "cuda" by default, a missing card raises
@@ -31,6 +37,7 @@ import math
 import numpy as np
 import torch
 
+from repro_torch.core import bidiag_dc as s3dc
 from repro_torch.core import bidiag_svd as s3
 from repro_torch.core import bulge_chasing as bc
 from repro_torch.core import stage1 as s1
@@ -140,15 +147,32 @@ def _config(a: torch.Tensor, *, bw, tw, config, device
     if tuning.dtype_name(a.dtype) != config.dtype:
         raise ValueError(f"input dtype {a.dtype} conflicts with "
                          f"config.dtype={config.dtype}")
-    if config.stage3 != "bisect":
-        raise NotImplementedError(tuning.LATER.get(config.stage3,
-                                                   config.stage3))
     ops.resolve_backend(config.backend, config.device)
     return config
 
 
 def _on_device(a: torch.Tensor, device: str) -> torch.Tensor:
     return a.to(ops.check_device(device))
+
+
+def _stage3_values(d: torch.Tensor, e: torch.Tensor,
+                   cfg: tuning.PipelineConfig) -> torch.Tensor:
+    """Stage 3, values: the config's solver for this n
+    (``cfg.stage3_for``), Sturm bisection or divide and conquer."""
+    if cfg.stage3_for(d.shape[-1]) == "dc":
+        return s3dc.bidiag_dc_singular_values(d, e, leaf_n=cfg.dc_leaf_n,
+                                              backend=cfg.backend)
+    return s3.bidiag_singular_values(d, e, backend=cfg.backend)
+
+
+def _stage3_svd(d: torch.Tensor, e: torch.Tensor,
+                cfg: tuning.PipelineConfig):
+    """Stage 3 with vectors: sigma from the config's solver, (U, V^T) from
+    the same inverse iteration whichever solver gave sigma."""
+    if cfg.stage3_for(d.shape[-1]) == "dc":
+        return s3dc.bidiag_dc_svd(d, e, leaf_n=cfg.dc_leaf_n,
+                                  backend=cfg.backend)
+    return s3.bidiag_svd(d, e, backend=cfg.backend)
 
 
 def _fused_path(a: torch.Tensor, cfg: tuning.PipelineConfig, *,
@@ -166,7 +190,7 @@ def _fused_path(a: torch.Tensor, cfg: tuning.PipelineConfig, *,
         return sig.reshape(lead + (n,))
     d, e, u2, vt2 = ops.fused_svd(mats, bw=cfg.bw, compute_uv=True,
                                   config=cfg)
-    ub, sig, vtb = s3.bidiag_svd(d, e, backend=cfg.backend)
+    ub, sig, vtb = _stage3_svd(d, e, cfg)
     return ((u2 @ ub).reshape(lead + (n, n)), sig.reshape(lead + (n,)),
             (vtb @ vt2).reshape(lead + (n, n)))
 
@@ -183,7 +207,7 @@ def _solve(a: torch.Tensor, cfg: tuning.PipelineConfig, *, banded: bool,
     if not banded:
         a = s1.band_reduce(a, nb=cfg.bw, config=cfg)
     d, e = bc.bidiagonalize(a, bw=cfg.bw, tw=cfg.tw, config=cfg)
-    return s3.bidiag_singular_values(d, e, backend=cfg.backend)
+    return _stage3_values(d, e, cfg)
 
 
 def bidiagonal_of(a, *, bw: int | None = None, tw: int | None = None,
@@ -277,7 +301,7 @@ def _uv_pipeline(a: torch.Tensor, cfg: tuning.PipelineConfig, *,
 
     The band arithmetic of stages 1 and 2 is the values path's own (the
     tapes are recorded beside it, never read by it), so (d, e), and sigma
-    from the same bisection call, are bit-identical to it.  The tapes are
+    from the same stage-3 call, are bit-identical to it.  The tapes are
     replayed into transposed accumulators through ``ops.tape_apply``, and
     stage 3's bidiagonal vectors are composed on top: A = U2 B V2^T and
     B = Ub S Vb^T, so U = U2 Ub and V^T = Vb^T V2^T."""
@@ -291,8 +315,7 @@ def _uv_pipeline(a: torch.Tensor, cfg: tuning.PipelineConfig, *,
     u2, vt2 = transforms.accumulate_transforms(
         n, s1_tape=s1_tape, chase_tapes=tapes, lead=a.shape[:-2],
         dtype=a.dtype, config=cfg, device=a.device)
-    sig = s3.bidiag_singular_values(d, e, backend=cfg.backend)
-    ub, vtb = s3.bidiag_vectors(d, e, sig)
+    ub, sig, vtb = _stage3_svd(d, e, cfg)
     return u2 @ ub, sig, vtb @ vt2
 
 

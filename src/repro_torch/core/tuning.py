@@ -11,7 +11,8 @@ copy of that layout's size, and the kernels' wrappers launch with exactly
 this many bytes.  ``check_smem_budget`` holds them to Hopper's 232,448 B per
 block.  ``fused_route`` does the same for the fused small-n kernel
 (``kernels/csrc/fused_small.cu``): it picks the kernel's route and lays
-out its shared memory.
+out its shared memory.  ``dc_leaf_smem_bytes`` counts the shared memory
+of one block of the divide-and-conquer leaf kernel (``kernels/csrc/dc.cu``).
 """
 
 from __future__ import annotations
@@ -29,10 +30,52 @@ __all__ = [
     "check_smem_budget", "band_padding", "cycle_tile",
     "FUSED_THREADS", "FusedRoute", "fused_route", "fused_smem_bytes",
     "check_fused_smem_budget", "default_fuse_depth",
-    "stage_plan", "PipelineConfig",
+    "DEFAULT_DC_LEAF_N", "DEFAULT_DC_N_MIN", "DC_WINDOW_K", "DC_HEAVY_K",
+    "DC_POLISH_ITERS", "DC_FALLBACK_ITERS", "dc_leaf_smem_bytes",
+    "check_dc_leaf_budget",
+    "stage_plan", "STAGE3_CHOICES", "PipelineConfig",
 ]
 
 SMEM_PER_BLOCK = 232_448     # H100: shared memory one block may hold, bytes
+
+# Divide and conquer (core/bidiag_dc.py and its kernels, kernels/csrc/dc.cu).
+# Bidiagonals of DEFAULT_DC_LEAF_N or fewer rows are solved by bisection;
+# inside the recursion it is the leaf width (GK leaves of 2 * leaf_n rows).
+DEFAULT_DC_LEAF_N = 32
+# stage3="auto" takes dc from this n up: the stage-3 crossover measured on
+# an NVIDIA H100 80GB HBM3, power limit 700.00 W, by chip_smoke.py's
+# autotune phase (search_stage3_crossover on the bidiagonals stage 2 makes
+# of banded bw-64 inputs; fp64 and fp32, B = 1 to n = 16384 and B = 4 to
+# 4096).  dc lost to bisection at every n, so this is the sentinel
+# 1 + max(ns) and "auto" keeps bisection.  On i.i.d. normal bidiagonals,
+# the reference's sweep input, which deflate far more, dc wins from 8192;
+# the reference's own 2048 was measured on a CPU.
+DEFAULT_DC_N_MIN = 16385
+# Index-nearest poles of each secular root's window in the windowed
+# iteration (dc.cu's kWin, the window a warp holds in registers).
+DC_WINDOW_K = 128
+# The heaviest poles, added to every root's window (one a lane of dc.cu's
+# warp): GK eigenvectors of random bidiagonals localise, so an index-far pole
+# can carry O(1) of the rank-one weight, which the far field cannot hold.
+DC_HEAVY_K = 32
+# Cap on the exact full-width passes after the windowed iteration; a root
+# stops once its residual reaches the rounding floor of its secular sum.
+# The reference caps them at 12, which leaves a root of the bidiagonal of
+# autotune.measure.banded_input(2048, 64) (fp64, seed 0) short of its floor:
+# sigma 3.3e-8 * sigma_max off bisection (chip_smoke.py's crossover at that
+# cap).  64 lets the bracket's bisection fallback alone reach the rounding
+# floor of fp64's 53 bits from any bracket.
+DC_POLISH_ITERS = 64
+# Inverse-iteration steps of a leaf's collapse fallback.  Where inverse
+# iteration gives two vectors of a cluster one direction, the reference puts
+# the unit vector e_k, projected off the earlier ones, in the second's
+# place: a vector across the whole spectrum, paired with lam_k.  On the
+# bidiagonals of banded_input(512, 64, batch=4) (fp64, seed 0; their tail
+# singular values are ~1e-17) that leaves sigma 2.4e-11 * sigma_max off
+# bisection at leaf_n 32 (chip_smoke.py's crossover).  Two steps at lam_k,
+# each projected again, bring the fallback into lam_k's invariant
+# subspace; one step is not enough.
+DC_FALLBACK_ITERS = 2
 
 _DTYPES = {"float64": torch.float64, "float32": torch.float32,
            "bfloat16": torch.bfloat16}
@@ -296,6 +339,30 @@ def default_fuse_depth(b_in: int, tw: int, dtype=torch.float32, *,
     return cap
 
 
+def dc_leaf_smem_bytes(leaf_n: int, dtype=torch.float64) -> int:
+    """Shared memory of one block of the divide-and-conquer leaf kernel
+    (``dc.cu``, one block per leaf of ``lm = 2*leaf_n`` rows), in bytes: the
+    leaf's diagonal and off-diagonal, its eigenvalues and two words per row
+    of scratch (5 lm words), and two lm x (lm + 1) arrays, the eigenvectors
+    (column k is thread k's) and the elimination multipliers of their
+    inverse iteration, in the accumulation type."""
+    lm = 2 * int(leaf_n)
+    return (2 * lm * (lm + 1) + 5 * lm) * _itemsize(acc_dtype(dtype_of(dtype)))
+
+
+def check_dc_leaf_budget(leaf_n: int, dtype=torch.float64) -> int:
+    """Raise when a leaf block of ``leaf_n`` would not fit Hopper's shared
+    memory, or would need more than 1024 threads; return its bytes."""
+    need = dc_leaf_smem_bytes(leaf_n, dtype)
+    if need > SMEM_PER_BLOCK or 2 * int(leaf_n) > 1024:
+        raise ValueError(
+            f"dc leaf kernel for dc_leaf_n={leaf_n}, dtype={dtype_name(dtype)}"
+            f" needs {need} B of shared memory and {2 * int(leaf_n)} threads "
+            f"per block; the H100 gives {SMEM_PER_BLOCK} B and 1024 threads. "
+            f"Use a smaller dc_leaf_n.")
+    return need
+
+
 def stage_plan(bw: int, tw: int) -> tuple[tuple[int, int], ...]:
     """Tile-width schedule ((b_in, tw_i), ...) reducing bw -> 1, <= tw per
     stage."""
@@ -308,10 +375,7 @@ def stage_plan(bw: int, tw: int) -> tuple[tuple[int, int], ...]:
     return tuple(plan)
 
 
-LATER = {
-    "dc": "divide-and-conquer stage 3 comes in a later slice",
-    "auto": "stage3='auto' needs divide-and-conquer, a later slice",
-}
+STAGE3_CHOICES = ("bisect", "dc", "auto")
 
 
 @dataclasses.dataclass(frozen=True)
@@ -323,7 +387,10 @@ class PipelineConfig:
     kernel on a CUDA device, its plain version on the CPU); ``device`` is
     where the pipeline runs, the card unless the caller asks for the CPU;
     ``compute_uv`` is the default of ``svd_batched``: singular vectors too
-    (the tapes are recorded and replayed)."""
+    (the tapes are recorded and replayed).  ``stage3`` is the bidiagonal
+    solver, "bisect" (Sturm bisection), "dc" (divide and conquer,
+    ``core/bidiag_dc.py``, leaves of ``dc_leaf_n``) or "auto" (dc from
+    ``dc_n_min`` up, collapsed by :meth:`stage3_for`)."""
     bw: int
     tw: int
     backend: str = "cuda"
@@ -332,31 +399,78 @@ class PipelineConfig:
     stage3: str = "bisect"
     device: str = "cuda"
     compute_uv: bool = False
+    dc_leaf_n: int = DEFAULT_DC_LEAF_N
+    dc_n_min: int = DEFAULT_DC_N_MIN
 
     @property
     def plan(self) -> tuple[tuple[int, int], ...]:
         return stage_plan(self.bw, self.tw)
+
+    def stage3_for(self, n: int) -> str:
+        """The stage-3 solver for a problem of size n: "auto" (left by a
+        resolve that did not know n) is "dc" from ``dc_n_min`` up, else
+        "bisect"; an explicit choice passes through."""
+        if self.stage3 != "auto":
+            return self.stage3
+        return "dc" if n >= self.dc_n_min else "bisect"
 
     @classmethod
     def resolve(cls, *, bw: int = 32, tw: int | None = None,
                 backend: str = "auto", dtype=torch.float32,
                 n: int | None = None, fuse: int | None = 1,
                 stage3: str = "bisect", device: str = "cuda",
-                compute_uv: bool = False) -> "PipelineConfig":
+                compute_uv: bool = False, autotune: bool = False,
+                autotune_cache: str | None = None,
+                dc_leaf_n: int | None = None,
+                dc_n_min: int | None = None) -> "PipelineConfig":
         """Resolve every knob to a concrete value.
 
         ``backend="auto"`` follows the requested ``device``: "cuda" on a
         CUDA device, "ref" on the CPU.  It never looks at what the machine
         has.  ``fuse=None`` asks ``default_fuse_depth``.  With
         ``backend="fused_small"`` and a known ``n``, an n whose fused block
-        would not fit shared memory raises (``check_fused_smem_budget``)."""
+        would not fit shared memory raises (``check_fused_smem_budget``).
+
+        ``autotune=True`` reads the tuned-config cache
+        (``repro_torch.autotune.cache``; ``autotune_cache`` is its path,
+        else ``$REPRO_TORCH_AUTOTUNE_CACHE`` or the default): with ``n``
+        known, the entry for (device kind, n, bw, dtype, compute_uv, the
+        resolved backend) gives ``tw`` where it is None and ``fuse`` where
+        it is None or 1, and ``lookup_stage3`` gives ``dc_n_min`` where it
+        is None.  Explicit values win; a miss keeps the analytic defaults.
+        The entry's ``max_batch`` is not read: this config has no bucket
+        size yet.
+
+        ``stage3`` is "bisect", "dc" or "auto" (another value raises
+        ``ValueError``); with ``n`` known "auto" collapses here.
+        ``dc_leaf_n=None`` is ``DEFAULT_DC_LEAF_N``, ``dc_n_min=None`` the
+        cache's reading or ``DEFAULT_DC_N_MIN``.  On a CUDA device a
+        ``dc_leaf_n`` whose leaf block would not fit shared memory raises
+        (``check_dc_leaf_budget``)."""
         from repro_torch.kernels import ops   # deferred: ops imports tuning
-        if stage3 != "bisect":
-            raise NotImplementedError(LATER.get(stage3, f"stage3={stage3!r}"))
+        if stage3 not in STAGE3_CHOICES:
+            raise ValueError(f"stage3 must be one of {STAGE3_CHOICES}, got "
+                             f"{stage3!r}")
         bw = max(int(bw), 1)
         if n is not None:
             bw = min(bw, max(n, 1))
         backend = ops.resolve_backend(backend, device)
+        if autotune:
+            from repro_torch.autotune import cache as at_cache
+            from repro_torch.autotune import model as at_model
+            kind = at_model.device_kind(device)
+            if n is not None:
+                tuned = at_cache.lookup(
+                    device_kind=kind, n=n, bw=bw, dtype=dtype_name(dtype),
+                    compute_uv=compute_uv, backend=backend,
+                    path=autotune_cache)
+                if tuned is not None:
+                    tw = tw if tw is not None else tuned["tw"]
+                    fuse = fuse if fuse not in (None, 1) else tuned["fuse"]
+            if dc_n_min is None:
+                dc_n_min = at_cache.lookup_stage3(
+                    device_kind=kind, dtype=dtype_name(dtype),
+                    compute_uv=compute_uv, path=autotune_cache)
         tw = tw if tw is not None else default_tilewidth(bw, dtype_of(dtype))
         tw = max(1, min(tw, max(bw - 1, 1)))
         check_smem_budget(bw, tw, dtype)
@@ -364,6 +478,15 @@ class PipelineConfig:
             check_fused_smem_budget(n, dtype, compute_uv=compute_uv)
         if fuse is None:
             fuse = default_fuse_depth(bw, tw, dtype)
+        dc_leaf_n = max(int(dc_leaf_n if dc_leaf_n is not None
+                            else DEFAULT_DC_LEAF_N), 1)
+        dc_n_min = max(int(dc_n_min if dc_n_min is not None
+                           else DEFAULT_DC_N_MIN), 1)
+        if stage3 == "auto" and n is not None:
+            stage3 = "dc" if n >= dc_n_min else "bisect"
+        if stage3 != "bisect" and torch.device(device).type == "cuda":
+            check_dc_leaf_budget(dc_leaf_n, dtype)
         return cls(bw=bw, tw=tw, backend=backend, dtype=dtype_name(dtype),
                    fuse=max(int(fuse), 1), stage3=stage3, device=str(device),
-                   compute_uv=bool(compute_uv))
+                   compute_uv=bool(compute_uv), dc_leaf_n=dc_leaf_n,
+                   dc_n_min=dc_n_min)

@@ -21,10 +21,11 @@ from typing import Callable
 
 import torch
 
-from repro_torch.core.tuning import LATER, check_disjoint_blocks
+from repro_torch.core.tuning import check_disjoint_blocks
 
 __all__ = ["chase_cycle", "chase_cycle_band", "chase_superstep_band",
-           "band_stage", "sturm_bisect",
+           "band_stage", "sturm_bisect", "dc_leaf", "dc_deflate",
+           "dc_secular",
            "tape_apply", "hh_block_apply",
            "fused_svd", "flash_attention", "register_backend", "check_device",
            "resolve_backend", "backend_names", "launch_counts",
@@ -58,8 +59,6 @@ def resolve_backend(backend: str = "auto", device="cuda") -> str:
     dev = torch.device(device)
     if backend == "auto":
         backend = "cuda" if dev.type == "cuda" else "ref"
-    if backend in LATER:
-        raise NotImplementedError(LATER[backend])
     if backend not in _REGISTRY:
         raise ValueError(f"unknown backend {backend!r}; registered: "
                          f"{backend_names()}")
@@ -110,6 +109,24 @@ def _ref_bisect(z, bound, *, n, max_iter):
     return bisect_plain(z, bound, n=n, max_iter=max_iter)
 
 
+def _ref_dc_leaf(a, b, lo0, hi0, ctol, x0, *, bisect_iters, inv_iters):
+    from repro_torch.core.bidiag_dc import leaf_eigen_plain
+    return leaf_eigen_plain(a, b, lo0, hi0, ctol, x0,
+                            bisect_iters=bisect_iters, inv_iters=inv_iters)
+
+
+def _ref_dc_deflate(d, z, fe, le, active, tol):
+    from repro_torch.core.bidiag_dc import deflate_plain
+    return deflate_plain(d, z, fe, le, active, tol)
+
+
+def _ref_dc_secular(d, w, gap, act, d_next, a_next, hidx, *, nact,
+                    newton_iters):
+    from repro_torch.core.bidiag_dc import secular_plain
+    return secular_plain(d, w, gap, act, d_next, a_next, hidx, nact=nact,
+                         newton_iters=newton_iters)
+
+
 def _ref_tape(v, t, c, rows=None):
     from repro_torch.kernels import ref
     return ref.tape_apply_ref(v, t, c, rows=rows)
@@ -135,7 +152,8 @@ register_backend("ref", chase_cycle=_ref_chase,
                  chase_cycle_band=_ref_cycle_band,
                  chase_superstep_band=_ref_superstep_band,
                  band_stage=_ref_band_stage,
-                 sturm_bisect=_ref_bisect,
+                 sturm_bisect=_ref_bisect, dc_leaf=_ref_dc_leaf,
+                 dc_deflate=_ref_dc_deflate, dc_secular=_ref_dc_secular,
                  tape_apply=_ref_tape, hh_block_apply=_ref_hh,
                  fused_svd=_ref_fused, flash_attention=_ref_flash)
 
@@ -176,6 +194,24 @@ def _cuda_bisect(z, bound, *, n, max_iter):
     return bisect.sturm_bisect_cuda(z, bound, n=n, max_iter=max_iter)
 
 
+def _cuda_dc_leaf(a, b, lo0, hi0, ctol, x0, *, bisect_iters, inv_iters):
+    from repro_torch.kernels import dc
+    return dc.dc_leaf_cuda(a, b, lo0, hi0, ctol, x0,
+                           bisect_iters=bisect_iters, inv_iters=inv_iters)
+
+
+def _cuda_dc_deflate(d, z, fe, le, active, tol):
+    from repro_torch.kernels import dc
+    return dc.dc_deflate_cuda(d, z, fe, le, active, tol)
+
+
+def _cuda_dc_secular(d, w, gap, act, d_next, a_next, hidx, *, nact,
+                     newton_iters):
+    from repro_torch.kernels import dc
+    return dc.dc_secular_cuda(d, w, gap, act, d_next, a_next, hidx,
+                              nact=nact, newton_iters=newton_iters)
+
+
 def _cuda_tape(v, t, c, rows=None):
     from repro_torch.kernels import hh_apply
     return hh_apply.tape_apply_cuda(v, t, c, rows)
@@ -204,7 +240,8 @@ register_backend("cuda", chase_cycle=_cuda_chase,
                  chase_cycle_band=_cuda_cycle_band,
                  chase_superstep_band=_cuda_superstep_band,
                  band_stage=_cuda_band_stage,
-                 sturm_bisect=_cuda_bisect,
+                 sturm_bisect=_cuda_bisect, dc_leaf=_cuda_dc_leaf,
+                 dc_deflate=_cuda_dc_deflate, dc_secular=_cuda_dc_secular,
                  tape_apply=_cuda_tape, hh_block_apply=_cuda_hh,
                  fused_svd=_cuda_fused, flash_attention=_cuda_flash)
 
@@ -307,6 +344,42 @@ def sturm_bisect(z: torch.Tensor, bound: torch.Tensor, *, n: int,
     return impl(z, bound, n=n, max_iter=max_iter)
 
 
+def dc_leaf(a: torch.Tensor, b: torch.Tensor, lo0: torch.Tensor,
+            hi0: torch.Tensor, ctol: torch.Tensor, x0: torch.Tensor, *,
+            bisect_iters: int, inv_iters: int, backend: str = "auto",
+            config=None):
+    """Eigenvalues (ascending) and first and last eigenvector rows, each
+    (P, lm), of P tridiagonal leaves (diag a (P, lm), off-diag b
+    (P, lm-1)), given each leaf's bracket [lo0, hi0] and cluster width
+    ctol (P,) and the start vectors x0 (lm, lm): the divide-and-conquer
+    leaves (``core.bidiag_dc.leaf_eigen_plain``)."""
+    impl = _impl("dc_leaf", backend, config, a.device)
+    return impl(a, b, lo0, hi0, ctol, x0, bisect_iters=bisect_iters,
+                inv_iters=inv_iters)
+
+
+def dc_deflate(d: torch.Tensor, z: torch.Tensor, fe: torch.Tensor,
+               le: torch.Tensor, active: torch.Tensor, tol: torch.Tensor, *,
+               backend: str = "auto", config=None):
+    """The Givens deflation scan of a merge over P subproblems (each input
+    (P, m), tol (P,)); returns (d, z, fe, le, active)
+    (``core.bidiag_dc.deflate_plain``).  The kernel and the plain version
+    agree bit for bit."""
+    impl = _impl("dc_deflate", backend, config, d.device)
+    return impl(d, z, fe, le, active, tol)
+
+
+def dc_secular(d: torch.Tensor, w: torch.Tensor, gap: torch.Tensor,
+               act: torch.Tensor, d_next: torch.Tensor, a_next: torch.Tensor,
+               hidx: torch.Tensor, *, nact: int, newton_iters: int,
+               backend: str = "auto", config=None):
+    """The secular roots of a merge's active prefix of ``nact`` poles, as
+    (anc, tau) (P, nact) (``core.bidiag_dc.secular_plain``)."""
+    impl = _impl("dc_secular", backend, config, d.device)
+    return impl(d, w, gap, act, d_next, a_next, hidx, nact=nact,
+                newton_iters=newton_iters)
+
+
 def tape_apply(v: torch.Tensor, t: torch.Tensor, c: torch.Tensor, *,
                rows: torch.Tensor | None = None, backend: str = "auto",
                config=None) -> torch.Tensor:
@@ -364,10 +437,10 @@ def flash_attention(q: torch.Tensor, k: torch.Tensor, v: torch.Tensor, *,
 
 
 def _launch_tables():
-    from repro_torch.kernels import (bisect, bulge_chase, flash_attention,
-                                     fused_small, hh_apply)
+    from repro_torch.kernels import (bisect, bulge_chase, dc,
+                                     flash_attention, fused_small, hh_apply)
     return (bulge_chase.launches, bisect.launches, hh_apply.launches,
-            fused_small.launches, flash_attention.launches)
+            fused_small.launches, flash_attention.launches, dc.launches)
 
 
 def launch_counts() -> dict[str, int]:

@@ -1,0 +1,346 @@
+"""The port's divide-and-conquer stage 3 (``repro_torch.core.bidiag_dc``,
+plain path, on the CPU) against the reference's ``core/bidiag_dc.py``, and
+the ``stage3=`` policy of the pipeline.
+
+The same inputs, made with numpy from fixed seeds, go to both packages.
+Tolerances: sigma within 1e-13 * sigma_max at fp64 (rounding of a
+backward-stable solve whose sums run in another order); 1e-4 * sigma_max
+at fp32, whose sums run in another order over log2(m / lm) merge levels
+(the port's own fp32 yardstick is 5e-4 at n = 256).  Leaf eigenvalues
+within 1e-14 of the leaf's scale, their first and last eigenvector rows
+within 1e-12.  Each distinct shape of the jitted reference costs seconds
+to compile, so the reference runs at few shapes."""
+
+import dataclasses
+import functools
+
+import jax
+import jax.numpy as jnp
+import numpy as np
+import pytest
+import torch
+from hypothesis import given, settings, strategies as st
+from torch_port_common import check_svd
+
+from repro.core import bidiag_dc as jdc
+from repro.core.tuning import PipelineConfig as JConfig
+from repro_torch import convert
+from repro_torch.core import bidiag_dc as tdc
+from repro_torch.core import bidiag_svd as ts3
+from repro_torch.core import svd as tsvd
+from repro_torch.core.tuning import PipelineConfig
+
+torch.set_num_threads(2)
+
+
+def lapack_sigma(d, e):
+    b = np.diag(np.asarray(d, float))
+    if len(d) > 1:
+        b += np.diag(np.asarray(e, float)[1:], 1)
+    return np.linalg.svd(b, compute_uv=False)
+
+
+def port_sigma(d, e, leaf_n, **kw):
+    return tdc.bidiag_dc_singular_values(torch.from_numpy(np.asarray(d)),
+                                         torch.from_numpy(np.asarray(e)),
+                                         leaf_n=leaf_n, **kw).numpy()
+
+
+def ref_sigma(d, e, leaf_n):
+    return np.asarray(jdc.bidiag_dc_singular_values(
+        jnp.asarray(d), jnp.asarray(e), leaf_n=leaf_n))
+
+
+def within(got, want, tol):
+    want = np.asarray(want, np.float64)
+    scale = float(np.abs(want).max()) or 1.0
+    np.testing.assert_allclose(np.asarray(got, np.float64), want, rtol=0,
+                               atol=tol * scale)
+
+
+# ---------------------------------------------------------------------------
+# the parts: leaves, the secular roots, one merge
+# ---------------------------------------------------------------------------
+
+def test_leaf_eigen_matches_reference():
+    rng = np.random.default_rng(0)
+    a = rng.standard_normal((5, 32))
+    b = rng.standard_normal((5, 31))
+    b[2, 10] = 0.0                                   # a split leaf
+    a[3] = 1.0 + 1e-9 * np.arange(32)               # nearly one eigenvalue
+    b[3] = 1e-6
+    jl, jf, jlast = jax.jit(jax.vmap(functools.partial(
+        jdc._leaf_eigen, bisect_iters=60, inv_iters=2)))(a, b)
+    lam, f, last = tdc._leaf_eigen(torch.from_numpy(a), torch.from_numpy(b),
+                                   bisect_iters=60, inv_iters=2,
+                                   backend="ref")
+    rad = np.abs(np.pad(b, ((0, 0), (1, 0)))) + np.abs(np.pad(b, ((0, 0),
+                                                                  (0, 1))))
+    scale = np.maximum(np.abs(a) + rad, 1).max(-1, keepdims=True)
+    assert (np.abs(lam.numpy() - np.asarray(jl)) <= 1e-14 * scale).all()
+    for got, want, rows in ((f, jf, "first"), (last, jlast, "last")):
+        # leaf 3 is a cluster: its vectors are any basis of it, so only
+        # the leaves with separated eigenvalues are held row for row
+        sep = [0, 1, 2, 4]
+        np.testing.assert_allclose(got.numpy()[sep], np.asarray(want)[sep],
+                                   rtol=0, atol=1e-12, err_msg=rows)
+
+
+def _secular_problem(rng, p, m, nact):
+    """A merge's secular equation as _merge_pair hands it over: poles
+    ascending on the active prefix, weights rho * z^2 there and 0 after."""
+    d = np.sort(rng.standard_normal((p, m)), axis=-1)
+    z = rng.standard_normal((p, m))
+    act = np.arange(m)[None, :] < nact[:, None]
+    w = np.where(act, z * z, 0.0)
+    eps = np.finfo(np.float64).eps
+    norm_scale = np.abs(d).max(-1, keepdims=True) + 2
+    d_next = np.pad(d[:, 1:], ((0, 0), (0, 1)))
+    a_next = np.pad(act[:, 1:], ((0, 0), (0, 1)))
+    gap = np.where(a_next, d_next - d, w.sum(-1, keepdims=True)
+                   * (1 + 4 * eps) + 4 * eps * norm_scale)
+    return d, w, gap, act, d_next, a_next
+
+
+def test_secular_roots_match_reference():
+    rng = np.random.default_rng(1)
+    p, m = 3, 160
+    nact = np.array([160, 97, 40])
+    d, w, gap, act, d_next, a_next = _secular_problem(rng, p, m, nact)
+    janc, jtau = jax.jit(functools.partial(jdc._secular_roots,
+                                           newton_iters=30))(
+        d, w, gap, act, d_next, a_next)
+    t = [torch.from_numpy(x) for x in (d, w, gap, act, d_next, a_next)]
+    k = int(nact.max())
+    hidx = torch.topk(t[1][:, :k], min(32, k), dim=-1)[1]
+    anc, tau = tdc.secular_plain(*t, hidx, nact=k, newton_iters=30)
+    scale = np.abs(d).max() + w.sum(-1).max()
+    mu_j = (np.asarray(janc) + np.asarray(jtau))[:, :k]
+    np.testing.assert_allclose((anc + tau).numpy(), mu_j, rtol=0,
+                               atol=1e-13 * scale)
+
+
+def test_merge_pair_matches_reference():
+    rng = np.random.default_rng(2)
+    p, h = 4, 64
+    d1, d2 = (np.sort(rng.standard_normal((p, h)), -1) for _ in range(2))
+    f1, l1, f2, l2 = (rng.standard_normal((p, h)) / np.sqrt(h)
+                      for _ in range(4))
+    rho_b = rng.standard_normal(p)
+    args = (d1, f1, l1, d2, f2, l2, rho_b)
+    want = jax.jit(functools.partial(jdc._merge_pair, newton_iters=30))(
+        *args)
+    got = tdc._merge_pair(*(torch.from_numpy(x) for x in args),
+                          newton_iters=30, backend="ref")
+    scale = np.abs(np.concatenate([d1, d2], -1)).max() + 2 * np.abs(
+        rho_b).max()
+    np.testing.assert_allclose(got[0].numpy(), np.asarray(want[0]), rtol=0,
+                               atol=1e-13 * scale)
+    for g, w_ in zip(got[1:], want[1:]):
+        np.testing.assert_allclose(g.numpy(), np.asarray(w_), rtol=0,
+                                   atol=1e-11)
+
+
+# ---------------------------------------------------------------------------
+# sigma against the reference: the reference test's inputs
+# ---------------------------------------------------------------------------
+
+def _random(n=100):
+    rng = np.random.default_rng(0)
+    return rng.standard_normal(n), rng.standard_normal(n), 16
+
+
+def _clustered():
+    n = 96
+    return np.ones(n) + 1e-14 * np.arange(n), np.full(n, 1e-13), 16
+
+
+def _extreme():
+    n = 64
+    rng = np.random.default_rng(2)
+    d = np.logspace(-300, 300, n) * np.sign(rng.standard_normal(n))
+    return d, 0.5 * np.logspace(-300, 300, n), 16
+
+
+def _deflated():
+    n = 128
+    rng = np.random.default_rng(3)
+    d = rng.standard_normal(n)
+    e = np.zeros(n)
+    e[::7] = rng.standard_normal(len(e[::7])) * 1e-3
+    return d, e, 16
+
+
+def _degenerate():
+    d = np.array([1.0, -4.0, 2.0, 0.0, -0.5] * 16)
+    return d, np.zeros_like(d), 8
+
+
+@pytest.mark.parametrize("case", [_random, _clustered, _extreme, _deflated,
+                                  _degenerate],
+                         ids=lambda f: f.__name__.strip("_"))
+def test_sigma_matches_reference(case):
+    d, e, leaf = case()
+    got = port_sigma(d, e, leaf)
+    want = ref_sigma(d, e, leaf)
+    within(got, want, 1e-13)
+    within(got, lapack_sigma(d, e), 1e-13)
+
+
+def test_sigma_fp32_matches_reference():
+    rng = np.random.default_rng(0)
+    d, e = (rng.standard_normal(100).astype(np.float32) for _ in range(2))
+    got = port_sigma(d, e, 16)
+    assert got.dtype == np.float32
+    within(got, ref_sigma(d, e, 16), 1e-4)
+    within(got, lapack_sigma(d, e), 1e-4)
+
+
+def test_batched_matches_reference_and_one_at_a_time():
+    rng = np.random.default_rng(4)
+    d = rng.standard_normal((3, 48))
+    e = rng.standard_normal((3, 48))
+    got = port_sigma(d, e, 16)
+    assert got.shape == (3, 48)
+    want = ref_sigma(d, e, 16)
+    for i in range(3):
+        within(got[i], want[i], 1e-13)
+        within(got[i], port_sigma(d[i], e[i], 16), 1e-13)
+
+
+@settings(max_examples=4, deadline=None)
+@given(st.integers(2, 90), st.integers(0, 2**31 - 1))
+def test_dc_agrees_with_bisection_property(n, seed):
+    rng = np.random.default_rng(seed)
+    d, e = rng.standard_normal(n), rng.standard_normal(n)
+    s_bi = ts3.bidiag_singular_values(torch.from_numpy(d),
+                                      torch.from_numpy(e)).numpy()
+    within(port_sigma(d, e, 16), s_bi, 1e-12)
+
+
+def test_dc_agrees_with_bisection_on_banded_bidiagonals():
+    """What stage 2 makes of banded_input(512, 64, batch=4) (fp64, seed 0):
+    in one leaf of its third matrix a vector collapses in the Gram-Schmidt;
+    with the reference's fallback (e_k projected, as it is) sigma is
+    2.4e-11 * sigma_max off, with the port's (two inverse-iteration steps
+    on it) within rounding."""
+    from repro_torch.autotune import measure
+    a = measure.banded_input(512, 64, batch=4, dtype=torch.float64,
+                             device="cpu")
+    d, e = tsvd.bidiagonal_of(a, bw=64, device="cpu")
+    got = tdc.bidiag_dc_singular_values(d, e)
+    want = ts3.bidiag_singular_values(d, e)
+    err = ((got - want).abs().amax(-1) / want.abs().amax(-1)).max()
+    assert float(err) <= 1e-12
+
+
+def test_small_n_is_the_bisection_bit_for_bit():
+    rng = np.random.default_rng(1)
+    d, e = (torch.from_numpy(rng.standard_normal((2, 20))) for _ in range(2))
+    assert torch.equal(tdc.bidiag_dc_singular_values(d, e, leaf_n=32),
+                       ts3.bidiag_singular_values(d, e))
+    s = tdc.bidiag_dc_singular_values(torch.tensor([-3.0]),
+                                      torch.tensor([0.0]))
+    assert torch.equal(s, torch.tensor([3.0]))
+
+
+def test_leaf_n_validation():
+    d = torch.ones(4, dtype=torch.float64)
+    with pytest.raises(ValueError, match="leaf_n"):
+        tdc.bidiag_dc_singular_values(d, d, leaf_n=1)
+    with pytest.raises(ValueError, match="leaf_n"):
+        tdc.bidiag_dc_svd(d, d, leaf_n=0)
+
+
+def test_dc_svd_reconstructs():
+    rng = np.random.default_rng(5)
+    n = 80
+    d, e = rng.standard_normal(n), rng.standard_normal(n)
+    u, s, vt = tdc.bidiag_dc_svd(torch.from_numpy(d), torch.from_numpy(e),
+                                 leaf_n=16)
+    u, s, vt = u.numpy(), s.numpy(), vt.numpy()
+    b = np.diag(d) + np.diag(e[1:], 1)
+    np.testing.assert_allclose(u @ np.diag(s) @ vt, b, atol=1e-12 * s[0])
+    np.testing.assert_allclose(u.T @ u, np.eye(n), atol=1e-10)
+    np.testing.assert_allclose(vt @ vt.T, np.eye(n), atol=1e-10)
+    within(s, port_sigma(d, e, 16), 0)
+
+
+# ---------------------------------------------------------------------------
+# the stage3= policy of the pipeline
+# ---------------------------------------------------------------------------
+
+@pytest.mark.parametrize("stage3", ["bisect", "dc"])
+def test_pipeline_stage3_backends_agree(stage3):
+    rng = np.random.default_rng(6)
+    n = 48
+    a = rng.standard_normal((n, n))
+    cfg = PipelineConfig.resolve(bw=4, tw=2, dtype=torch.float64, n=n,
+                                 stage3=stage3, dc_n_min=1, dc_leaf_n=16,
+                                 device="cpu")
+    assert cfg.stage3 == stage3
+    s = tsvd.singular_values(a, config=cfg).numpy()
+    s0 = np.linalg.svd(a, compute_uv=False)
+    np.testing.assert_allclose(s, s0, rtol=0, atol=1e-11 * s0[0])
+    # the full SVD's sigma is the values path's, bit for bit
+    u, s_uv, vt = tsvd.svd(a, config=cfg)
+    assert np.array_equal(s_uv.numpy(), s)
+    check_svd(a, u, s_uv, vt, 1e-10)
+
+
+def test_pipeline_stage3_dc_uv_path():
+    rng = np.random.default_rng(7)
+    n = 32
+    a = rng.standard_normal((n, n))
+    cfg = PipelineConfig.resolve(bw=4, tw=2, dtype=torch.float64, n=n,
+                                 compute_uv=True, stage3="dc", dc_n_min=1,
+                                 dc_leaf_n=8, device="cpu")
+    u, s, vt = tsvd.svd_batched(a[None], cfg)
+    u, s, vt = u[0].numpy(), s[0].numpy(), vt[0].numpy()
+    np.testing.assert_allclose(u @ np.diag(s) @ vt, a, atol=1e-10 * s[0])
+
+
+def test_stage3_auto_resolution():
+    lo = PipelineConfig.resolve(bw=4, dtype=torch.float64, n=64,
+                                stage3="auto", dc_n_min=128, device="cpu")
+    hi = PipelineConfig.resolve(bw=4, dtype=torch.float64, n=256,
+                                stage3="auto", dc_n_min=128, device="cpu")
+    assert lo.stage3 == "bisect" and hi.stage3 == "dc"
+    free = PipelineConfig.resolve(bw=4, dtype=torch.float64, stage3="auto",
+                                  dc_n_min=128, device="cpu")
+    assert free.stage3 == "auto"
+    assert free.stage3_for(64) == "bisect" and free.stage3_for(128) == "dc"
+    assert lo.stage3_for(10_000) == "bisect"
+    with pytest.raises(ValueError, match="stage3"):
+        PipelineConfig.resolve(bw=4, stage3="qr", device="cpu")
+    cfg = PipelineConfig.resolve(bw=4, dtype=torch.float64, device="cpu")
+    assert (cfg.stage3, cfg.dc_leaf_n, cfg.dc_n_min) == (
+        "bisect", tdc.DEFAULT_DC_LEAF_N, tdc.DEFAULT_DC_N_MIN)
+    # an "auto" config routes per n through the entry points
+    rng = np.random.default_rng(8)
+    d = rng.standard_normal((40, 40))
+    s = tsvd.singular_values(d, config=dataclasses.replace(free,
+                                                           dc_n_min=40))
+    np.testing.assert_allclose(s.numpy(), np.linalg.svd(d, compute_uv=False),
+                               rtol=0, atol=1e-11 * float(s.max()))
+
+
+def test_leaf_budget_raises_for_a_cuda_config():
+    with pytest.raises(ValueError, match="dc_leaf_n"):
+        PipelineConfig.resolve(bw=4, stage3="dc", dc_leaf_n=64,
+                               dtype=torch.float64, device="cuda")
+    # the CPU runs the plain version, which has no such budget
+    assert PipelineConfig.resolve(bw=4, stage3="dc", dc_leaf_n=64,
+                                  device="cpu").dc_leaf_n == 64
+
+
+def test_convert_carries_the_stage3_fields():
+    jcfg = JConfig.resolve(bw=8, tw=3, backend="ref", dtype=jnp.float64,
+                           n=40, stage3="dc", dc_leaf_n=16, dc_n_min=100)
+    cfg = convert.pipeline_config_from_reference(dataclasses.asdict(jcfg),
+                                                 device="cpu")
+    assert (cfg.stage3, cfg.dc_leaf_n, cfg.dc_n_min) == ("dc", 16, 100)
+    auto = convert.pipeline_config_from_reference(dataclasses.asdict(
+        JConfig.resolve(bw=8, backend="ref", stage3="auto", dc_n_min=64)),
+        device="cpu")
+    assert auto.stage3 == "auto" and auto.stage3_for(64) == "dc"

@@ -134,9 +134,16 @@ def test_fused_check_and_stage3():
     cfg = fused_config(8, 3)
     with pytest.raises(tsvd.NumericalFault):
         tsvd.singular_values(a, config=cfg, check=True)
-    with pytest.raises(NotImplementedError):
-        PipelineConfig.resolve(bw=3, n=8, backend="fused_small",
-                               stage3="dc", device="cpu")
+    # stage 3 by divide and conquer under the fused uv path: the same
+    # sigma as bisection's, to rounding
+    a = dense(8, 2, seed=4)
+    cfg_dc = PipelineConfig.resolve(bw=3, n=8, dtype=torch.float64,
+                                    backend="fused_small", stage3="dc",
+                                    dc_leaf_n=2, device="cpu")
+    assert cfg_dc.stage3 == "dc"
+    u, sig, vt = tsvd.svd(a, config=cfg_dc)
+    check_svd(a, u, sig, vt, 1e-11)
+    close(sig, tsvd.svd(a, config=fused_config(8, 3))[1], 1e-13)
 
 
 # ---------------------------------------------------------------------------

@@ -10,8 +10,10 @@ Tolerances are the reference's kernel-test ones (fp32 3e-5, fp64 1e-12,
 bf16 8e-2, times the output's scale); the compact-WY apply's are fp32 and
 fp64 times max(1, k // 4) as well, and bf16 1e-2 times the scale, about one
 bf16 ulp (``wy_tol``); bisection agrees to 1e-13 * sigma_max at fp64 and
-1e-5 * sigma_max at fp32; causal flash attention, both kernels, with k and
-v of BH or BH / g rows, each query row to its own size
+1e-5 * sigma_max at fp32; the divide-and-conquer kernels: leaf eigenvalues
+and the deflation scan bit for bit, the secular roots within 1e-13 (fp64)
+or 1e-5 (fp32) of the pole scale; causal flash attention, both kernels,
+with k and v of BH or BH / g rows, each query row to its own size
 (``flash_attention.row_error`` within ``flash_attention.CHECK_TOLS``).
 """
 
@@ -23,12 +25,14 @@ import torch
 from torch_port_common import (DTYPES, close, cuda, torch_dtype,  # noqa: F401
                                windows, wy_tol)
 
+from repro_torch.core import bidiag_dc as tdc
 from repro_torch.core import bidiag_svd as s3
 from repro_torch.core import svd as tsvd
 from repro_torch.core import tuning
 from repro_torch.core.tuning import PipelineConfig, stage_plan
 from repro_torch.kernels import bisect as tbisect
 from repro_torch.kernels import bulge_chase as tkern
+from repro_torch.kernels import dc as tdc_kern
 from repro_torch.kernels import flash_attention as tflash
 from repro_torch.kernels import fused_small as tfused
 from repro_torch.kernels import hh_apply as thh
@@ -618,6 +622,192 @@ def test_sturm_bisect_cuda_matches_plain(cuda, n, b, dtype, tol):
     torch.cuda.synchronize()
     close(got, want, tol)
     assert bool((got[:, 1:] <= got[:, :-1]).all())
+
+
+# ---- divide and conquer (csrc/dc.cu) against bidiag_dc's plain versions --
+
+DC_TOLS = {"float64": 1e-13, "float32": 1e-5}
+
+
+def _dc_leaves(p, lm, seed, dtype, device):
+    """P random leaves, the last one a tight cluster inside an otherwise
+    random leaf (rows lm/4 ... lm/2 near 1, coupled by 1e-6): a (P, lm),
+    b (P, lm-1) and their brackets, cluster widths and start vectors."""
+    rng = np.random.default_rng(seed)
+    a = rng.standard_normal((p, lm))
+    b = rng.standard_normal((p, lm - 1))
+    c0, c1 = lm // 4, max(lm // 2, lm // 4 + 2)
+    a[-1, c0:c1] = 1.0 + 1e-9 * np.arange(c1 - c0)
+    b[-1, c0 - 1:c1] = 1e-6
+    a, b = (torch.from_numpy(x).to(device, dtype) for x in (a, b))
+    lo0, hi0, ctol = tdc._leaf_bracket(a, b)
+    return a, b, lo0, hi0, ctol, tdc.leaf_start(lm, dtype, device)
+
+
+@pytest.mark.cuda
+@pytest.mark.parametrize("dtype", ["float64", "float32"])
+@pytest.mark.parametrize("leaf_n,p", [(32, 40), (16, 7), (2, 3)])
+def test_dc_leaf_cuda_matches_plain(cuda, leaf_n, p, dtype):
+    """Eigenvalues bit for bit (the plain version's midpoints), the first
+    and last eigenvector rows of the separated leaves within DC_TOLS, and
+    in the clustered leaf each cluster's sums of f^2, f*l and l^2 (which
+    no rotation inside the cluster changes) within the same."""
+    args = _dc_leaves(p, 2 * leaf_n, p + leaf_n, torch_dtype(dtype), cuda)
+    kw = dict(bisect_iters=s3.default_bisect_iters(args[0].dtype),
+              inv_iters=2)
+    got = tdc_kern.dc_leaf_cuda(*args, **kw)
+    want = tdc.leaf_eigen_plain(*args, **kw)
+    torch.cuda.synchronize()
+    assert torch.equal(got[0], want[0])
+    for g, w in zip(got[1:], want[1:]):
+        close(g[:-1], w[:-1], DC_TOLS[dtype] * 10)
+    lam, ctol = want[0][-1], args[4][-1]
+    assert bool((lam[1:] - lam[:-1] < ctol).any())     # the leaf clusters
+    sums = [_dc_cluster_sums(*x, args[4]) for x in (got, want)]
+    close(sums[0][:, -1], sums[1][:, -1], DC_TOLS[dtype] * 10)
+
+
+@pytest.mark.cuda
+@pytest.mark.parametrize("dtype", ["float64", "float32"])
+@pytest.mark.parametrize("leaf_n", [32, 16, 2])
+def test_dc_leaf_cuda_degenerate_cluster_matches_plain(cuda, leaf_n, dtype):
+    """Leaves with an exactly repeated eigenvalue (rows lm/4 ... lm/2 at
+    0.5, uncoupled): the vectors of the cluster must span the eigenspace,
+    so each cluster's sums of f^2, f*l and l^2 agree with the plain
+    version's."""
+    lm = 2 * leaf_n
+    rng = np.random.default_rng(lm)
+    a = rng.standard_normal((3, lm))
+    b = rng.standard_normal((3, lm - 1))
+    c0, c1 = lm // 4, lm // 2 + 1
+    a[:, c0:c1] = 0.5
+    b[:, c0 - 1:c1] = 0.0
+    a, b = (torch.from_numpy(x).to(cuda, torch_dtype(dtype))
+            for x in (a, b))
+    args = (a, b) + tdc._leaf_bracket(a, b) + (
+        tdc.leaf_start(lm, a.dtype, cuda),)
+    kw = dict(bisect_iters=s3.default_bisect_iters(a.dtype), inv_iters=2)
+    got = tdc_kern.dc_leaf_cuda(*args, **kw)
+    want = tdc.leaf_eigen_plain(*args, **kw)
+    torch.cuda.synchronize()
+    assert torch.equal(got[0], want[0])
+    sums = [_dc_cluster_sums(*x, args[4]) for x in (got, want)]
+    close(sums[0], sums[1], DC_TOLS[dtype] * 10)
+
+
+def _dc_cluster_sums(lam, f, l, ctol):
+    """(3, P, lm): per cluster of each leaf (a run of eigenvalues whose
+    neighbours are within ctol), the sums of f^2, f*l and l^2 over it."""
+    start = torch.ones_like(lam, dtype=torch.bool)
+    start[:, 1:] = lam[:, 1:] - lam[:, :-1] >= ctol[:, None]
+    cid = (torch.cumsum(start.to(torch.int64), -1) - 1).expand(3, -1, -1)
+    return torch.zeros((3,) + tuple(lam.shape), dtype=lam.dtype,
+                       device=lam.device).scatter_add_(
+        -1, cid, torch.stack((f * f, f * l, l * l)))
+
+
+def _dc_deflation_inputs(p, m, seed, dtype, device):
+    """A merge's columns after its first partition, with runs of near-equal
+    poles and imbalanced weights, so that the scan merges often."""
+    rng = np.random.default_rng(seed)
+    d = np.sort(rng.standard_normal((p, m)), -1)
+    d[:, 1::3] = d[:, 0:-1:3][:, :d[:, 1::3].shape[1]] + 1e-12
+    d = np.sort(d, -1)
+    z = rng.standard_normal((p, m)) * 10.0 ** rng.integers(-8, 1, (p, m))
+    act = np.arange(m)[None, :] < rng.integers(m // 2, m + 1, (p, 1))
+    to = lambda x: torch.from_numpy(x).to(device, dtype)  # noqa: E731
+    return (to(d), to(z), to(rng.standard_normal((p, m))),
+            to(rng.standard_normal((p, m))), torch.from_numpy(act).to(device),
+            to(np.full(p, 1e-6)))
+
+
+@pytest.mark.cuda
+@pytest.mark.parametrize("dtype", ["float64", "float32"])
+@pytest.mark.parametrize("p,m", [(1, 1), (3, 2), (5, 200), (64, 128)])
+def test_dc_deflate_cuda_is_bitwise_plain(cuda, p, m, dtype):
+    args = _dc_deflation_inputs(p, m, p * m, torch_dtype(dtype), cuda)
+    want = tdc.deflate_plain(*args)
+    got = tdc_kern.dc_deflate_cuda(*(x.clone() for x in args[:5]), args[5])
+    torch.cuda.synchronize()
+    for g, w in zip(got, want):
+        assert torch.equal(g, w)
+    assert int((~want[4] & args[4]).sum()) > 0 or m < 3   # it did merge
+
+
+def _dc_secular_inputs(p, m, nact, seed, dtype, device):
+    """A merge's secular equation as _merge_pair hands it over: poles
+    ascending, weights on the active prefix (of nact[i] poles) only."""
+    rng = np.random.default_rng(seed)
+    d = np.sort(rng.standard_normal((p, m)), -1)
+    act = np.arange(m)[None, :] < np.asarray(nact)[:, None]
+    w = np.where(act, rng.standard_normal((p, m)) ** 2, 0.0)
+    eps = np.finfo(np.float32 if dtype == torch.float32 else np.float64).eps
+    d_next = np.pad(d[:, 1:], ((0, 0), (0, 1)))
+    a_next = np.pad(act[:, 1:], ((0, 0), (0, 1)))
+    gap = np.where(a_next, d_next - d, w.sum(-1, keepdims=True)
+                   * (1 + 4 * eps) + 4 * eps * (np.abs(d).max(-1,
+                                                              keepdims=True)
+                                                + 2))
+    to = lambda x: torch.from_numpy(x).to(device, dtype)  # noqa: E731
+    act_t, a_next_t = (torch.from_numpy(x).to(device) for x in (act, a_next))
+    k = int(max(nact))
+    ts = (to(d), to(w), to(gap), act_t, to(d_next), a_next_t)
+    hidx = torch.topk(ts[1][:, :k], min(32, k), dim=-1)[1]
+    return ts + (hidx,), k, float(np.abs(d).max() + w.sum(-1).max())
+
+
+@pytest.mark.cuda
+@pytest.mark.parametrize("dtype", ["float64", "float32"])
+@pytest.mark.parametrize("m,nact", [(4, [4, 1]), (160, [160, 97, 40]),
+                                    (1024, [700]), (128, [0, 128])])
+def test_dc_secular_cuda_matches_plain(cuda, m, nact, dtype):
+    args, k, scale = _dc_secular_inputs(len(nact), m, nact, m,
+                                        torch_dtype(dtype), cuda)
+    got = tdc_kern.dc_secular_cuda(*args, nact=k, newton_iters=30)
+    want = tdc.secular_plain(*args, nact=k, newton_iters=30)
+    torch.cuda.synchronize()
+    err = float(((got[0] + got[1]) - (want[0] + want[1])).abs().max())
+    assert err <= DC_TOLS[dtype] * scale
+    assert bool(((got[0] + got[1]) >= args[0][:, :k]).all())
+
+
+@pytest.mark.cuda
+@pytest.mark.parametrize("n,b", [(2048, 1), (512, 4)])
+def test_dc_on_a_pipeline_bidiagonal_matches_bisection(cuda, n, b):
+    """The bidiagonals stage 2 makes of banded fp64 bw-64 inputs, where the
+    reference's dc is off: at n = 2048 a secular root needs more exact
+    polish passes than its cap of 12 (3.3e-8 * sigma_max); at n = 512,
+    B = 4 a leaf vector collapses in the Gram-Schmidt and its fallback, e_k
+    projected, lies across the spectrum (2.4e-11 * sigma_max)."""
+    from repro_torch.autotune import measure
+    from repro_torch.core import svd as tsvd
+    a = measure.banded_input(n, 64, batch=b, dtype=torch.float64,
+                             device="cuda")
+    d, e = tsvd.bidiagonal_of(a.reshape(b, n, n), bw=64, device="cuda")
+    want = s3.bidiag_singular_values(d, e)
+    got = tdc.bidiag_dc_singular_values(d, e)
+    err = float(((got - want).abs().amax(-1) / want.abs().amax(-1)).max())
+    assert err <= 1e-12, err
+
+
+@pytest.mark.cuda
+@pytest.mark.parametrize("dtype,n,b", [("float64", 1000, 1),
+                                       ("float64", 300, 3),
+                                       ("float32", 2000, 1)])
+def test_dc_singular_values_on_the_card_match_the_cpu(cuda, dtype, n, b):
+    rng = np.random.default_rng(n)
+    d, e = (torch.from_numpy(rng.standard_normal((b, n))).to(
+        torch_dtype(dtype)) for _ in range(2))
+    ops.reset_launch_counts()
+    got = tdc.bidiag_dc_singular_values(d.to(cuda), e.to(cuda))
+    torch.cuda.synchronize()
+    counts = ops.launch_counts()
+    assert all(counts[k] > 0 for k in tdc_kern.launches), counts
+    want = tdc.bidiag_dc_singular_values(d, e)
+    close(got.cpu(), want, DC_TOLS[dtype] * (10 if dtype == "float32"
+                                             else 1))
+    close(got.cpu(), s3.bidiag_singular_values(d, e), 1e-12 if
+          dtype == "float64" else 1e-4)
 
 
 @pytest.mark.cuda

@@ -56,7 +56,11 @@ def test_import_leaves_jax_out():
             "repro_torch.models.modules", "repro_torch.models.attention",
             "repro_torch.models.transformer", "repro_torch.models.zoo",
             "repro_torch.serve", "repro_torch.serve.engine",
-            "repro_torch.launch", "repro_torch.launch.serve"]
+            "repro_torch.launch", "repro_torch.launch.serve",
+            "repro_torch.core.bidiag_dc", "repro_torch.kernels.dc",
+            "repro_torch.autotune", "repro_torch.autotune.model",
+            "repro_torch.autotune.measure", "repro_torch.autotune.cache",
+            "repro_torch.autotune.search", "repro_torch.autotune.__main__"]
     code = ("import importlib, sys\n"
             f"for m in {mods!r}: importlib.import_module(m)\n"
             "bad = [m for m in sys.modules if m.split('.')[0] in "
@@ -114,3 +118,28 @@ def test_cuda_backend_on_cpu_tensor_raises():
                                            device="cpu")
     assert ops.resolve_backend("auto", "cpu") == "ref"
     assert ops.resolve_backend("auto", "cuda") == "cuda"
+
+
+def test_dc_kernels_refuse_cpu_tensors_and_autotune_defaults_to_the_card():
+    from repro_torch.autotune.__main__ import main as autotune_main
+    from repro_torch.kernels import dc
+    x = torch.zeros(2, 4, dtype=torch.float64)
+    flags = torch.zeros(2, 4, dtype=torch.bool)
+    with pytest.raises(ValueError, match="CUDA"):
+        ops.dc_deflate(x, x, x, x, flags, torch.ones(2, dtype=torch.float64),
+                       backend="cuda")
+    with pytest.raises(ValueError, match="CUDA"):
+        dc.dc_leaf_cuda(x, x[:, :3], x[:, 0], x[:, 0], x[:, 0],
+                        torch.zeros(4, 4, dtype=torch.float64),
+                        bisect_iters=1, inv_iters=1)
+    with pytest.raises(ValueError, match="CUDA"):
+        dc.dc_secular_cuda(x, x, x, flags, x, flags,
+                           torch.zeros(2, 1, dtype=torch.int64), nact=1,
+                           newton_iters=1)
+    assert sum(dc.launches.values()) == 0
+    if torch.cuda.is_available():
+        return
+    with pytest.raises(RuntimeError, match="device='cpu'"):
+        autotune_main(["--shapes", "n=16:bw=4", "--no-store"])
+    with pytest.raises(RuntimeError, match="device='cpu'"):
+        repro_torch.PipelineConfig.resolve(bw=4, n=16, autotune=True)

@@ -174,9 +174,13 @@ def test_convert_round_trip():
     uv = convert.pipeline_config_from_reference(
         {**ref_fields, "compute_uv": True}, device="cpu")
     assert uv.compute_uv and not cpu.compute_uv
-    with pytest.raises(NotImplementedError, match="later slice"):
+    dc = convert.pipeline_config_from_reference(
+        {**ref_fields, "stage3": "dc", "dc_leaf_n": 16, "dc_n_min": 100},
+        device="cpu")
+    assert (dc.stage3, dc.dc_leaf_n, dc.dc_n_min) == ("dc", 16, 100)
+    with pytest.raises(ValueError, match="stage3"):
         convert.pipeline_config_from_reference(
-            {**ref_fields, "stage3": "dc"}, device="cpu")
+            {**ref_fields, "stage3": "qr"}, device="cpu")
     fused = convert.pipeline_config_from_reference(
         {**ref_fields, "backend": "fused_small"}, device="cpu")
     assert (fused.backend, fused.device) == ("fused_small", "cpu")
@@ -194,10 +198,12 @@ def test_convert_round_trip():
 
 def test_later_slices_and_conflicts_raise():
     a = banded((), 16, 4, 1)
-    with pytest.raises(NotImplementedError, match="later slice"):
-        PipelineConfig.resolve(bw=4, stage3="dc", device="cpu")
-    with pytest.raises(NotImplementedError, match="later slice"):
-        PipelineConfig.resolve(bw=4, stage3="auto", device="cpu")
+    assert PipelineConfig.resolve(bw=4, stage3="dc",
+                                  device="cpu").stage3 == "dc"
+    assert PipelineConfig.resolve(bw=4, n=16, stage3="auto", dc_n_min=17,
+                                  device="cpu").stage3 == "bisect"
+    with pytest.raises(ValueError, match="stage3"):
+        PipelineConfig.resolve(bw=4, stage3="qr", device="cpu")
     assert PipelineConfig.resolve(bw=4, backend="fused_small",
                                   device="cpu").backend == "fused_small"
     cfg = cpu_config(4, 2)
