@@ -6,7 +6,7 @@
                            --chase-bounds | --wy-planted-faults |
                            --wy-bounds | --fused-planted-faults |
                            --fused-threads | --fused-bounds |
-                           --svd-parts TREE]
+                           --svd-parts TREE | --svd-serve]
 
 Builds the port's CUDA kernels from ``src/repro_torch/kernels/csrc`` (one
 ``nvcc`` per source, all at once), holds each kernel against its plain
@@ -23,7 +23,12 @@ staged pipeline on the same batch.  Stage 3 by divide and conquer
 SVD of a dense fp64 n = 1024; then the autotuner searches (tw, fuse) at
 fp64 n = 4096 and the stage-3 crossover on the bidiagonals the pipeline
 makes of banded inputs (fp64 and fp32, one matrix and four), and reads
-them back from a temporary cache.  Results are checked against
+them back from a temporary cache; the fused-vs-staged crossover at (bw 8,
+fp64) and (bw 32, fp32) and the batch axis at n = 1024 around
+``default_bucket_batch``.  The ``svd_serve`` phase serves a mix of small
+matrices (the fused tier) and large ones (the staged kernels) through
+``AsyncSVDEngine`` on the card: a burst, an open-loop stream, the same
+stream under injected faults, and one traced dispatch.  Results are checked against
 ``torch.linalg.svdvals``, which serves here only as a yardstick, and U and
 V^T by reconstruction and orthogonality.  Then the LM serving path with
 phi3-medium-14b at full width: a four-layer fp32 prefill (b = 2, s = 2048)
@@ -342,6 +347,9 @@ def main() -> int:
                     help="only time the fused kernel's values mode at the "
                     "main shapes with 512 threads a block (the "
                     "repository's build) and 256 (a copy), then exit")
+    ap.add_argument("--svd-serve", action="store_true",
+                    help="only build the kernels and run the svd_serve "
+                    "phase (AsyncSVDEngine on the card), then exit")
     ap.add_argument("--fused-bounds", action="store_true",
                     help="only time the fused kernel's values mode at the "
                     "main shapes in the repository's build and in copies "
@@ -379,6 +387,11 @@ def main() -> int:
             return fused_bounds(args, torch)
         if args.svd_parts:
             return svd_parts(args, torch, tree)
+        if args.svd_serve:
+            from repro_torch.kernels import _build
+            _build.build_all()
+            svd_serve_phase(torch)
+            return 0
         return run(args, torch)
     except PhaseFailed as exc:
         print(f"chip_smoke: FAILED: {exc}", file=sys.stderr)
@@ -961,12 +974,12 @@ def timed_parts(torch, parts):
             setattr(mod, name, fn)
 
 
-def banded_matrix(torch, lead, n, bw, dtype, gen):
+def banded_matrix(torch, lead, n, bw, dtype, gen, device="cuda"):
     """Random upper-banded (lead..., n, n) matrix on the card."""
-    a = torch.zeros(tuple(lead) + (n, n), dtype=torch.float64, device="cuda")
+    a = torch.zeros(tuple(lead) + (n, n), dtype=torch.float64, device=device)
     for k in range(bw + 1):
         vals = torch.randn(tuple(lead) + (n - k,), generator=gen,
-                           dtype=torch.float64, device="cuda")
+                           dtype=torch.float64, device=device)
         a.diagonal(k, -2, -1).copy_(vals)
     return a.to(dtype)
 
@@ -2165,6 +2178,497 @@ def autotune_phase(torch, PipelineConfig) -> None:
                                      for dt, c in free.items()}}})
     check(ok, "autotune: the cache did not read back what the searches "
           "measured, or dc and bisection disagreed")
+    autotune_serving(torch)
+
+
+def autotune_serving(torch) -> None:
+    """The serving knobs on the card: the fused-vs-staged crossover
+    (``search_fused_crossover``, batch 8) at (bw 8, fp64) and (bw 32,
+    fp32), whose smaller reading ``tuning.DEFAULT_FUSED_CROSSOVER`` must
+    equal, and with U, Sigma, V^T at (bw 32, fp64), which must not read
+    below it (the engine sends U Sigma V^T buckets to the fused tier by the
+    same default); and where ``default_bucket_batch`` ranks on the batch
+    axis at n = 1024, bw 64, fp32: a search over batches (1, d, 2d), and
+    stage 2 at the default (tw, fuse) timed at each of the three."""
+    from repro_torch.autotune import measure
+    from repro_torch.autotune import search as at_search
+    from repro_torch.core import tuning
+    f64, f32 = torch.float64, torch.float32
+    t0 = time.perf_counter()
+    fused = {(bw, tuning.dtype_name(dt)): at_search.search_fused_crossover(
+        bw, dtype=dt, warmup=1, iters=2, device="cuda")
+        for bw, dt in ((8, f64), (32, f32))}
+    reading = min(c.fused_n_max for c in fused.values())
+    fused_uv = at_search.search_fused_crossover(
+        32, dtype=f64, compute_uv=True, warmup=1, iters=2, device="cuda")
+    t1 = time.perf_counter()
+    n, bw = 1024, 64
+    d = tuning.default_bucket_batch(n, bw, f32)
+    batches = (1, d, 2 * d)
+    res = at_search.search(n, bw, dtype=f32, backend="cuda", top_k=3,
+                           fuses=(1, 2), batches=batches, warmup=1, iters=2,
+                           device="cuda")
+    by_measured = sorted(res.measured, key=lambda c: c.measured_s)
+    tw_d, fuse_d = res.default.tw, res.default.fuse
+    per_batch = {b: measure.time_stage2(n, bw, tw=tw_d, fuse=fuse_d, batch=b,
+                                        backend="cuda", dtype=f32, warmup=1,
+                                        iters=3, device="cuda") / b
+                 for b in batches}
+    ranked = sorted(batches, key=per_batch.get)
+    t2 = time.perf_counter()
+    same = tuning.DEFAULT_FUSED_CROSSOVER == reading
+    uv_ok = tuning.DEFAULT_FUSED_CROSSOVER <= fused_uv.fused_n_max
+    tables = {f"bw={bw_} {dn}": c for (bw_, dn), c in fused.items()}
+    tables["bw=32 float64 uv"] = fused_uv
+    emit({"phase": "autotune_serving", "ok": same and uv_ok,
+          "fused_crossover": {
+              label: {"table": c.table().splitlines(),
+                      "fused_n_max": c.fused_n_max,
+                      "predicted_n_max": c.predicted_n_max}
+              for label, c in tables.items()},
+          "fused_n_max_reading": reading,
+          "fused_n_max_uv_reading": fused_uv.fused_n_max,
+          "default_fused_crossover": tuning.DEFAULT_FUSED_CROSSOVER,
+          "default_equals_reading": same,
+          "default_within_uv_reading": uv_ok,
+          "crossover_s": t1 - t0,
+          "batch_search": {
+              "n": n, "bw": bw, "dtype": "float32", "batches": batches,
+              "default_bucket_batch": d,
+              "table": res.table().splitlines(),
+              "default": res.default.label(),
+              "default_measured_rank": by_measured.index(res.default) + 1,
+              "measured": len(by_measured),
+              "model_rank_of_measured_best": res.model_rank_of_best(),
+              "best": res.best.label()},
+          "stage2_us_per_matrix_at_default_knobs": {
+              str(b): t * 1e6 for b, t in per_batch.items()},
+          "default_batch_rank": ranked.index(d) + 1,
+          "search_s": t2 - t1})
+    check(same, f"DEFAULT_FUSED_CROSSOVER {tuning.DEFAULT_FUSED_CROSSOVER} "
+          f"is not the reading {reading}")
+    check(uv_ok, f"DEFAULT_FUSED_CROSSOVER {tuning.DEFAULT_FUSED_CROSSOVER} "
+          f"lies above the U Sigma V^T reading {fused_uv.fused_n_max}")
+
+
+# the SVD serving mix: bucket key (n, bw, dtype, banded, compute_uv) ->
+# share of the stream (the reference's FULL_MIX, benchmarks/serve_load.py:68-70) or a
+# count of requests mixed in (they reach the staged kernels: n above
+# DEFAULT_FUSED_CROSSOVER, so the U Sigma V^T row is at n = 1024)
+SERVE_STREAM = {(96, 8, "float64", False, False): 0.7,
+                (96, 8, "float64", False, True): 0.1,
+                (64, 8, "float32", False, False): 0.2}
+SERVE_STAGED = {(1024, 64, "float32", False, False): 8,
+                (1024, 32, "float64", False, True): 4,
+                (4096, 64, "float64", True, False): 2}
+SERVE_BURST = 512               # closed-loop burst and each open-loop stream
+SERVE_WINDOW_S = 0.01           # the engines' micro-batch window
+
+
+def serve_tol(n: int, dname: str) -> float:
+    """sigma against fp64 svdvals, over sigma_max (PERF.md section 1): fp64
+    1e-12 to n = 128, 1e-11 to 1024, 1e-10 beyond; fp32 5e-4."""
+    if dname == "float32":
+        return 5e-4
+    return 1e-12 if n <= 128 else 1e-11 if n <= 1024 else 1e-10
+
+
+def serve_expected_kernels(tier: str, key, fuse: int) -> set:
+    """The kernels a bucket of ``tier`` launches on the card."""
+    n, _bw, _dt, banded, uv = key
+    if tier == "fused":
+        return {"fused_small_svd_cuda"} | ({"sturm_bisect_cuda"} if uv
+                                           else set())
+    out = {"chase_cycle_cuda" if fuse == 1 else "chase_superstep_cuda"}
+    if tier == "staged-dc":
+        out |= {"dc_leaf_cuda", "dc_deflate_cuda", "dc_secular_cuda"}
+    else:
+        out.add("sturm_bisect_cuda")
+    if uv or not banded:
+        out.add("tape_apply_cuda")           # stage 1 (dense) or the replay
+    return out
+
+
+def serve_requests(torch, gen, rng, count: int, with_staged: bool,
+                   device="cuda"):
+    """A seeded stream: ``count`` requests drawn from SERVE_STREAM's shares,
+    and with ``with_staged`` SERVE_STAGED's requests at random positions.
+    Matrices are made on the card in bulk; returns [(uid, key, matrix)]."""
+    from repro_torch.core import tuning
+    keys = list(SERVE_STREAM)
+    picks = rng.choice(len(keys), size=count, p=list(SERVE_STREAM.values()))
+    order = [keys[i] for i in picks]
+    if with_staged:
+        for key, c in SERVE_STAGED.items():
+            for _ in range(c):
+                order.insert(int(rng.integers(len(order) + 1)), key)
+    out, pools = [], {}
+    for key in dict.fromkeys(order):
+        n, bw, dname, banded, _uv = key
+        m = order.count(key)
+        dt = tuning.dtype_of(dname)
+        pools[key] = iter(
+            banded_matrix(torch, (m,), n, bw, dt, gen, device) if banded
+            else torch.randn((m, n, n), generator=gen, dtype=torch.float64,
+                             device=device).to(dt))
+    for uid, key in enumerate(order):
+        out.append((uid, key, next(pools[key])))
+    return out
+
+
+def serve_submit(eng, SVDRequest, items, gaps=None, timeout_s=None):
+    """Submit ``items`` (open loop with ``gaps`` between arrivals, else as one
+    burst); returns (futures, requests, seconds from the first submit to the
+    last completion)."""
+    reqs, futs = [], []
+    t0 = time.perf_counter()
+    for i, (uid, key, a) in enumerate(items):
+        if gaps is not None:
+            time.sleep(gaps[i])
+        n, bw, _dn, banded, uv = key
+        r = SVDRequest(uid=uid, matrix=a, bw=bw, banded=banded,
+                       compute_uv=uv)
+        reqs.append(r)
+        futs.append(eng.submit(r, timeout_s=timeout_s))
+    errors = []
+    for f in futs:
+        try:
+            f.result(timeout=600)
+        except Exception as exc:                 # noqa: BLE001 — counted
+            errors.append(repr(exc))
+    return reqs, errors, time.perf_counter() - t0
+
+
+def serve_latency(snap) -> dict:
+    return {t: {q: row.get(q) for q in ("count", "p50_ms", "p95_ms",
+                                         "p99_ms")}
+            for t, row in snap["latency"]["tiers"].items()}
+
+
+def svd_serve_phase(torch, main_counts=None, device="cuda") -> None:
+    """SVD serving on the card through ``AsyncSVDEngine(device="cuda")``:
+    every bucket of the mix warmed once (the builds), a closed-loop burst of
+    SERVE_BURST stream requests (the sustained rate), an open-loop Poisson
+    stream at half that rate with the staged requests mixed in, the same
+    stream under a seeded FaultPlan (the default RetryPolicy without
+    backoff), one request forced through the degraded ref tier, and one
+    traced dispatch of the n = 1024 bucket beside an untraced one.  The
+    engines are built as a user builds them: no config, no cap, so each
+    bucket holds ``default_bucket_batch`` matrices.  Holds sigma to fp64 svdvals, U and V^T
+    to 50 n eps, each bucket's first clean dispatch bit for bit to a direct
+    call on the same padded stack (its padded rows zero and finite), the
+    clean run to no retry, degraded, failed or timed-out request and each
+    bucket to the tier ``_fused_n_max_for`` / ``_dc_n_min_for`` give, the
+    kernels of every tier served to a launch, the faulted run to every
+    request answered and agreeing with the clean one, the forced request
+    served degraded and right, and the traced
+    dispatch's stage spans to >= 90 % of its root.  The two streams'
+    launches join ``main_counts``.  (``device="cpu"`` rehearses the phase's
+    logic on the plain versions, with smaller SERVE_* tables.)"""
+    import numpy as np
+
+    from repro_torch import obs
+    from repro_torch.core import svd as tsvd
+    from repro_torch.core import tuning
+    from repro_torch.kernels import ops
+    from repro_torch.serve import (AsyncSVDEngine, FaultPlan, RetryPolicy,
+                                   SVDEngine, SVDRequest, bucket_key_str)
+    t_phase = time.perf_counter()
+    rng = np.random.default_rng(1234)
+    gen = torch.Generator(device=device)
+    gen.manual_seed(1234)
+    sync_dev = (torch.cuda.synchronize if device == "cuda"
+                else (lambda: None))
+    out = {"phase": "svd_serve", "window_s": SERVE_WINDOW_S}
+    failures = []
+
+    def engine(**kw):
+        return AsyncSVDEngine(device=device, batch_window_s=SERVE_WINDOW_S,
+                              **kw)
+
+    # ---- 1. warm every bucket (builds, allocator), untimed --------------
+    eng = engine()
+    warm = []
+    for key in list(SERVE_STREAM) + list(SERVE_STAGED):
+        n, bw, dname, banded, _uv = key
+        dt = tuning.dtype_of(dname)
+        a = (banded_matrix(torch, (), n, bw, dt, gen, device) if banded
+             else torch.randn((n, n), generator=gen, dtype=torch.float64,
+                              device=device).to(dt))
+        warm.append((len(warm), key, a))
+    _, errs, warm_s = serve_submit(eng, SVDRequest, warm)
+    eng.stop(timeout=600)
+    cfgs = {key: eng._cfg_for(key) for key in dict.fromkeys(
+        [k for _, k, _ in warm])}
+    tiers = {key: eng.metrics.tier_of_bucket(key) for key in cfgs}
+    want_tier = {}
+    for key, cfg in cfgs.items():
+        n = key[0]
+        fused_ok = n <= eng._fused_n_max_for(key)
+        if fused_ok:
+            try:
+                tuning.check_fused_smem_budget(n, key[2], compute_uv=key[4])
+            except ValueError:
+                fused_ok = False
+        want_tier[key] = ("fused" if fused_ok else "staged-dc"
+                          if n >= max(eng._dc_n_min_for(key), 1) else
+                          "staged")
+    out["warm"] = {"seconds": warm_s, "errors": errs,
+                   "buckets": {bucket_key_str(k): {
+                       "tier": tiers[k], "expected_tier": want_tier[k],
+                       "max_batch": c.max_batch, "tw": c.tw, "fuse": c.fuse,
+                       "backend": c.backend} for k, c in cfgs.items()}}
+    if errs:
+        failures.append("warm-up errors")
+    if tiers != want_tier:
+        failures.append("a bucket's tier is not the one its crossovers give")
+
+    # ---- 2. closed-loop burst of the stream ------------------------------
+    burst = serve_requests(torch, gen, rng, SERVE_BURST, False, device)
+    eng = engine()
+    _, errs, burst_s = serve_submit(eng, SVDRequest, burst)
+    eng.stop(timeout=600)
+    rate = SERVE_BURST / burst_s
+    snap = eng.metrics.snapshot()
+    out["burst"] = {"requests": SERVE_BURST, "seconds": burst_s,
+                    "requests_per_s": rate, "errors": len(errs),
+                    "batches": snap["batches"],
+                    "batch_fill_ratio": snap["batch_fill_ratio"],
+                    "latency": serve_latency(snap)}
+    if errs:
+        failures.append("burst errors")
+
+    # ---- 3. open-loop Poisson stream at half the rate, staged mixed in --
+    stream = serve_requests(torch, gen, rng, SERVE_BURST, True, device)
+    gaps = rng.exponential(2.0 / rate, len(stream))
+    dispatches = {}
+    eng = engine()
+    orig = eng._serve_batch
+
+    def recording(key, cfg, reqs):
+        dispatches.setdefault(key, (cfg, [r.uid for r in reqs]))
+        return orig(key, cfg, reqs)
+    eng._serve_batch = recording
+    ops.reset_launch_counts()
+    clean, errs, clean_s = serve_submit(eng, SVDRequest, stream, gaps)
+    eng.stop(timeout=600)
+    counts = ops.launch_counts()
+    snap, health = eng.metrics.snapshot(), eng.metrics.health()
+    if main_counts is not None:
+        for k, v in counts.items():
+            main_counts[k] += v
+    out["poisson_clean"] = {
+        "requests": len(stream), "offered_per_s": rate / 2,
+        "seconds": clean_s, "requests_per_s": len(stream) / clean_s,
+        "errors": errs[:5], "latency": serve_latency(snap),
+        "launches": {k: v for k, v in counts.items() if v},
+        "snapshot": snap, "health": health}
+    if errs or any(snap[k] for k in ("retried", "degraded", "failed",
+                                     "timed_out")):
+        failures.append("the clean stream retried, degraded, failed or "
+                        "timed out a request")
+    expect = set()
+    for key in cfgs:
+        expect |= serve_expected_kernels(tiers[key], key, cfgs[key].fuse)
+    out["poisson_clean"]["expected_kernels"] = sorted(expect)
+    missing = sorted(k for k in expect if not counts.get(k))
+    if missing:
+        failures.append(f"kernels of a served tier not launched: {missing}")
+
+    # accuracy of every answer: sigma against fp64 svdvals, U and V^T
+    by_uid = {r.uid: r for r in clean}
+    acc = {}
+    for key in cfgs:
+        n, _bw, dname, _banded, uv = key
+        rs = [r for r in clean if r.key() == key]
+        if not rs:
+            continue
+        a = torch.stack([torch.as_tensor(r.matrix) for r in rs]).double()
+        sv = torch.linalg.svdvals(a).cpu().numpy()
+        got = np.stack([r.sigma for r in rs]).astype(np.float64)
+        err = float(np.max(np.abs(got - sv) / sv[:, :1]))
+        row = {"requests": len(rs), "sigma_err_over_max": err,
+               "tol": serve_tol(n, dname)}
+        if err > row["tol"]:
+            failures.append(f"sigma of {bucket_key_str(key)} off svdvals")
+        if uv:
+            u = torch.from_numpy(np.stack([r.u for r in rs])).to(a)
+            vt = torch.from_numpy(np.stack([r.vt for r in rs])).to(a)
+            s_ = torch.from_numpy(got).to(a)
+            eye = torch.eye(n, dtype=a.dtype, device=a.device)
+            recon = float((torch.linalg.norm(a - (u * s_[:, None]) @ vt,
+                                             dim=(-2, -1))
+                           / torch.linalg.norm(a, dim=(-2, -1))).max())
+            orth = max(float((u.mT @ u - eye).abs().max()),
+                       float((vt @ vt.mT - eye).abs().max()))
+            lim = 50 * n * torch.finfo(tuning.dtype_of(dname)).eps
+            row.update(recon=recon, orth=orth, uv_tol=lim)
+            if recon > lim or orth > lim:
+                failures.append(f"U, V^T of {bucket_key_str(key)} off 50 n eps")
+        acc[bucket_key_str(key)] = row
+    out["poisson_clean"]["accuracy"] = acc
+
+    # each bucket's first dispatch, bit for bit a direct call on the same
+    # padded stack; the padded rows zero and finite
+    bitwise = {}
+    for key, (cfg, uids) in dispatches.items():
+        n, _bw, dname, banded, uv = key
+        dt = tuning.dtype_of(dname)
+        stack = torch.zeros((cfg.max_batch, n, n), dtype=dt, device=device)
+        for i, uid in enumerate(uids):
+            stack[i].copy_(torch.as_tensor(by_uid[uid].matrix))
+        if uv:
+            fn = tsvd.banded_svd if banded else tsvd.svd
+            u, sig, vt = fn(stack, config=cfg, compute_uv=True)
+        elif banded:
+            u = vt = None
+            sig = tsvd.banded_singular_values(stack, config=cfg)
+        else:
+            u = vt = None
+            sig = tsvd.svd_batched(stack, cfg)
+        k = len(uids)
+        same = all(torch.equal(sig[i].cpu(), torch.from_numpy(
+            by_uid[uid].sigma)) for i, uid in enumerate(uids))
+        if uv:
+            same = same and all(
+                torch.equal(u[i].cpu(), torch.from_numpy(by_uid[uid].u))
+                and torch.equal(vt[i].cpu(), torch.from_numpy(
+                    by_uid[uid].vt)) for i, uid in enumerate(uids))
+        pad = sig[k:]
+        eps = torch.finfo(dt).eps
+        pad_ok = bool(torch.isfinite(pad).all()) and (
+            pad.numel() == 0 or float(pad.abs().max()) <= eps)
+        if uv and k < cfg.max_batch:
+            pad_ok = pad_ok and bool(torch.isfinite(u[k:]).all()
+                                     and torch.isfinite(vt[k:]).all())
+        bitwise[bucket_key_str(key)] = {
+            "served": k, "padded": cfg.max_batch - k, "bitwise": same,
+            "padded_max_sigma": float(pad.abs().max()) if pad.numel() else 0.0,
+            "padded_zero_and_finite": pad_ok}
+        if not (same and pad_ok):
+            failures.append(f"{bucket_key_str(key)}: not bit for bit the direct "
+                            f"call, or padded rows not zero and finite")
+    out["poisson_clean"]["bitwise_vs_direct"] = bitwise
+
+    # ---- 4. the same stream under a seeded FaultPlan --------------------
+    # the default policy without backoff: a request whose attempts all fail
+    # is served on the plain ref tier, slow at n = 4096 (PERF.md section 7)
+    no_backoff = dict(backoff_base_s=0.0, backoff_max_s=0.0)
+    plan = FaultPlan(seed=7, dispatch_error_rate=0.05, nan_rate=0.05)
+    eng = engine(faults=plan, retry=RetryPolicy(**no_backoff))
+    ops.reset_launch_counts()
+    faulted, errs, fault_s = serve_submit(eng, SVDRequest, stream, gaps)
+    eng.stop(timeout=600)
+    counts = ops.launch_counts()
+    if main_counts is not None:
+        for k, v in counts.items():
+            main_counts[k] += v
+    snap = eng.metrics.snapshot()
+    worst = 0.0
+    for r in faulted:
+        c = by_uid[r.uid]
+        if r.error is not None or r.sigma is None:
+            continue
+        worst = max(worst, float(np.max(np.abs(
+            r.sigma.astype(np.float64) - c.sigma)) / max(
+                float(np.max(c.sigma)), 1e-300)) / serve_tol(
+                    r.key()[0], r.key()[2]))
+    out["poisson_faults"] = {
+        "seconds": fault_s, "requests_per_s": len(stream) / fault_s,
+        "errors": errs[:5],
+        "completed": snap["completed"], "retried": snap["retried"],
+        "degraded": snap["degraded"], "quarantined": snap["quarantined"],
+        "failed": snap["failed"], "timed_out": snap["timed_out"],
+        "injected": plan.snapshot(), "latency": serve_latency(snap),
+        "tiers": snap["tiers"], "health": eng.metrics.health()["status"],
+        "sigma_vs_clean_over_tol": worst}
+    if errs or snap["completed"] != len(stream) or worst > 1.0:
+        failures.append("the faulted stream lost a request or moved sigma")
+
+    # ---- 4b. one request of the main fused bucket, its two attempts given
+    # NaN sigma, so the ladder serves it on the degraded ref tier ---------
+    key = next(iter(SERVE_STREAM))
+    n, bw, dname, _banded, _uv = key
+    a = torch.randn((n, n), generator=gen, dtype=torch.float64,
+                    device=device).to(tuning.dtype_of(dname))
+    sync = SVDEngine(device=device, faults=FaultPlan(nan_at=(0, 1)),
+                     retry=RetryPolicy(**no_backoff))
+    sync.submit(SVDRequest(uid=0, matrix=a, bw=bw))
+    before = ops.launch_counts()
+    t0 = time.perf_counter()
+    (r,) = sync.run()
+    deg_s = time.perf_counter() - t0
+    launched = {k: v - before[k] for k, v in ops.launch_counts().items()
+                if v != before[k]}
+    snap = sync.metrics.snapshot()
+    sv = torch.linalg.svdvals(a.double()).cpu().numpy()
+    err = (float(np.max(np.abs(r.sigma - sv)) / sv[0])
+           if r.error is None else None)
+    out["forced_degraded"] = {
+        "bucket": bucket_key_str(key), "seconds": deg_s,
+        "degraded_cap": sync._degraded_cfg(key, 0).max_batch,
+        "retried": snap["retried"], "degraded": snap["degraded"],
+        "failed": snap["failed"], "error": repr(r.error),
+        "launches": launched,
+        "latency": serve_latency(snap), "sigma_err_over_max": err,
+        "tol": serve_tol(n, dname)}
+    if (r.error is not None or snap["degraded"] != 1
+            or snap["retried"] != 1 or err > serve_tol(n, dname)):
+        failures.append("the forced request was not served right on the "
+                        "degraded tier")
+
+    # ---- the fused kernel at the stream's bucket shapes (CUDA events) --
+    if device == "cuda":
+        fused_ms = {}
+        for key, cfg in cfgs.items():
+            if tiers[key] != "fused":
+                continue
+            n, bw, dname, _banded, uv = key
+            a = torch.randn((cfg.max_batch, n, n), generator=gen,
+                            dtype=torch.float64, device=device).to(
+                                tuning.dtype_of(dname))
+            fused_ms[bucket_key_str(key)] = gpu_ms(
+                torch, lambda: ops.fused_svd(a, bw=cfg.bw, compute_uv=uv,
+                                             config=cfg), iters=5, warmup=1)
+        out["fused_kernel_ms_at_bucket_shape"] = fused_ms
+
+    # ---- 5. one traced dispatch of the n = 1024 bucket -----------------
+    key = next(iter(SERVE_STAGED))          # the n = 1024 bucket
+    n, bw, dname, _banded, _uv = key
+    mats = torch.randn((SERVE_STAGED[key], n, n), generator=gen,
+                       dtype=torch.float64, device=device).to(
+                           tuning.dtype_of(dname))
+    times = {}
+    tr = obs.Tracer("svd_serve")
+    for label in ("untraced", "traced", "traced", "untraced"):
+        sync = SVDEngine(device=device,
+                         tracer=tr if label == "traced" else None)
+        for i in range(len(mats)):
+            sync.submit(SVDRequest(uid=i, matrix=mats[i], bw=bw))
+        sync_dev()
+        t0 = time.perf_counter()
+        done = sync.run()
+        times.setdefault(label, []).append(time.perf_counter() - t0)
+        if sync.calls != 1 or any(r.error for r in done):
+            failures.append("the n = 1024 dispatch was not one call")
+    root = tr.roots[-1]
+    entry = root.children[0] if root.children else root
+    stage = entry.total_child_seconds() / entry.dur_s
+    out["traced_dispatch"] = {
+        "bucket": bucket_key_str(key), "batch": SERVE_STAGED[key],
+        "untraced_s": times["untraced"], "traced_s": times["traced"],
+        "stage_cover_of_entry": stage,
+        "entry_cover_of_dispatch": entry.dur_s / root.dur_s,
+        "first_tree": tr.roots[0].format().splitlines(),
+        "tree": root.format().splitlines()}
+    if stage < 0.9:
+        failures.append(f"stage spans cover {stage:.1%} of the traced root")
+
+    out["seconds"] = time.perf_counter() - t_phase
+    out["failures"] = failures
+    out["ok"] = not failures
+    emit(out)
+    check(out["ok"], f"svd_serve: {failures}")
 
 
 def run(args, torch) -> int:
@@ -3250,6 +3754,9 @@ def run(args, torch) -> int:
 
     # ---- the autotuner on the card --------------------------------------
     autotune_phase(torch, PipelineConfig)
+
+    # ---- SVD serving: AsyncSVDEngine on the card -----------------------
+    svd_serve_phase(torch, main_counts)
 
     # ---- 10 and 11. the LM serving path: phi3-medium-14b ---------------
     lm_phases(args, torch, rng, drive, gen)

@@ -163,11 +163,12 @@ class SearchResult:
         return entry
 
 
-def _static_default(bw: int, dtype) -> tuple[int, int]:
+def _static_default(n: int, bw: int, dtype) -> tuple[int, int, int]:
     """The knobs ``PipelineConfig.resolve`` picks with no cache: the
-    cache-line tilewidth and the paper's unfused schedule."""
+    cache-line tilewidth, the paper's unfused schedule and the serving
+    bucket's batch."""
     tw = max(1, min(tuning.default_tilewidth(bw, dtype), max(bw - 1, 1)))
-    return tw, 1
+    return tw, 1, tuning.default_bucket_batch(n, bw, dtype)
 
 
 def search(n: int, bw: int, *, dtype=torch.float32, backend: str = "auto",
@@ -183,8 +184,8 @@ def search(n: int, bw: int, *, dtype=torch.float32, backend: str = "auto",
     injectable for tests; the real path is ``measure.time_stage2`` on the
     full ``bw -> 1`` reduction on ``device`` (so small tilewidths pay for
     the extra stages they force — the honest objective).  The default's
-    batch is the smallest in ``batches``: this package has no bucket-size
-    default until its serving layer.
+    batch is ``tuning.default_bucket_batch(n, bw)`` where ``batches``
+    holds it, else the smallest in ``batches``.
     """
     if not batches or not fuses:
         raise ValueError(f"batches={batches!r} and fuses={fuses!r} must be "
@@ -201,8 +202,8 @@ def search(n: int, bw: int, *, dtype=torch.float32, backend: str = "auto",
                 seed=seed, device=device)
 
     grid = candidate_grid(n, bw, dtype=dtype, fuses=fuses, batches=batches)
-    d_tw, d_fuse = _static_default(bw, dtype)
-    d_batch = min(batches)
+    d_tw, d_fuse, d_batch = _static_default(n, bw, dtype)
+    d_batch = d_batch if d_batch in batches else min(batches)
     if (d_tw, d_fuse, d_batch) not in grid:
         grid.append((d_tw, d_fuse, d_batch))
 

@@ -17,7 +17,7 @@ __all__ = ["pipeline_config_from_reference", "band_from_numpy",
 
 _BACKENDS = {"pallas": "cuda", "ref": "ref", "fused_small": "fused_small"}
 _KEPT = ("bw", "tw", "fuse", "dtype", "compute_uv", "stage3", "dc_leaf_n",
-         "dc_n_min")
+         "dc_n_min", "max_batch")
 
 
 def pipeline_config_from_reference(fields: dict, device: str = "cuda"
@@ -28,9 +28,9 @@ def pipeline_config_from_reference(fields: dict, device: str = "cuda"
     "pallas" becomes "cuda"; "ref" and "fused_small" keep their names (the
     fused tier runs its kernel on the card and its plain version on the
     CPU); ``bw``, ``tw``, ``fuse``, ``dtype``, ``compute_uv``, ``stage3``,
-    ``dc_leaf_n`` and ``dc_n_min`` are kept.  ``interpret`` is dropped,
-    and so are ``max_batch`` (serving's bucket size) and ``unroll`` (the
-    reference's loop unrolling), which nothing in this package reads yet.
+    ``dc_leaf_n``, ``dc_n_min`` and ``max_batch`` (serving's bucket size)
+    are kept.  ``interpret`` and ``unroll`` (the reference's loop
+    unrolling) are dropped: nothing here reads them.
     A backend this package lacks raises ``NotImplementedError``."""
     backend = fields["backend"]
     if backend not in _BACKENDS:

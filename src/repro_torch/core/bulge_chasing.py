@@ -26,6 +26,7 @@ from __future__ import annotations
 
 import torch
 
+from repro_torch import obs
 from repro_torch.core import band as bandmod
 from repro_torch.core import tuning
 
@@ -105,13 +106,18 @@ def _chase_loop(bandp: torch.Tensor, p_safe, first, live, *, n: int,
     The stage is checked once (``ops.band_stage``); then each (super-)cycle
     is one call of the stage, ``ops.chase_cycle_band`` at fuse 1 and
     ``ops.chase_superstep_band`` at fuse K, which on the card is one launch
-    and no other torch op."""
+    and no other torch op.  Under an ambient tracer the stage is one
+    ``chase_stage`` span, fenced on the band (never a span per cycle: a
+    fuse-1 cycle is a few microseconds of host time)."""
     from repro_torch.kernels import ops
-    with ops.band_stage(bandp, p_safe.to(torch.int32), first, live, n=n,
-                        b_in=b_in, tw=tw, fuse=fuse, tape=tape,
-                        backend=backend, config=config) as stage:
+    with obs.span("chase_stage", n=n, b_in=b_in, tw=tw, fuse=fuse,
+                  tape=tape is not None, cycles=int(p_safe.shape[0])) as sp, \
+            ops.band_stage(bandp, p_safe.to(torch.int32), first, live, n=n,
+                           b_in=b_in, tw=tw, fuse=fuse, tape=tape,
+                           backend=backend, config=config) as stage:
         for t in range(p_safe.shape[0]):
             stage(t)
+        sp.fence(bandp)
 
 
 def reduce_stage_packed(band: torch.Tensor, *, n: int, b_in: int, tw: int,

@@ -28,6 +28,12 @@ Every entry point runs on the card unless the caller asks for the CPU: the
 config's ``device`` is "cuda" by default, a missing card raises
 ``RuntimeError``, and ``device="cpu"`` runs the plain PyTorch versions.
 Leading axes are a batch that runs on one wavefront.
+
+``trace=`` (a ``repro_torch.obs.Tracer``), or an ambient tracer, records
+one span tree per call: a root named after the entry point, with children
+``stage1``, ``stage2``, ``stage3`` (values), ``stage1``, ``stage2``,
+``replay``, ``stage3``, ``compose`` (vectors) or ``fused``, each fenced
+on its result.  With no tracer the spans are the shared null span.
 """
 
 from __future__ import annotations
@@ -37,6 +43,7 @@ import math
 import numpy as np
 import torch
 
+from repro_torch import obs
 from repro_torch.core import bidiag_dc as s3dc
 from repro_torch.core import bidiag_svd as s3
 from repro_torch.core import bulge_chasing as bc
@@ -159,40 +166,73 @@ def _stage3_values(d: torch.Tensor, e: torch.Tensor,
                    cfg: tuning.PipelineConfig) -> torch.Tensor:
     """Stage 3, values: the config's solver for this n
     (``cfg.stage3_for``), Sturm bisection or divide and conquer."""
-    if cfg.stage3_for(d.shape[-1]) == "dc":
-        return s3dc.bidiag_dc_singular_values(d, e, leaf_n=cfg.dc_leaf_n,
-                                              backend=cfg.backend)
-    return s3.bidiag_singular_values(d, e, backend=cfg.backend)
+    solver = cfg.stage3_for(d.shape[-1])
+    with obs.span("stage3", solver=solver, n=int(d.shape[-1])) as sp:
+        if solver == "dc":
+            return sp.fence(obs.traced_jit_call(
+                "stage3_dc", s3dc.bidiag_dc_singular_values, d, e,
+                leaf_n=cfg.dc_leaf_n, backend=cfg.backend))
+        return sp.fence(obs.traced_jit_call(
+            "stage3_bisect", s3.bidiag_singular_values, d, e,
+            backend=cfg.backend))
 
 
 def _stage3_svd(d: torch.Tensor, e: torch.Tensor,
                 cfg: tuning.PipelineConfig):
     """Stage 3 with vectors: sigma from the config's solver, (U, V^T) from
     the same inverse iteration whichever solver gave sigma."""
-    if cfg.stage3_for(d.shape[-1]) == "dc":
-        return s3dc.bidiag_dc_svd(d, e, leaf_n=cfg.dc_leaf_n,
-                                  backend=cfg.backend)
-    return s3.bidiag_svd(d, e, backend=cfg.backend)
+    solver = cfg.stage3_for(d.shape[-1])
+    with obs.span("stage3", solver=solver, n=int(d.shape[-1]),
+                  compute_uv=True) as sp:
+        if solver == "dc":
+            return sp.fence(obs.traced_jit_call(
+                "stage3_dc_svd", s3dc.bidiag_dc_svd, d, e,
+                leaf_n=cfg.dc_leaf_n, backend=cfg.backend))
+        return sp.fence(obs.traced_jit_call(
+            "stage3_svd", s3.bidiag_svd, d, e, backend=cfg.backend))
+
+
+def _span_attrs(a: torch.Tensor, cfg: tuning.PipelineConfig,
+                **extra) -> dict:
+    return dict(n=int(a.shape[-1]), bw=cfg.bw, tw=cfg.tw, fuse=cfg.fuse,
+                dtype=tuning.dtype_name(a.dtype), backend=cfg.backend,
+                batch=math.prod(a.shape[:-2]), device=cfg.device, **extra)
+
+
+def _traced(name: str, a: torch.Tensor, cfg: tuning.PipelineConfig, trace,
+            run, **extra):
+    """``run()``, under a root span ``name`` of ``trace`` (else the ambient
+    tracer) fenced on its result, with that tracer made ambient so the
+    stages' spans nest under it; plainly when there is no tracer."""
+    tr = trace if trace is not None else obs.current()
+    if tr is None:
+        return run()
+    with obs.activated(tr), tr.span(name, **_span_attrs(a, cfg,
+                                                        **extra)) as root:
+        return root.fence(run())
 
 
 def _fused_path(a: torch.Tensor, cfg: tuning.PipelineConfig, *,
                 compute_uv: bool):
     """The one-launch small-n tier, for any entry point whose config says
-    ``backend="fused_small"``.
+    ``backend="fused_small"``, under one ``fused`` span.
 
     Values mode is one ``ops.fused_svd`` call.  uv mode is the fused
     reduction to (d, e, U2, V2^T), then stage 3 on the bidiagonal:
     A = U2 B V2^T and B = Ub S Vb^T, so U = U2 Ub and V^T = Vb^T V2^T."""
     lead, n = a.shape[:-2], a.shape[-1]
     mats = a.reshape((-1, n, n)).contiguous()
-    if not compute_uv:
-        sig = ops.fused_svd(mats, bw=cfg.bw, compute_uv=False, config=cfg)
-        return sig.reshape(lead + (n,))
-    d, e, u2, vt2 = ops.fused_svd(mats, bw=cfg.bw, compute_uv=True,
-                                  config=cfg)
-    ub, sig, vtb = _stage3_svd(d, e, cfg)
-    return ((u2 @ ub).reshape(lead + (n, n)), sig.reshape(lead + (n,)),
-            (vtb @ vt2).reshape(lead + (n, n)))
+    with obs.span("fused", compute_uv=compute_uv) as sp:
+        if not compute_uv:
+            sig = ops.fused_svd(mats, bw=cfg.bw, compute_uv=False,
+                                config=cfg)
+            return sp.fence(sig.reshape(lead + (n,)))
+        d, e, u2, vt2 = ops.fused_svd(mats, bw=cfg.bw, compute_uv=True,
+                                      config=cfg)
+        ub, sig, vtb = _stage3_svd(d, e, cfg)
+        return sp.fence(((u2 @ ub).reshape(lead + (n, n)),
+                         sig.reshape(lead + (n,)),
+                         (vtb @ vt2).reshape(lead + (n, n))))
 
 
 def _solve(a: torch.Tensor, cfg: tuning.PipelineConfig, *, banded: bool,
@@ -204,9 +244,14 @@ def _solve(a: torch.Tensor, cfg: tuning.PipelineConfig, *, banded: bool,
         return _fused_path(a, cfg, compute_uv=compute_uv)
     if compute_uv:
         return _uv_pipeline(a, cfg, banded=banded)
+    band = a
     if not banded:
-        a = s1.band_reduce(a, nb=cfg.bw, config=cfg)
-    d, e = bc.bidiagonalize(a, bw=cfg.bw, tw=cfg.tw, config=cfg)
+        with obs.span("stage1") as sp:
+            band = sp.fence(obs.traced_jit_call(
+                "stage1", s1.band_reduce, a, nb=cfg.bw, config=cfg))
+    with obs.span("stage2") as sp:
+        d, e = sp.fence(bc.bidiagonalize(band, bw=cfg.bw, tw=cfg.tw,
+                                         config=cfg))
     return _stage3_values(d, e, cfg)
 
 
@@ -224,18 +269,20 @@ def banded_singular_values(a, *, bw: int | None = None,
                            tw: int | None = None,
                            config: tuning.PipelineConfig | None = None,
                            device: str | None = None,
-                           check: bool = False) -> torch.Tensor:
+                           check: bool = False, trace=None) -> torch.Tensor:
     """Singular values of upper-banded (..., n, n), descending, on
     ``config.device``.
 
     ``a`` may be a numpy array or a tensor on any device; it is moved to the
     config's device ("cuda" unless ``device=`` or the config says
     otherwise).  Leading axes are a batch that runs on one wavefront.
-    ``check=True`` runs :func:`validate_sigma` on the result."""
+    ``check=True`` runs :func:`validate_sigma` on the result.  ``trace=``
+    takes a ``repro_torch.obs.Tracer`` (module docstring)."""
     a = _as_tensor(a)
     cfg = _config(a, bw=bw, tw=tw, config=config, device=device)
-    sig = _solve(_on_device(a, cfg.device), cfg, banded=True,
-                 compute_uv=False)
+    a = _on_device(a, cfg.device)
+    sig = _traced("banded_singular_values", a, cfg, trace,
+                  lambda: _solve(a, cfg, banded=True, compute_uv=False))
     if check:
         validate_sigma(sig)
     return sig
@@ -244,14 +291,16 @@ def banded_singular_values(a, *, bw: int | None = None,
 def singular_values(a, *, bw: int | None = None, tw: int | None = None,
                     config: tuning.PipelineConfig | None = None,
                     device: str | None = None,
-                    check: bool = False) -> torch.Tensor:
+                    check: bool = False, trace=None) -> torch.Tensor:
     """Singular values of dense (..., n, n), descending: stage 1 to band
     ``bw`` (32 when neither it nor ``config`` is given), then stages 2 and
-    3.  ``check=True`` runs :func:`validate_sigma` on the result."""
+    3.  ``check=True`` runs :func:`validate_sigma` on the result;
+    ``trace=`` as in :func:`banded_singular_values`."""
     a = _as_tensor(a)
     cfg = _config(a, bw=bw, tw=tw, config=config, device=device)
-    sig = _solve(_on_device(a, cfg.device), cfg, banded=False,
-                 compute_uv=False)
+    a = _on_device(a, cfg.device)
+    sig = _traced("singular_values", a, cfg, trace,
+                  lambda: _solve(a, cfg, banded=False, compute_uv=False))
     if check:
         validate_sigma(sig)
     return sig
@@ -261,7 +310,7 @@ def batched_singular_values(mats, *, bw: int | None = None,
                             tw: int | None = None,
                             config: tuning.PipelineConfig | None = None,
                             device: str | None = None,
-                            check: bool = False) -> torch.Tensor:
+                            check: bool = False, trace=None) -> torch.Tensor:
     """(B, n, n) -> (B, n), descending: the B chases share one wavefront,
     one kernel launch over all B*G windows per cycle."""
     mats = _as_tensor(mats)
@@ -269,12 +318,12 @@ def batched_singular_values(mats, *, bw: int | None = None,
         raise ValueError(f"expected stacked (B, n, n), got "
                          f"{tuple(mats.shape)}")
     return singular_values(mats, bw=bw, tw=tw, config=config, device=device,
-                           check=check)
+                           check=check, trace=trace)
 
 
 def svd_batched(mats, config: tuning.PipelineConfig | None = None, *,
                 compute_uv: bool | None = None, check: bool = False,
-                **overrides):
+                trace=None, **overrides):
     """Config-first batched entry point: ``svd_batched(stacked, cfg)``.
 
     ``overrides`` are ``bw=``, ``tw=`` and ``device=`` (a conflict with the
@@ -287,12 +336,12 @@ def svd_batched(mats, config: tuning.PipelineConfig | None = None, *,
         compute_uv = config.compute_uv if config is not None else False
     if not compute_uv:
         return batched_singular_values(mats, config=config, check=check,
-                                       **overrides)
+                                       trace=trace, **overrides)
     mats = _as_tensor(mats)
     if mats.dim() != 3:
         raise ValueError(f"expected stacked (B, n, n), got "
                          f"{tuple(mats.shape)}")
-    return svd(mats, config=config, check=check, **overrides)
+    return svd(mats, config=config, check=check, trace=trace, **overrides)
 
 
 def _uv_pipeline(a: torch.Tensor, cfg: tuning.PipelineConfig, *,
@@ -309,14 +358,21 @@ def _uv_pipeline(a: torch.Tensor, cfg: tuning.PipelineConfig, *,
     s1_tape = None
     band_in = a
     if not banded:
-        band_in, s1_tape = s1.band_reduce(a, nb=cfg.bw, config=cfg, tape=True)
-    d, e, tapes = bc.bidiagonalize(band_in, bw=cfg.bw, tw=cfg.tw, config=cfg,
-                                   tape=True)
-    u2, vt2 = transforms.accumulate_transforms(
-        n, s1_tape=s1_tape, chase_tapes=tapes, lead=a.shape[:-2],
-        dtype=a.dtype, config=cfg, device=a.device)
+        with obs.span("stage1", tape=True) as sp:
+            band_in, s1_tape = sp.fence(obs.traced_jit_call(
+                "stage1_tape", s1.band_reduce, a, nb=cfg.bw, config=cfg,
+                tape=True))
+    with obs.span("stage2", tape=True) as sp:
+        d, e, tapes = bc.bidiagonalize(band_in, bw=cfg.bw, tw=cfg.tw,
+                                       config=cfg, tape=True)
+        sp.fence((d, e))
+    with obs.span("replay", n=int(n)) as sp:
+        u2, vt2 = sp.fence(transforms.accumulate_transforms(
+            n, s1_tape=s1_tape, chase_tapes=tapes, lead=a.shape[:-2],
+            dtype=a.dtype, config=cfg, device=a.device))
     ub, sig, vtb = _stage3_svd(d, e, cfg)
-    return u2 @ ub, sig, vtb @ vt2
+    with obs.span("compose") as sp:
+        return sp.fence((u2 @ ub, sig, vtb @ vt2))
 
 
 def _checked_uv(a, out, *, check: bool):
@@ -333,7 +389,7 @@ def _checked_uv(a, out, *, check: bool):
 def svd(a, *, bw: int | None = None, tw: int | None = None,
         config: tuning.PipelineConfig | None = None,
         device: str | None = None, compute_uv: bool = True,
-        check: bool = False):
+        check: bool = False, trace=None):
     """Full SVD of dense (..., n, n): ``(U, sigma, V^T)``, sigma
     descending, on ``config.device``.
 
@@ -342,26 +398,32 @@ def svd(a, *, bw: int | None = None, tw: int | None = None,
     (one ``tape_apply`` over all B*G*K slots per super-cycle).
     ``check=True`` validates sigma, checks U and V^T for non-finite entries
     and checks the residual of the first matrix (:class:`NumericalFault`).
-    ``config.compute_uv`` is not read here (see :func:`svd_batched`)."""
+    ``config.compute_uv`` is not read here (see :func:`svd_batched`).
+    ``trace=`` as in :func:`banded_singular_values`."""
     a = _as_tensor(a)
     cfg = _config(a, bw=bw, tw=tw, config=config, device=device)
     if not compute_uv:
-        return singular_values(a, config=cfg, check=check)
+        return singular_values(a, config=cfg, check=check, trace=trace)
     a = _on_device(a, cfg.device)
-    return _checked_uv(a, _solve(a, cfg, banded=False, compute_uv=True),
-                       check=check)
+    out = _traced("svd", a, cfg, trace,
+                  lambda: _solve(a, cfg, banded=False, compute_uv=True),
+                  compute_uv=True)
+    return _checked_uv(a, out, check=check)
 
 
 def banded_svd(a, *, bw: int | None = None, tw: int | None = None,
                config: tuning.PipelineConfig | None = None,
                device: str | None = None, compute_uv: bool = True,
-               check: bool = False):
+               check: bool = False, trace=None):
     """Full SVD of upper-banded (..., n, n) (stages 2 and 3 only);
     arguments as in :func:`svd`."""
     a = _as_tensor(a)
     cfg = _config(a, bw=bw, tw=tw, config=config, device=device)
     if not compute_uv:
-        return banded_singular_values(a, config=cfg, check=check)
+        return banded_singular_values(a, config=cfg, check=check,
+                                      trace=trace)
     a = _on_device(a, cfg.device)
-    return _checked_uv(a, _solve(a, cfg, banded=True, compute_uv=True),
-                       check=check)
+    out = _traced("banded_svd", a, cfg, trace,
+                  lambda: _solve(a, cfg, banded=True, compute_uv=True),
+                  compute_uv=True)
+    return _checked_uv(a, out, check=check)

@@ -33,6 +33,7 @@ import math
 
 import torch
 
+from repro_torch import obs
 from repro_torch.core import bulge_chasing as bc
 from repro_torch.core.householder import acc_dtype
 
@@ -168,7 +169,8 @@ def accumulate_transforms(n: int, *, s1_tape=None, chase_tapes=(),
 
     The accumulators run in the accumulation type of ``dtype`` (float32 for
     bfloat16) and are cast back at the end.  ``device`` defaults to the
-    tapes' device."""
+    tapes' device.  Under an ambient tracer each tape's replay is a
+    ``replay_stage1`` or ``replay_chase`` span."""
     acc = acc_dtype(dtype)
     b = math.prod(lead)
     if device is None:
@@ -181,12 +183,16 @@ def accumulate_transforms(n: int, *, s1_tape=None, chase_tapes=(),
     if s1_tape is not None:
         flat = tuple(x.reshape((b,) + x.shape[len(lead):]).to(acc)
                      for x in s1_tape)
-        ut, vt = replay_stage1(ut, vt, flat, config=config)
+        with obs.span("replay_stage1", n=int(n), batch=b) as sp:
+            ut, vt = sp.fence(replay_stage1(ut, vt, flat, config=config))
     for tape in chase_tapes:
         tv = tape.v.reshape((b,) + tape.v.shape[len(lead):]).to(acc)
         tt = tape.tau.reshape((b,) + tape.tau.shape[len(lead):]).to(acc)
-        ut, vt = replay_chase(ut, vt, tv, tt, n=tape.n, b_in=tape.b_in,
-                              tw=tape.tw, config=config, fuse=tape.fuse)
+        with obs.span("replay_chase", n=tape.n, b_in=tape.b_in, tw=tape.tw,
+                      fuse=tape.fuse) as sp:
+            ut, vt = sp.fence(replay_chase(ut, vt, tv, tt, n=tape.n,
+                                           b_in=tape.b_in, tw=tape.tw,
+                                           config=config, fuse=tape.fuse))
     u = ut.transpose(-1, -2)
     return (u.reshape(lead + (n, n)).to(dtype),
             vt.reshape(lead + (n, n)).to(dtype))

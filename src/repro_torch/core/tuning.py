@@ -13,6 +13,9 @@ block.  ``fused_route`` does the same for the fused small-n kernel
 (``kernels/csrc/fused_small.cu``): it picks the kernel's route and lays
 out its shared memory.  ``dc_leaf_smem_bytes`` counts the shared memory
 of one block of the divide-and-conquer leaf kernel (``kernels/csrc/dc.cu``).
+``default_bucket_batch`` sizes a serving bucket from the card's SMs and
+the chase kernels' blocks per SM; ``DEFAULT_FUSED_CROSSOVER`` is the
+largest n a serving bucket sends to the fused tier.
 """
 
 from __future__ import annotations
@@ -32,11 +35,27 @@ __all__ = [
     "check_fused_smem_budget", "default_fuse_depth",
     "DEFAULT_DC_LEAF_N", "DEFAULT_DC_N_MIN", "DC_WINDOW_K", "DC_HEAVY_K",
     "DC_POLISH_ITERS", "DC_FALLBACK_ITERS", "dc_leaf_smem_bytes",
-    "check_dc_leaf_budget",
+    "check_dc_leaf_budget", "SMS", "SMEM_PER_SM", "CHASE_THREADS",
+    "default_bucket_batch", "DEFAULT_FUSED_CROSSOVER",
     "stage_plan", "STAGE3_CHOICES", "PipelineConfig",
 ]
 
 SMEM_PER_BLOCK = 232_448     # H100: shared memory one block may hold, bytes
+SMEM_PER_SM = 233_472        # H100: shared memory of one SM, bytes
+SMS = 132                    # H100 SXM: streaming multiprocessors
+THREADS_PER_SM = 2048        # H100: resident threads of one SM
+CHASE_THREADS = 512          # threads of a chase block (chase.cu kThreads)
+
+# Serving buckets with n up to this go to the fused small-n tier
+# (``backend="fused_small"``): the smaller of the two fused-vs-staged
+# crossovers measured on an NVIDIA H100 80GB HBM3, power limit 700.00 W,
+# by chip_smoke.py's autotune_serving phase (search_fused_crossover, batch
+# 8, n = 16 ... 512): at (bw 8, fp64) and at (bw 32, fp32) the fused tier
+# won at every n, 11x and 17x at n = 512, so both read 512, the sweep's
+# top; with U, Sigma, V^T at (bw 32, fp64) it read 512 too (1.9x), so the
+# one value serves both kinds of bucket.  Where the tiers cross above 512
+# is not measured.  The reference's value is 256.
+DEFAULT_FUSED_CROSSOVER = 512
 
 # Divide and conquer (core/bidiag_dc.py and its kernels, kernels/csrc/dc.cu).
 # Bidiagonals of DEFAULT_DC_LEAF_N or fewer rows are solved by bisection;
@@ -127,6 +146,32 @@ def max_concurrent_sweeps(n: int, b_in: int, fuse: int = 1,
     j_max0 = max((n - 1 - (b_in - tw)) // b_in, 0)
     dur0 = -(-(j_max0 + 1) // fuse)
     return max(1, (dur0 - 1) // sweep_separation(fuse) + 1)
+
+
+def default_bucket_batch(n: int, b_in: int, dtype=torch.float32) -> int:
+    """Matrices a serving bucket batches so that one chase launch fills
+    the card (paper Eq. 1): the H100 counterpart of the reference's
+    ``default_bucket_batch``.
+
+    A fuse-1 chase launch runs one block per live slot: ``G =
+    max_concurrent_sweeps(n, b_in)`` for one matrix, B*G for a batch of B.
+    The card holds ``SMS`` (132) SMs, each of them as many chase blocks as
+    both its resident threads (2048 over ``CHASE_THREADS`` = 512: 4) and
+    its shared memory (``SMEM_PER_SM`` over ``smem_bytes`` of the stage
+    at the cache-line tilewidth, plus the 1 KB the runtime keeps per
+    block) allow.  B is the smallest batch whose B*G blocks fill every
+    such place at once, ``ceil(SMS * blocks_per_sm / G)``, clamped to [1,
+    64]: a matrix whose own wavefront fills the card gets 1.  The
+    reference reasons from 2 execution units and 8 slots of
+    oversubscription each; registers are not counted here (``ptxas -v``
+    shows what each kernel holds)."""
+    b_in = max(int(b_in), 1)
+    tw = default_tilewidth(max(b_in, 2), dtype_of(dtype))
+    per_block = smem_bytes(b_in, tw, dtype) + 1024
+    blocks_per_sm = max(1, min(THREADS_PER_SM // CHASE_THREADS,
+                               SMEM_PER_SM // per_block))
+    per_matrix = max_concurrent_sweeps(max(int(n), 1), b_in)
+    return max(1, min(64, -(-SMS * blocks_per_sm // per_matrix)))
 
 
 def check_disjoint_blocks(n: int, b_in: int, tw: int, fuse: int,
@@ -390,7 +435,9 @@ class PipelineConfig:
     (the tapes are recorded and replayed).  ``stage3`` is the bidiagonal
     solver, "bisect" (Sturm bisection), "dc" (divide and conquer,
     ``core/bidiag_dc.py``, leaves of ``dc_leaf_n``) or "auto" (dc from
-    ``dc_n_min`` up, collapsed by :meth:`stage3_for`)."""
+    ``dc_n_min`` up, collapsed by :meth:`stage3_for`).  ``max_batch`` is a
+    serving bucket's capacity: the serve engines pad every dispatch of a
+    bucket to it; nothing else reads it."""
     bw: int
     tw: int
     backend: str = "cuda"
@@ -401,6 +448,7 @@ class PipelineConfig:
     compute_uv: bool = False
     dc_leaf_n: int = DEFAULT_DC_LEAF_N
     dc_n_min: int = DEFAULT_DC_N_MIN
+    max_batch: int = 8
 
     @property
     def plan(self) -> tuple[tuple[int, int], ...]:
@@ -422,7 +470,8 @@ class PipelineConfig:
                 compute_uv: bool = False, autotune: bool = False,
                 autotune_cache: str | None = None,
                 dc_leaf_n: int | None = None,
-                dc_n_min: int | None = None) -> "PipelineConfig":
+                dc_n_min: int | None = None,
+                max_batch: int | None = None) -> "PipelineConfig":
         """Resolve every knob to a concrete value.
 
         ``backend="auto"`` follows the requested ``device``: "cuda" on a
@@ -436,10 +485,11 @@ class PipelineConfig:
         else ``$REPRO_TORCH_AUTOTUNE_CACHE`` or the default): with ``n``
         known, the entry for (device kind, n, bw, dtype, compute_uv, the
         resolved backend) gives ``tw`` where it is None and ``fuse`` where
-        it is None or 1, and ``lookup_stage3`` gives ``dc_n_min`` where it
-        is None.  Explicit values win; a miss keeps the analytic defaults.
-        The entry's ``max_batch`` is not read: this config has no bucket
-        size yet.
+        it is None or 1 and ``max_batch`` where it is None (where the
+        search explored the batch axis), and ``lookup_stage3`` gives
+        ``dc_n_min`` where it is None.  Explicit values win; a miss keeps
+        the analytic defaults.  ``max_batch=None`` is otherwise
+        ``default_bucket_batch(n, bw)``, or 8 where n is not known.
 
         ``stage3`` is "bisect", "dc" or "auto" (another value raises
         ``ValueError``); with ``n`` known "auto" collapses here.
@@ -467,6 +517,8 @@ class PipelineConfig:
                 if tuned is not None:
                     tw = tw if tw is not None else tuned["tw"]
                     fuse = fuse if fuse not in (None, 1) else tuned["fuse"]
+                    if max_batch is None:
+                        max_batch = tuned.get("max_batch")
             if dc_n_min is None:
                 dc_n_min = at_cache.lookup_stage3(
                     device_kind=kind, dtype=dtype_name(dtype),
@@ -478,6 +530,8 @@ class PipelineConfig:
             check_fused_smem_budget(n, dtype, compute_uv=compute_uv)
         if fuse is None:
             fuse = default_fuse_depth(bw, tw, dtype)
+        if max_batch is None:
+            max_batch = default_bucket_batch(n, bw, dtype) if n else 8
         dc_leaf_n = max(int(dc_leaf_n if dc_leaf_n is not None
                             else DEFAULT_DC_LEAF_N), 1)
         dc_n_min = max(int(dc_n_min if dc_n_min is not None
@@ -489,4 +543,4 @@ class PipelineConfig:
         return cls(bw=bw, tw=tw, backend=backend, dtype=dtype_name(dtype),
                    fuse=max(int(fuse), 1), stage3=stage3, device=str(device),
                    compute_uv=bool(compute_uv), dc_leaf_n=dc_leaf_n,
-                   dc_n_min=dc_n_min)
+                   dc_n_min=dc_n_min, max_batch=max(int(max_batch), 1))

@@ -9,6 +9,12 @@ the first launch on a CUDA tensor builds what it needs, and
 ``build_all`` starts one ``nvcc`` per source, all at once.  A library's
 name also hashes the headers of ``csrc/`` (``sturm_device.cuh``), so an
 edited header rebuilds the sources that include it.
+
+Both entries hold one lock of the process, so two threads that ask for
+the same source (a serving engine's dispatcher and its caller) run one
+build and load one library; a temporary file is named by process and
+thread.  A build that ``load`` performs runs under a ``build`` span
+(``kernel=<name>``) of the ambient tracer (``repro_torch.obs``).
 """
 
 from __future__ import annotations
@@ -18,7 +24,10 @@ import hashlib
 import os
 import shutil
 import subprocess
+import threading
 from pathlib import Path
+
+from repro_torch import obs
 
 __all__ = ["SOURCES", "FLAGS", "build_all", "load", "nvcc_command", "LOGS"]
 
@@ -33,6 +42,7 @@ FLAGS = ["-gencode", "arch=compute_90a,code=sm_90a", "-std=c++17", "-O3",
 
 LOGS: dict[str, str] = {}          # compiler output (ptxas -v) per source
 _LIBS: dict[str, ctypes.CDLL] = {}
+_LOCK = threading.RLock()          # held by build_all and load
 
 
 def _nvcc() -> str:
@@ -63,6 +73,11 @@ def build_all(names=None) -> dict[str, Path]:
     ``nvcc`` process each, all started together.  Returns name -> library
     path; raises with the compiler's output when a build fails."""
     names = list(SOURCES if names is None else names)
+    with _LOCK:
+        return _build_all(names)
+
+
+def _build_all(names: list[str]) -> dict[str, Path]:
     BUILD.mkdir(parents=True, exist_ok=True)
     out, procs = {}, {}
     for name in names:
@@ -70,7 +85,8 @@ def build_all(names=None) -> dict[str, Path]:
         out[name] = target
         if target.exists():
             continue
-        tmp = target.with_name(f"{target.name}.{os.getpid()}.tmp")
+        tmp = target.with_name(
+            f"{target.name}.{os.getpid()}.{threading.get_ident()}.tmp")
         cmd = nvcc_command(CSRC / SOURCES[name], tmp)
         procs[name] = (subprocess.Popen(cmd, stdout=subprocess.PIPE,
                                         stderr=subprocess.STDOUT, text=True),
@@ -91,7 +107,15 @@ def build_all(names=None) -> dict[str, Path]:
 def load(name: str) -> ctypes.CDLL:
     """The loaded library of one source, built on first use."""
     lib = _LIBS.get(name)
-    if lib is None:
-        lib = ctypes.CDLL(str(build_all([name])[name]))
-        _LIBS[name] = lib
+    if lib is not None:
+        return lib
+    with _LOCK:
+        lib = _LIBS.get(name)
+        if lib is None:
+            if _target(name).exists():
+                path = build_all([name])[name]
+            else:
+                with obs.span("build", kernel=name):
+                    path = build_all([name])[name]
+            lib = _LIBS[name] = ctypes.CDLL(str(path))
     return lib

@@ -1,9 +1,12 @@
-"""Token serving launcher, after the reference's ``launch/serve.py`` (its
-token mode): random weights from a seed, a few requests with random prompts
-of 2 to 8 tokens, answered by the batched token ``Engine``.
+"""Serving launchers, after the reference's ``launch/serve.py``: the token
+mode (random weights from a seed, a few requests with random prompts of 2
+to 8 tokens, answered by the batched token ``Engine``) and ``--svd``, an
+open-loop stream of SVD requests answered by ``AsyncSVDEngine``.
 
   python -m repro_torch.launch.serve --arch phi3-medium-14b --device cpu
   python -m repro_torch.launch.serve --arch phi3-medium-14b --full
+  python -m repro_torch.launch.serve --svd --device cpu --requests 16 \\
+      --rate 200 --svd-n 32 --svd-bw 4
 
 Without ``--full`` the model is the architecture's smoke variant (tiny
 widths).  ``--device`` defaults to the card; without one the run raises,
@@ -22,9 +25,10 @@ from repro_torch.configs.base import get_config, smoke_of
 from repro_torch.models import build
 from repro_torch.serve import Engine, Request, ServeConfig
 
-__all__ = ["main", "make_requests", "serve"]
+__all__ = ["main", "main_svd", "make_requests", "serve"]
 
-SVD_LATER = "--svd: the SVD serve tier comes in a later slice of the port"
+HOSTS_LATER = ("--svd --hosts N: serving across processes (ROADMAP Queue 1, "
+               "item 10b) is a later slice of the port")
 
 
 def make_requests(cfg, n: int, new_tokens: int, seed: int = 0
@@ -70,10 +74,30 @@ def main(argv=None):
                     help="where the model runs (default: the card)")
     ap.add_argument("--seed", type=int, default=0)
     ap.add_argument("--svd", action="store_true",
-                    help="the async SVD serve tier (a later slice)")
+                    help="drive the async SVD serve tier instead of the "
+                         "token engine")
+    ap.add_argument("--svd-n", type=int, default=64, metavar="N",
+                    help="[--svd] matrix size")
+    ap.add_argument("--svd-bw", type=int, default=8, metavar="BW",
+                    help="[--svd] stage-1 target bandwidth")
+    ap.add_argument("--rate", type=float, default=100.0,
+                    help="[--svd] open-loop Poisson arrival rate, req/s")
+    ap.add_argument("--timeout-ms", type=float, default=0.0,
+                    help="[--svd] per-request deadline (0: none)")
+    ap.add_argument("--autotune", action="store_true",
+                    help="[--svd] per-bucket configs from the tuned-config "
+                         "cache")
+    ap.add_argument("--metrics-port", type=int, default=None, metavar="PORT",
+                    help="[--svd] serve Prometheus-format engine metrics at "
+                         "127.0.0.1:PORT/metrics for the run (0: an "
+                         "ephemeral port)")
+    ap.add_argument("--hosts", type=int, default=0, metavar="N",
+                    help="[--svd] serving across N processes (a later slice)")
     args = ap.parse_args(argv)
+    if args.svd and args.hosts >= 2:
+        ap.error(HOSTS_LATER)
     if args.svd:
-        ap.error(SVD_LATER)
+        return main_svd(args)
 
     cfg = get_config(args.arch) if args.full else smoke_of(args.arch)
     model = build(cfg, device=args.device)
@@ -88,6 +112,72 @@ def main(argv=None):
           f"{stats['seconds']:.1f}s ({stats['tokens_per_s']:.1f} tok/s) on "
           f"{model.device}")
     return stats
+
+
+def main_svd(args) -> dict:
+    """Open-loop async SVD serving: a warm-up request (the kernels' builds)
+    outside the clock, then ``--requests`` random fp64 matrices at Poisson
+    arrivals of ``--rate`` per second; prints the served count, latency
+    percentiles, the engine's metrics and its health."""
+    from repro_torch.serve import AsyncSVDEngine, SVDRequest
+
+    n, bw = args.svd_n, args.svd_bw
+    rng = np.random.default_rng(args.seed)
+    eng = AsyncSVDEngine(device=args.device, autotune=args.autotune,
+                         default_timeout_s=(args.timeout_ms / 1e3 or None))
+    mserver = None
+    if args.metrics_port is not None:
+        from repro_torch.obs import MetricsServer
+        mserver = MetricsServer(port=args.metrics_port)
+        mserver.register("svd", eng.metrics)
+        print(f"metrics endpoint: {mserver.url}")
+    try:
+        # never under the engine's default deadline: a first dispatch on
+        # the card builds its kernels
+        eng.submit(SVDRequest(uid=-1, matrix=rng.standard_normal((n, n)),
+                              bw=bw), timeout_s=float("inf")).result(
+                                  timeout=1200)
+        gaps = rng.exponential(1.0 / args.rate, args.requests)
+        futs, lat = [], []
+
+        def stamp(req):
+            # latency is sampled when the future resolves
+            def cb(fut):
+                if fut.exception() is None:
+                    lat.append(time.monotonic() - req.arrived)
+            return cb
+
+        t0 = time.perf_counter()
+        for uid in range(args.requests):
+            time.sleep(gaps[uid])
+            r = SVDRequest(uid=uid, matrix=rng.standard_normal((n, n)),
+                           bw=bw)
+            f = eng.submit(r)
+            f.add_done_callback(stamp(r))
+            futs.append(f)
+        for f in futs:
+            try:
+                f.result(timeout=1200)
+            except Exception as exc:             # noqa: BLE001 — a report
+                print(f"request failed: {exc!r}")
+        dt = time.perf_counter() - t0
+    finally:
+        eng.stop()
+        if mserver is not None:
+            mserver.stop()
+    snap = eng.metrics.snapshot()
+    if lat:
+        p50, p95, p99 = np.percentile(np.asarray(lat) * 1e3, [50, 95, 99])
+        print(f"served {len(lat)}/{args.requests} requests in {dt:.2f}s "
+              f"({len(lat) / dt:.1f} req/s) on {eng.device}")
+        print(f"latency p50/p95/p99 = {p50:.1f}/{p95:.1f}/{p99:.1f} ms")
+    print("metrics:", {k: round(v, 3) if isinstance(v, float) else v
+                       for k, v in sorted(snap.items())})
+    health = eng.metrics.health()
+    print("health:", {k: round(v, 4) if isinstance(v, float) else v
+                      for k, v in health.items()})
+    return {"served": len(lat), "requests": args.requests, "seconds": dt,
+            "metrics": snap, "health": health}
 
 
 if __name__ == "__main__":

@@ -1,5 +1,27 @@
-"""Serving of the port: the token ``Engine`` for the dense decoders.  The
-SVD serve tiers are a later slice."""
-from repro_torch.serve.engine import Engine, Request, ServeConfig
+"""Serving of the port, after the reference's ``serve/`` package.
 
-__all__ = ["Engine", "Request", "ServeConfig"]
+Sync tier: ``Engine`` (tokens) and ``SVDEngine`` (spectral,
+shape-bucketed).  Async tier: ``AsyncSVDEngine`` — thread-safe
+micro-batching queue, deadline-aware admission, futures; ``ServeMetrics``
+counters live on every SVD engine as ``.metrics``.  Fault tolerance:
+``FaultPlan`` (deterministic injection), ``RetryPolicy`` (backoff ladder)
+and ``BucketQuarantine`` (per-bucket circuit breaker) in
+``serve/faults.py``; ``NumericalFault`` lives in ``core/svd.py`` and is
+re-exported here.  Serving across processes (the reference's router and
+workers) and across cards come in later slices.
+"""
+from repro_torch.core.svd import NumericalFault
+from repro_torch.serve.async_engine import AsyncSVDEngine, QueueFullError
+from repro_torch.serve.engine import (Engine, Request, ServeConfig, SVDEngine,
+                                      SVDRequest)
+from repro_torch.serve.faults import (BucketQuarantine, FaultPlan,
+                                      InjectedDeviceLoss,
+                                      InjectedDispatchError, InjectedFault,
+                                      RetryPolicy)
+from repro_torch.serve.metrics import ServeMetrics, bucket_key_str
+
+__all__ = ["Engine", "Request", "ServeConfig", "SVDEngine", "SVDRequest",
+           "AsyncSVDEngine", "QueueFullError", "ServeMetrics",
+           "bucket_key_str",
+           "FaultPlan", "RetryPolicy", "BucketQuarantine", "NumericalFault",
+           "InjectedFault", "InjectedDispatchError", "InjectedDeviceLoss"]

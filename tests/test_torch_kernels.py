@@ -1194,6 +1194,46 @@ def test_phi3_width_bf16_prefill_on_the_card_launches_wgmma(cuda):
 
 
 @pytest.mark.cuda
+def test_svd_engine_on_the_card_matches_the_cpu(cuda):
+    """One fused and one staged (full SVD) bucket through ``AsyncSVDEngine``
+    on the card: sigma within 1e-12 * sigma_max of the same engine on the
+    CPU, U and V^T reconstructing A, each tier's kernels launched, and the
+    clean run with no retry, no degraded and no failed request."""
+    from torch_port_common import check_svd
+
+    from repro_torch.serve import AsyncSVDEngine, SVDEngine, SVDRequest
+    rng = np.random.default_rng(17)
+    stream = ([(rng.standard_normal((24, 24)), False) for _ in range(5)]
+              + [(rng.standard_normal((72, 72)), True) for _ in range(3)])
+
+    def reqs():
+        return [SVDRequest(uid=i, matrix=a, bw=8, compute_uv=uv)
+                for i, (a, uv) in enumerate(stream)]
+
+    ops.reset_launch_counts()
+    with AsyncSVDEngine(device="cuda", fused_n_max=32,
+                        batch_window_s=0.005) as eng:
+        futs = [eng.submit(r) for r in reqs()]
+        got = {f.result(timeout=600).uid: f.result(timeout=1) for f in futs}
+    counts = ops.launch_counts()
+    for k in ("fused_small_svd_cuda", "chase_cycle_cuda",
+              "sturm_bisect_cuda", "tape_apply_cuda"):
+        assert counts[k] > 0, (k, counts)
+    snap = eng.metrics.snapshot()
+    assert snap["completed"] == len(stream)
+    assert snap["retried"] == snap["degraded"] == snap["failed"] == 0
+    assert set(snap["tiers"]) == {"fused", "staged"}
+    cpu = SVDEngine(device="cpu", fused_n_max=32)
+    for r in reqs():
+        cpu.submit(r)
+    want = {r.uid: r for r in cpu.run()}
+    for uid, r in got.items():
+        close(r.sigma, want[uid].sigma, 1e-12)
+        if r.compute_uv:
+            check_svd(stream[uid][0], r.u, r.sigma, r.vt, 1e-11)
+
+
+@pytest.mark.cuda
 @pytest.mark.parametrize("tape", [False, True])
 def test_superstep_stage_is_one_launch_per_super_cycle(cuda, tape):
     """A fuse-4 stage on the card: T super-step launches (one per

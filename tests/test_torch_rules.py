@@ -60,7 +60,11 @@ def test_import_leaves_jax_out():
             "repro_torch.core.bidiag_dc", "repro_torch.kernels.dc",
             "repro_torch.autotune", "repro_torch.autotune.model",
             "repro_torch.autotune.measure", "repro_torch.autotune.cache",
-            "repro_torch.autotune.search", "repro_torch.autotune.__main__"]
+            "repro_torch.autotune.search", "repro_torch.autotune.__main__",
+            "repro_torch.obs", "repro_torch.obs.trace",
+            "repro_torch.obs.hist", "repro_torch.obs.export",
+            "repro_torch.obs.prom", "repro_torch.serve.metrics",
+            "repro_torch.serve.faults", "repro_torch.serve.async_engine"]
     code = ("import importlib, sys\n"
             f"for m in {mods!r}: importlib.import_module(m)\n"
             "bad = [m for m in sys.modules if m.split('.')[0] in "

@@ -99,11 +99,26 @@ def test_launch_serve_runs_on_the_cpu(capsys):
     assert "served 3 requests / 6 tokens" in capsys.readouterr().out
 
 
-def test_launch_serve_svd_names_the_later_slice(capsys):
+def test_launch_serve_svd_runs_on_the_cpu(capsys):
+    stats = tserve.main(["--svd", "--device", "cpu", "--requests", "16",
+                         "--rate", "200", "--svd-n", "32", "--svd-bw", "4"])
+    out = capsys.readouterr().out
+    assert stats["served"] == 16 and "served 16/16" in out
+    assert "latency p50/p95/p99 = " in out
+    assert "'timed_out': 0" in out.split("metrics:")[1]
+    assert stats["metrics"]["completed"] == 17      # the warm-up too
+    assert stats["health"]["status"] == "ok"
+
+
+def test_launch_serve_svd_hosts_names_the_later_slice(capsys):
     with pytest.raises(SystemExit) as exc:
-        tserve.main(["--svd"])
+        tserve.main(["--svd", "--hosts", "2", "--device", "cpu"])
     assert exc.value.code != 0
-    assert "later slice" in capsys.readouterr().err
+    err = capsys.readouterr().err
+    assert "later slice" in err and "10b" in err
+    if not torch.cuda.is_available():
+        with pytest.raises(RuntimeError, match="device='cpu'"):
+            tserve.main(["--svd", "--requests", "1"])
 
 
 def test_launch_serve_padded_vocab_is_never_sampled():

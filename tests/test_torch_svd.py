@@ -167,7 +167,7 @@ def test_convert_round_trip():
     cfg = convert.pipeline_config_from_reference(dataclasses.asdict(jcfg))
     assert (cfg.bw, cfg.tw, cfg.fuse, cfg.dtype, cfg.backend,
             cfg.device) == (8, 3, 2, "float64", "cuda", "cuda")
-    assert not hasattr(cfg, "max_batch") and not hasattr(cfg, "unroll")
+    assert cfg.max_batch == 5 and not hasattr(cfg, "unroll")
     ref_fields = dataclasses.asdict(dataclasses.replace(jcfg, backend="ref"))
     cpu = convert.pipeline_config_from_reference(ref_fields, device="cpu")
     assert (cpu.backend, cpu.device) == ("ref", "cpu")
