@@ -6,7 +6,7 @@
                            --chase-bounds | --wy-planted-faults |
                            --wy-bounds | --fused-planted-faults |
                            --fused-threads | --fused-bounds |
-                           --svd-parts TREE | --svd-serve]
+                           --svd-parts TREE | --svd-serve | --svd-fabric]
 
 Builds the port's CUDA kernels from ``src/repro_torch/kernels/csrc`` (one
 ``nvcc`` per source, all at once), holds each kernel against its plain
@@ -28,7 +28,16 @@ fp64) and (bw 32, fp32) and the batch axis at n = 1024 around
 ``default_bucket_batch``.  The ``svd_serve`` phase serves a mix of small
 matrices (the fused tier) and large ones (the staged kernels) through
 ``AsyncSVDEngine`` on the card: a burst, an open-loop stream, the same
-stream under injected faults, and one traced dispatch.  Results are checked against
+stream under injected faults, and one traced dispatch.  The ``svd_fabric``
+phase serves across devices and processes on the one card: every bucket of
+the mix split over a mesh of two shards of ``cuda:0``
+(``sharded_pipeline_dispatch``, a lost shard, ``AsyncSVDEngine(mesh=)``),
+the band of an fp64 n = 4096 matrix split by column over that mesh
+(``bidiagonalize_sharded``, the one-cycle band kernel of
+``chase_cycle_cuda`` on each shard), and an ``SVDRouter`` with its default
+heartbeat over two worker processes on the card (a burst, a Poisson
+stream, the same stream with one worker SIGKILLed), every answer held bit
+for bit to the in-process engine's.  Results are checked against
 ``torch.linalg.svdvals``, which serves here only as a yardstick, and U and
 V^T by reconstruction and orthogonality.  Then the LM serving path with
 phi3-medium-14b at full width: a four-layer fp32 prefill (b = 2, s = 2048)
@@ -350,6 +359,11 @@ def main() -> int:
     ap.add_argument("--svd-serve", action="store_true",
                     help="only build the kernels and run the svd_serve "
                     "phase (AsyncSVDEngine on the card), then exit")
+    ap.add_argument("--svd-fabric", action="store_true",
+                    help="only build the kernels and run the svd_fabric "
+                    "phase (sharded dispatch and the column-sharded chase "
+                    "on a mesh of two shards of the card, the router and "
+                    "two worker processes on it), then exit")
     ap.add_argument("--fused-bounds", action="store_true",
                     help="only time the fused kernel's values mode at the "
                     "main shapes in the repository's build and in copies "
@@ -391,6 +405,11 @@ def main() -> int:
             from repro_torch.kernels import _build
             _build.build_all()
             svd_serve_phase(torch)
+            return 0
+        if args.svd_fabric:
+            from repro_torch.kernels import _build
+            _build.build_all()
+            svd_fabric_phase(torch)
             return 0
         return run(args, torch)
     except PhaseFailed as exc:
@@ -2345,7 +2364,7 @@ def serve_latency(snap) -> dict:
             for t, row in snap["latency"]["tiers"].items()}
 
 
-def svd_serve_phase(torch, main_counts=None, device="cuda") -> None:
+def svd_serve_phase(torch, main_counts=None, device="cuda") -> dict:
     """SVD serving on the card through ``AsyncSVDEngine(device="cuda")``:
     every bucket of the mix warmed once (the builds), a closed-loop burst of
     SERVE_BURST stream requests (the sustained rate), an open-loop Poisson
@@ -2669,6 +2688,462 @@ def svd_serve_phase(torch, main_counts=None, device="cuda") -> None:
     out["ok"] = not failures
     emit(out)
     check(out["ok"], f"svd_serve: {failures}")
+    return out
+
+
+# the svd_fabric phase: two shards of a mesh on the one card, the
+# column-sharded chase at fp64 (n, bw), and worker processes on the card
+FABRIC_SHARDS = 2
+FABRIC_CHASE = (4096, 64)
+FABRIC_HOSTS = 2
+
+
+def fabric_dispatch(torch, mesh, gen, device, failures) -> dict:
+    """(a) Every bucket of the serving mix through
+    ``sharded_pipeline_dispatch`` on ``mesh`` (its config as the engines
+    resolve it; B odd, so the padding to the shards is exercised): against
+    the unsharded pipeline on the same stack, bit for bit or within
+    ``serve_tol``, and with shard 0 lost, bit for bit the clean sharded run;
+    then an ``AsyncSVDEngine(mesh=...)``."""
+    import numpy as np
+
+    from repro_torch.core import distributed as tdist
+    from repro_torch.core import tuning
+    from repro_torch.serve import (AsyncSVDEngine, FaultPlan, SVDEngine,
+                                   SVDRequest, bucket_key_str)
+    sync = torch.cuda.synchronize if device == "cuda" else (lambda: None)
+    eng = SVDEngine(device=device)
+    rows = {}
+    for key in list(SERVE_STREAM) + list(SERVE_STAGED):
+        n, bw, dname, banded, uv = key
+        cfg = eng._cfg_for(key)
+        b = SERVE_STAGED[key] + 1 if key in SERVE_STAGED else cfg.max_batch - 1
+        dt = tuning.dtype_of(dname)
+        mats = (banded_matrix(torch, (b,), n, bw, dt, gen, device) if banded
+                else torch.randn((b, n, n), generator=gen, dtype=torch.float64,
+                                 device=device).to(dt))
+        kw = dict(banded=banded, compute_uv=uv)
+        sync()
+        t0 = time.perf_counter()
+        ref = tdist._local(mats, cfg, **kw)
+        sync()
+        t_un = time.perf_counter() - t0
+        got = tdist.sharded_pipeline_dispatch(mats, mesh, config=cfg, **kw)
+        sync()
+        t_sh = time.perf_counter() - t0 - t_un
+        retries = []
+        lost = tdist.sharded_pipeline_dispatch(
+            mats, mesh, config=cfg, faults=FaultPlan(shard_loss_at=(0,)),
+            on_shard_retry=retries.append, **kw)
+        names = ("u", "sigma", "vt") if uv else ("sigma",)
+        parts = [t if uv else (t,) for t in (got, ref, lost)]
+        bitwise = {nm: torch.equal(x, y)
+                   for nm, x, y in zip(names, parts[0], parts[1])}
+        diff = {nm: float((x.double() - y.double()).abs().max())
+                for nm, x, y in zip(names, parts[0], parts[1])}
+        scale = float(parts[1][names.index("sigma")].abs().max())
+        tol = serve_tol(n, dname)
+        row = {"batch": b, "per_shard": -(-b // len(mesh)),
+               "max_batch": cfg.max_batch, "tier": eng._tier_of(cfg, n),
+               "unsharded_s": t_un, "sharded_s": t_sh, "bitwise": bitwise,
+               "sigma_diff_over_max": diff["sigma"] / scale, "tol": tol,
+               "lost_shard_retries": sum(retries),
+               "lost_shard_bitwise_vs_clean": all(
+                   torch.equal(x, y) for x, y in zip(parts[2], parts[0]))}
+        if all(bitwise.values()):
+            row["verdict"] = "bitwise"
+        else:
+            off = [nm for nm, same in bitwise.items() if not same]
+            row.update(uv_max_abs_diff={nm: diff[nm] for nm in names
+                                        if nm != "sigma"})
+            within = (diff["sigma"] / scale <= tol and all(
+                diff[nm] <= tol for nm in names if nm != "sigma"))
+            row["verdict"] = "within_serve_tol" if within else "off"
+            # the same pipeline, unsharded, on shard 0's slice alone: bit
+            # for bit shard 0's results when only the batch size differs
+            per = row["per_shard"]
+            alone = tdist._local(mats[:per], cfg, **kw)
+            alone = alone if uv else (alone,)
+            row["shard0_bitwise_vs_unsharded_at_its_batch"] = all(
+                torch.equal(x[:per], y) for x, y in zip(parts[0], alone))
+            calls = []
+            if not banded and row["tier"] != "fused":
+                calls.append("stage 1's products (core/stage1.py)")
+            if uv:
+                calls.append("stage 3's vector products "
+                             "(core/bidiag_svd.py) and the composition "
+                             "U2 Ub, Vb^T V2^T")
+            row["reason"] = (
+                f"{', '.join(off)} not bit for bit: a shard runs "
+                f"{per} matrices where the unsharded call runs {b}, and "
+                f"{' and '.join(calls)} are batched library products (cuBLAS "
+                f"on the card) whose kernel depends on the batch count "
+                f"(every kernel of the "
+                f"port treats each matrix alone); shard 0 against the "
+                f"unsharded pipeline on its own {per}: "
+                + ("bit for bit" if row[
+                    "shard0_bitwise_vs_unsharded_at_its_batch"]
+                   else "not bit for bit either"))
+            if not within:
+                failures.append(f"svd_fabric (a): {bucket_key_str(key)} "
+                                f"sharded off the unsharded dispatch")
+        if not (row["lost_shard_bitwise_vs_clean"]
+                and row["lost_shard_retries"] == 1):
+            failures.append(f"svd_fabric (a): {bucket_key_str(key)} lost "
+                            f"shard not recovered bit for bit")
+        rows[bucket_key_str(key)] = row
+
+    key = next(iter(SERVE_STREAM))
+    n, bw, dname, _banded, _uv = key
+    mats = torch.randn((8, n, n), generator=gen, dtype=torch.float64,
+                       device=device).to(tuning.dtype_of(dname))
+    with AsyncSVDEngine(device=device, mesh=mesh,
+                        batch_window_s=SERVE_WINDOW_S) as aeng:
+        futs = [aeng.submit(SVDRequest(uid=i, matrix=mats[i], bw=bw))
+                for i in range(len(mats))]
+        done = [f.result(timeout=600) for f in futs]
+    snap = aeng.metrics.snapshot()
+    sv = torch.linalg.svdvals(mats.double()).cpu().numpy()
+    err = max(float(np.max(np.abs(r.sigma - sv[i])) / sv[i, 0])
+              for i, r in enumerate(done))
+    engine_row = {"bucket": bucket_key_str(key), "requests": len(done),
+                  "batches": snap["batches"],
+                  "sharded_batches": snap["sharded_batches"],
+                  "sigma_err_over_max": err, "tol": serve_tol(n, dname)}
+    if snap["sharded_batches"] < 1 or any(r.error for r in done) \
+            or err > serve_tol(n, dname):
+        failures.append("svd_fabric (a): AsyncSVDEngine(mesh=) did not "
+                        "serve through the mesh")
+    return {"buckets": rows, "async_engine": engine_row}
+
+
+def fabric_column_chase(torch, mesh, gen, device, failures, n, bw):
+    """(b) ``bidiagonalize_sharded`` at fp64 (n, bw) on ``mesh``: sigma
+    through stage 3 against the unsharded ``banded_singular_values`` within
+    1e-10 sigma_max, the one-cycle band kernel launched once a shard a
+    cycle.
+    Returns the phase's row and the sharded run's launches."""
+    from repro_torch.core import bidiag_svd as s3
+    from repro_torch.core import bulge_chasing as bc
+    from repro_torch.core import distributed as tdist
+    from repro_torch.core import svd as tsvd
+    from repro_torch.core import tuning
+    from repro_torch.kernels import ops
+    sync = torch.cuda.synchronize if device == "cuda" else (lambda: None)
+    a = banded_matrix(torch, (), n, bw, torch.float64, gen, device)
+    cfg = tuning.PipelineConfig.resolve(bw=bw, dtype=torch.float64, n=n,
+                                        device=device)
+    plan = tuning.stage_plan(bw, cfg.tw)
+    cycles = sum(bc.stage_schedule(n, b_in, tw)[1] for b_in, tw in plan)
+    ops.reset_launch_counts()
+    sync()
+    t0 = time.perf_counter()
+    d, e = tdist.bidiagonalize_sharded(a, bw=bw, tw=cfg.tw, mesh=mesh)
+    sync()
+    t_sh = time.perf_counter() - t0
+    sharded_launches = ops.launch_counts()
+    sig_sh = s3.bidiag_singular_values(d, e)
+    sync()
+    t0 = time.perf_counter()
+    d1, e1 = tsvd.bidiagonal_of(a, config=cfg)
+    sync()
+    t_un = time.perf_counter() - t0
+    unsharded_launches = ops.launch_counts()
+    sig_un = tsvd.banded_singular_values(a, config=cfg)
+    err = float((sig_sh - sig_un).abs().max() / sig_un.abs().max())
+    sharded = sharded_launches["chase_cycle_cuda"]
+    row = {"n": n, "bw": bw, "dtype": "float64", "shards": len(mesh),
+           "plan": [list(p) for p in plan], "cycles": cycles,
+           "sharded_s": t_sh, "unsharded_stage2_s": t_un,
+           "sharded_band_launches": sharded,
+           "unsharded_band_launches": (unsharded_launches["chase_cycle_cuda"]
+                                       - sharded),
+           "sigma_diff_over_max": err, "tol": 1e-10,
+           "bidiagonal_bitwise_vs_unsharded": bool(
+               torch.equal(d, d1) and torch.equal(e, e1))}
+    if err > 1e-10:
+        failures.append("svd_fabric (b): column-sharded sigma off the "
+                        "unsharded call")
+    if device == "cuda" and sharded != cycles * len(mesh):
+        failures.append(f"svd_fabric (b): {sharded} band-entry launches "
+                        f"for {cycles} cycles on {len(mesh)} shards")
+    return row, sharded_launches
+
+
+def fabric_fleet(torch, gen, rng, device, failures, offered_rate) -> dict:
+    """(c) An ``SVDRouter`` here, with the heartbeat and timeout it ships
+    with, over FABRIC_HOSTS worker processes, each pinned to a card as
+    ``launch/serve.py --svd --hosts`` pins them (all on the one card here):
+    every bucket warmed on every host, a burst and a Poisson stream of the
+    mix, then the same stream with the owner of a just-submitted request
+    SIGKILLed in the middle; every answer bit for bit the in-process
+    engine's on the same matrix and bucket.  The largest gap between a live
+    worker's pongs is watched from the workers' start, per segment, and
+    fails the phase where it reaches the router's heartbeat timeout."""
+    import signal
+    import threading
+
+    import numpy as np
+
+    from repro_torch.core import tuning
+    from repro_torch.serve import (SVDEngine, SVDRequest, SVDRouter,
+                                   bucket_key_str, spawn_worker_process)
+    keys = list(SERVE_STREAM) + list(SERVE_STAGED)
+    host_items = [
+        (uid, key, a.cpu().numpy()) for uid, key, a in
+        serve_requests(torch, gen, rng, SERVE_BURST, False, device)]
+    stream = [(uid, key, a.cpu().numpy()) for uid, key, a in
+              serve_requests(torch, gen, rng, SERVE_BURST, True, device)]
+    res = {"hosts": FABRIC_HOSTS}
+    router = SVDRouter()
+    res["heartbeat_s"] = router.heartbeat_s
+    res["heartbeat_timeout_s"] = router.heartbeat_timeout_s
+    cards = torch.cuda.device_count() if device == "cuda" else 0
+    segment, ages, watching = ["connect"], {}, threading.Event()
+
+    def watch():                     # the largest gap between pongs
+        while not watching.wait(0.02):
+            for row in router.fleet()["hosts"].values():
+                if row["alive"]:
+                    ages[segment[0]] = max(ages.get(segment[0], 0.0),
+                                           row["last_seen_age_s"])
+
+    watcher = threading.Thread(target=watch, daemon=True)
+    watcher.start()
+    procs = {f"w{i}": spawn_worker_process(
+        router.address, f"w{i}", device=device,
+        card=i % cards if cards else None,
+        window_ms=SERVE_WINDOW_S * 1e3) for i in range(FABRIC_HOSTS)}
+    answers = {}
+    try:
+        t0 = time.perf_counter()
+        while not router.wait_for_hosts(FABRIC_HOSTS, timeout=1.0):
+            dead = {h: p.returncode for h, p in procs.items()
+                    if p.poll() is not None}
+            if dead or time.perf_counter() - t0 > 300:
+                raise PhaseFailed(f"svd_fabric: workers did not connect "
+                                  f"(exit codes {dead})")
+        res["hosts_up_s"] = time.perf_counter() - t0
+        res["hello"] = {h: {k: row.get(k) for k in (
+            "pid", "device", "devices", "global_devices", "process_index",
+            "processes")} for h, row in router.fleet()["hosts"].items()}
+        warm = []
+        for i, key in enumerate(keys):
+            n, bw, dname, banded, uv = key
+            dt = tuning.dtype_of(dname)
+            a = (banded_matrix(torch, (), n, bw, dt, gen, device) if banded
+                 else torch.randn((n, n), generator=gen, dtype=torch.float64,
+                                  device=device).to(dt))
+            warm.append(SVDRequest(uid=-1 - i, matrix=a.cpu().numpy(), bw=bw,
+                                   banded=banded, compute_uv=uv))
+        segment[0] = "warm"
+        t0 = time.perf_counter()
+        router.warm(warm, timeout=900)
+        res["warm_s"] = time.perf_counter() - t0
+        res["owners"] = {bucket_key_str(k): router.owner_of(k) for k in keys}
+
+        segment[0] = "burst"
+        router.reset_stats()
+        reqs, errs, secs = serve_submit(router, SVDRequest, host_items)
+        rate = len(host_items) / secs
+        answers["burst"] = reqs
+        res["burst"] = {"requests": len(host_items), "seconds": secs,
+                        "requests_per_s": rate, "errors": errs[:5],
+                        "completed_per_host": {
+                            h: row["completed"] for h, row in
+                            router.metrics.snapshot()["hosts"].items()}}
+        offered = offered_rate or rate / 2
+        gaps = rng.exponential(1.0 / offered, len(stream))
+        segment[0] = "poisson"
+        router.reset_stats()
+        reqs, errs, secs = serve_submit(router, SVDRequest, stream, gaps)
+        snap = router.metrics.snapshot()
+        answers["poisson"] = reqs
+        res["poisson"] = {
+            "requests": len(stream), "offered_per_s": offered,
+            "seconds": secs, "requests_per_s": len(stream) / secs,
+            "errors": errs[:5], "latency": serve_latency(snap),
+            "completed_per_host": {h: row["completed"]
+                                   for h, row in snap["hosts"].items()},
+            "retried": snap["retried"], "failed": snap["failed"],
+            "timed_out": snap["timed_out"],
+            "host_stats": {h: {"batches": p["snapshot"]["batches"],
+                               "tiers": p["snapshot"]["tiers"]}
+                           for h, p in router.collect_host_stats(30).items()}}
+        if errs or snap["retried"] or snap["failed"] or snap["timed_out"]:
+            failures.append("svd_fabric (c): the clean stream retried, "
+                            "failed or timed out a request")
+        if errs or len(answers["burst"]) != len(host_items):
+            failures.append("svd_fabric (c): burst errors")
+
+        # the same stream; the owner of the request submitted at its middle
+        # is SIGKILLed right after that submit
+        segment[0] = "kill"
+        router.reset_stats()
+        mid = len(stream) // 2
+        victim = None
+        resolved: dict = {}
+        kill_reqs, futs = [], []
+        t0 = time.perf_counter()
+        for i, (uid, key, a) in enumerate(stream):
+            time.sleep(gaps[i])
+            n, bw, _dn, banded, uv = key
+            r = SVDRequest(uid=uid, matrix=a, bw=bw, banded=banded,
+                           compute_uv=uv)
+            f = router.submit(r)
+            f.add_done_callback(
+                lambda _f, uid=uid: resolved.__setitem__(
+                    uid, resolved.get(uid, 0) + 1))
+            kill_reqs.append(r)
+            futs.append(f)
+            if i == mid:
+                victim = router.owner_of(key)
+                procs[victim].send_signal(signal.SIGKILL)
+                t_kill = time.perf_counter() - t0
+        kerrs = []
+        for f in futs:
+            try:
+                f.result(timeout=900)
+            except Exception as exc:             # noqa: BLE001 — counted
+                kerrs.append(repr(exc))
+        ksecs = time.perf_counter() - t0
+        snap = router.metrics.snapshot()
+        survivor = next(h for h in procs if h != victim)
+        orphaned = [bucket_key_str(k) for k in keys
+                    if res["owners"][bucket_key_str(k)] == victim]
+        owners_after = {bucket_key_str(k): router.owner_of(k) for k in keys}
+        answers["kill"] = kill_reqs
+        res["kill"] = {
+            "victim": victim, "survivor": survivor, "killed_at_s": t_kill,
+            "seconds": ksecs, "errors": kerrs[:5],
+            "completed": snap["completed"], "retried": snap["retried"],
+            "failed": snap["failed"], "timed_out": snap["timed_out"],
+            "dropped": len(stream) - snap["completed"],
+            "resolved_once": (len(resolved) == len(stream)
+                              and set(resolved.values()) == {1}),
+            "per_host": snap["hosts"], "orphaned_buckets": orphaned,
+            "owners_after": owners_after,
+            "dead_hosts": router.fleet()["dead_hosts"],
+            "latency": serve_latency(snap)}
+        k = res["kill"]
+        if (kerrs or not k["resolved_once"] or k["dropped"] or k["retried"] < 1
+                or any(owners_after[b] != survivor for b in orphaned)
+                or snap["hosts"].get(survivor, {}).get("requeued", 0) < 1
+                or victim not in k["dead_hosts"]):
+            failures.append("svd_fabric (c): the SIGKILL stream lost, "
+                            "doubled or misrouted a request")
+    finally:
+        watching.set()
+        router.stop()
+        for p in procs.values():
+            try:
+                p.wait(timeout=60)
+            except subprocess.TimeoutExpired:
+                p.kill()
+                p.wait(timeout=60)
+        res["exit_codes"] = {h: p.returncode for h, p in procs.items()}
+    res["largest_pong_gap_s"] = max(ages.values(), default=0.0)
+    res["largest_pong_gap_by_segment_s"] = ages
+    if res["largest_pong_gap_s"] >= router.heartbeat_timeout_s:
+        failures.append(f"svd_fabric (c): a live worker's pongs "
+                        f"{res['largest_pong_gap_s']:.2f} s apart, at or past "
+                        f"the router's heartbeat timeout of "
+                        f"{router.heartbeat_timeout_s} s")
+
+    # the in-process engine on the same matrices and buckets
+    ref = {}
+    for name, items in (("burst", host_items), ("poisson", stream)):
+        eng = SVDEngine(device=device)
+        for uid, key, a in items:
+            n, bw, _dn, banded, uv = key
+            eng.submit(SVDRequest(uid=uid, matrix=a, bw=bw, banded=banded,
+                                  compute_uv=uv))
+        ref[name] = {r.uid: r for r in eng.run()}
+    ref["kill"] = ref["poisson"]
+    bitwise = {}
+    for name, reqs in answers.items():
+        same = 0
+        for r in reqs:
+            want = ref[name][r.uid]
+            ok = (r.error is None and want.error is None
+                  and np.array_equal(r.sigma, want.sigma))
+            if ok and r.compute_uv:
+                ok = (np.array_equal(r.u, want.u)
+                      and np.array_equal(r.vt, want.vt))
+            same += ok
+        bitwise[name] = {"requests": len(reqs), "bitwise": same}
+        if same != len(reqs):
+            failures.append(f"svd_fabric (c): {len(reqs) - same} {name} "
+                            f"answers not bit for bit the in-process engine")
+    res["bitwise_vs_in_process"] = bitwise
+    return res
+
+
+def svd_fabric_phase(torch, main_counts=None, device="cuda",
+                     offered_rate=None) -> None:
+    """SVD serving across devices and processes on the one card: (a) batch
+    dispatch over a mesh of FABRIC_SHARDS shards on ``cuda:0``, (b) the
+    column-sharded chase at fp64 FABRIC_CHASE on that mesh, (c) the router
+    and FABRIC_HOSTS worker processes (``fabric_dispatch``,
+    ``fabric_column_chase``, ``fabric_fleet``).  The launches of (a) and
+    (b) join ``main_counts``; the workers' launches are their own
+    processes'.  (``device="cpu"`` rehearses the phase's logic on the plain
+    versions, with smaller tables.)"""
+    import os
+
+    import numpy as np
+
+    from repro_torch.kernels import ops
+    from repro_torch.launch.mesh import DeviceMesh, serve_mesh
+    t_phase = time.perf_counter()
+    rng = np.random.default_rng(4321)
+    gen = torch.Generator(device=device)
+    gen.manual_seed(4321)
+    mesh = DeviceMesh([f"{device}:0" if device == "cuda" else device]
+                      * FABRIC_SHARDS)
+    out = {"phase": "svd_fabric", "mesh": [str(d) for d in mesh]}
+    failures = []
+    saved = os.environ.get("REPRO_SERVE_MESH")
+    os.environ["REPRO_SERVE_MESH"] = "auto"
+    try:
+        auto = serve_mesh()
+    finally:
+        if saved is None:
+            del os.environ["REPRO_SERVE_MESH"]
+        else:
+            os.environ["REPRO_SERVE_MESH"] = saved
+    out["serve_mesh_auto"] = None if auto is None else [str(d) for d in auto]
+    if auto is None and device == "cuda" and torch.cuda.device_count() > 1:
+        failures.append("serve_mesh() under auto is None on several cards")
+
+    ops.reset_launch_counts()
+    t0 = time.perf_counter()
+    out["sharded_dispatch"] = fabric_dispatch(torch, mesh, gen, device,
+                                              failures)
+    out["sharded_dispatch"]["seconds"] = time.perf_counter() - t0
+    counts = ops.launch_counts()
+    out["sharded_dispatch"]["launches"] = {k: v for k, v in counts.items()
+                                           if v}
+    if main_counts is not None:
+        for k, v in counts.items():
+            main_counts[k] += v
+
+    n, bw = FABRIC_CHASE
+    out["column_chase"], counts = fabric_column_chase(
+        torch, mesh, gen, device, failures, n, bw)
+    if main_counts is not None:
+        for k, v in counts.items():
+            main_counts[k] += v
+
+    t0 = time.perf_counter()
+    out["fleet"] = fabric_fleet(torch, gen, rng, device, failures,
+                                offered_rate)
+    out["fleet"]["seconds"] = time.perf_counter() - t0
+    out["seconds"] = time.perf_counter() - t_phase
+    out["failures"] = failures
+    out["ok"] = not failures
+    emit(out)
+    check(out["ok"], f"svd_fabric: {failures}")
 
 
 def run(args, torch) -> int:
@@ -3756,7 +4231,11 @@ def run(args, torch) -> int:
     autotune_phase(torch, PipelineConfig)
 
     # ---- SVD serving: AsyncSVDEngine on the card -----------------------
-    svd_serve_phase(torch, main_counts)
+    serve_out = svd_serve_phase(torch, main_counts)
+
+    # ---- SVD serving across devices and processes ----------------------
+    svd_fabric_phase(torch, main_counts, offered_rate=serve_out[
+        "poisson_clean"]["offered_per_s"])
 
     # ---- 10 and 11. the LM serving path: phi3-medium-14b ---------------
     lm_phases(args, torch, rng, drive, gen)

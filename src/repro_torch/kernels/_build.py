@@ -29,7 +29,8 @@ from pathlib import Path
 
 from repro_torch import obs
 
-__all__ = ["SOURCES", "FLAGS", "build_all", "load", "nvcc_command", "LOGS"]
+__all__ = ["SOURCES", "FLAGS", "build_all", "load", "nvcc_command", "LOGS",
+           "count_launch"]
 
 CSRC = Path(__file__).resolve().parent / "csrc"
 BUILD = Path(__file__).resolve().parent / "build"
@@ -43,6 +44,14 @@ FLAGS = ["-gencode", "arch=compute_90a,code=sm_90a", "-std=c++17", "-O3",
 LOGS: dict[str, str] = {}          # compiler output (ptxas -v) per source
 _LIBS: dict[str, ctypes.CDLL] = {}
 _LOCK = threading.RLock()          # held by build_all and load
+_COUNT_LOCK = threading.Lock()     # the wrappers' launch counts
+
+
+def count_launch(table: dict, key: str) -> None:
+    """Add one to a wrapper's launch count, under a lock: the shards of a
+    mesh launch from threads of their own (``core/distributed.py``)."""
+    with _COUNT_LOCK:
+        table[key] += 1
 
 
 def _nvcc() -> str:

@@ -107,5 +107,5 @@ def sturm_bisect_cuda(z: torch.Tensor, bound: torch.Tensor, *, n: int,
                                max_iter, d, s, tiny, stream)
         if err != 0:
             raise RuntimeError(f"sturm_bisect_cuda: CUDA error {err}")
-        launches["sturm_bisect_cuda"] += 1
+        _build.count_launch(launches, "sturm_bisect_cuda")
     return out

@@ -109,7 +109,7 @@ def chase_cycle_cuda(windows: torch.Tensor, is_first: torch.Tensor, *,
                 vs.data_ptr() if with_tape else None,
                 taus.data_ptr() if with_tape else None, smem, stream)
         _raise_on(err, "chase_cycle_cuda")
-        launches["chase_cycle_cuda"] += 1
+        _build.count_launch(launches, "chase_cycle_cuda")
     return (windows, vs, taus) if with_tape else windows
 
 
@@ -139,7 +139,7 @@ def chase_superstep_cuda(blocks: torch.Tensor, is_first: torch.Tensor,
                 b_in, tw, fuse, vs.data_ptr() if with_tape else None,
                 taus.data_ptr() if with_tape else None, smem, stream)
         _raise_on(err, "chase_superstep_cuda")
-        launches["chase_superstep_cuda"] += 1
+        _build.count_launch(launches, "chase_superstep_cuda")
     return (blocks, vs, taus) if with_tape else blocks
 
 
@@ -211,7 +211,7 @@ class BandStage:
         if err:
             raise RuntimeError(f"{self._key} band entry, cycle {t}: CUDA "
                                f"error {err}")
-        launches[self._key] += 1
+        _build.count_launch(launches, self._key)
 
     def __enter__(self) -> "BandStage":
         self._device.__enter__()

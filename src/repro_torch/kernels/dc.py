@@ -66,7 +66,7 @@ def _call(name: str, kind: str, dtype: torch.dtype, device, *args) -> None:
         err = _fn(kind, dtype)(*args, stream)
     if err != 0:
         raise RuntimeError(f"{name}: CUDA error {err}")
-    launches[name] += 1
+    _build.count_launch(launches, name)
 
 
 def dc_leaf_cuda(a: torch.Tensor, b: torch.Tensor, lo0: torch.Tensor,

@@ -142,7 +142,7 @@ def _launch(source: str, key: str, q, k, v) -> torch.Tensor:
             raise RuntimeError(f"{source}: error {err} (a CUDA error code; "
                                f"100000 + a CUresult: a refused tensor map; "
                                f"-1: no cuTensorMapEncodeTiled)")
-        launches[key] += 1
+        _build.count_launch(launches, key)
     return out
 
 

@@ -167,5 +167,5 @@ def fused_small_svd_cuda(mats: torch.Tensor, *, bw: int,
                 route.dlo, route.h, dtop, s, route.smem_bytes, stream)
         if err != 0:
             raise RuntimeError(f"fused_small_svd_cuda: CUDA error {err}")
-        launches["fused_small_svd_cuda"] += 1
+        _build.count_launch(launches, "fused_small_svd_cuda")
     return (d, e, u, vt) if compute_uv else sig

@@ -168,7 +168,7 @@ def tape_apply_cuda(v: torch.Tensor, t: torch.Tensor, c: torch.Tensor,
     of matrix ``s // spm``."""
     _check_operand(c, "c", c.dtype)
     if launch_with(_fn(c.dtype), v, t, c, rows):
-        launches["tape_apply_cuda"] += 1
+        _build.count_launch(launches, "tape_apply_cuda")
     return c
 
 

@@ -7,10 +7,14 @@ open-loop stream of SVD requests answered by ``AsyncSVDEngine``.
   python -m repro_torch.launch.serve --arch phi3-medium-14b --full
   python -m repro_torch.launch.serve --svd --device cpu --requests 16 \\
       --rate 200 --svd-n 32 --svd-bw 4
+  python -m repro_torch.launch.serve --svd --hosts 2 --device cpu \\
+      --requests 12 --rate 100 --svd-n 24 --svd-bw 4
 
 Without ``--full`` the model is the architecture's smoke variant (tiny
 widths).  ``--device`` defaults to the card; without one the run raises,
-naming ``--device cpu``.
+naming ``--device cpu``.  ``--svd --hosts N`` serves the same stream
+through an ``SVDRouter`` in this process over N worker processes, each on
+``--device``.
 """
 
 from __future__ import annotations
@@ -25,10 +29,8 @@ from repro_torch.configs.base import get_config, smoke_of
 from repro_torch.models import build
 from repro_torch.serve import Engine, Request, ServeConfig
 
-__all__ = ["main", "main_svd", "make_requests", "serve"]
-
-HOSTS_LATER = ("--svd --hosts N: serving across processes (ROADMAP Queue 1, "
-               "item 10b) is a later slice of the port")
+__all__ = ["main", "main_svd", "main_svd_multihost", "make_requests",
+           "serve"]
 
 
 def make_requests(cfg, n: int, new_tokens: int, seed: int = 0
@@ -92,10 +94,11 @@ def main(argv=None):
                          "127.0.0.1:PORT/metrics for the run (0: an "
                          "ephemeral port)")
     ap.add_argument("--hosts", type=int, default=0, metavar="N",
-                    help="[--svd] serving across N processes (a later slice)")
+                    help="[--svd] serve through a router over N worker "
+                         "processes, each on --device")
     args = ap.parse_args(argv)
-    if args.svd and args.hosts >= 2:
-        ap.error(HOSTS_LATER)
+    if args.svd and args.hosts >= 1:
+        return main_svd_multihost(args)
     if args.svd:
         return main_svd(args)
 
@@ -178,6 +181,94 @@ def main_svd(args) -> dict:
                       for k, v in health.items()})
     return {"served": len(lat), "requests": args.requests, "seconds": dt,
             "metrics": snap, "health": health}
+
+
+def main_svd_multihost(args) -> dict:
+    """The open loop of :func:`main_svd` through an ``SVDRouter`` in this
+    process over ``--hosts`` worker processes, each serving on
+    ``--device`` (``cuda``: worker i pinned to local card i mod the
+    count, one process a card): every host warmed on the stream's bucket
+    first, outside the clock; prints the served count, latency
+    percentiles, each host's completions and the fleet's merged latency.
+    The workers are reaped before it returns."""
+    from repro_torch.kernels import ops
+    from repro_torch.serve import SVDRequest, SVDRouter, spawn_worker_process
+
+    ops.check_device(args.device)        # no card: raises, naming the CPU
+    n, bw = args.svd_n, args.svd_bw
+    rng = np.random.default_rng(args.seed)
+    dev = torch.device(args.device)
+    # one worker process a card: worker i on local card i mod the count
+    cards = (torch.cuda.device_count()
+             if dev.type == "cuda" and dev.index is None else 0)
+    router = SVDRouter(default_timeout_s=(args.timeout_ms / 1e3 or None))
+    procs = [spawn_worker_process(router.address, f"w{i}",
+                                  device=args.device,
+                                  card=i % cards if cards else None)
+             for i in range(args.hosts)]
+    mserver = None
+    try:
+        deadline = time.monotonic() + 300
+        while not router.wait_for_hosts(args.hosts, timeout=1.0):
+            dead = [p.returncode for p in procs if p.poll() is not None]
+            if dead or time.monotonic() > deadline:
+                raise RuntimeError(
+                    f"only {len(router.alive_hosts())}/{args.hosts} worker "
+                    f"hosts connected (exit codes of the dead: {dead})")
+        if args.metrics_port is not None:
+            from repro_torch.obs import MetricsServer, render_fleet_metrics
+            mserver = MetricsServer(port=args.metrics_port)
+            mserver.register("router", router.metrics)
+            mserver.register_provider(
+                "fleet", lambda: render_fleet_metrics(router.fleet()))
+            print(f"metrics endpoint: {mserver.url}")
+        # every host builds its kernels on the bucket outside the clock
+        router.warm([SVDRequest(uid=-1, matrix=rng.standard_normal((n, n)),
+                                bw=bw)], timeout=1200)
+        router.reset_stats()
+        gaps = rng.exponential(1.0 / args.rate, args.requests)
+        futs, lat = [], []
+        t0 = time.perf_counter()
+        for uid in range(args.requests):
+            time.sleep(gaps[uid])
+            r = SVDRequest(uid=uid, matrix=rng.standard_normal((n, n)),
+                           bw=bw)
+            futs.append((r, router.submit(r)))
+        for r, f in futs:
+            try:
+                f.result(timeout=1200)
+                lat.append(time.monotonic() - r.arrived)
+            except Exception as exc:             # noqa: BLE001 — a report
+                print(f"request {r.uid} failed: {exc!r}")
+        dt = time.perf_counter() - t0
+        fleet = router.fleet()
+    finally:
+        router.stop()
+        if mserver is not None:
+            mserver.stop()
+        for p in procs:
+            try:
+                p.wait(timeout=30)
+            except Exception:                    # noqa: BLE001 — reaped
+                p.kill()
+                p.wait()
+    hosts = {h: row.get("completed", 0)
+             for h, row in fleet["router"].get("hosts", {}).items()}
+    if lat:
+        p50, p95, p99 = np.percentile(np.asarray(lat) * 1e3, [50, 95, 99])
+        print(f"served {len(lat)}/{args.requests} requests in {dt:.2f}s "
+              f"({len(lat) / dt:.1f} req/s) across "
+              f"{len(fleet['alive_hosts'])} hosts on {args.device}")
+        print(f"latency p50/p95/p99 = {p50:.1f}/{p95:.1f}/{p99:.1f} ms")
+    print("completed per host:", hosts)
+    print("fleet hosts:", {h: {k: row[k] for k in (
+        "alive", "devices", "process_index", "processes", "dispatched",
+        "completed", "requeued") if k in row}
+        for h, row in fleet["hosts"].items()})
+    print("merged latency:", fleet["latency"]["merged_summary"])
+    return {"served": len(lat), "requests": args.requests, "seconds": dt,
+            "hosts": fleet["alive_hosts"], "completed_per_host": hosts,
+            "fleet": fleet}
 
 
 if __name__ == "__main__":

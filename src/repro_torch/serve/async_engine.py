@@ -20,6 +20,9 @@ background dispatcher between callers and the batched pipeline:
   (``max_pending``) refuses admission with :class:`QueueFullError`.
 * **Oversize splitting** — a burst larger than a bucket's capacity is
   served as back-to-back full batches, FIFO.
+* **Dispatch across devices** — with a ``mesh`` (see
+  ``repro_torch.launch.mesh.serve_mesh``), every bucket is split over the
+  mesh's devices through ``core.distributed.sharded_pipeline_dispatch``.
 * **Fault tolerance** — inherited from the sync engine: the numerical
   guard on every result, the retry ladder, the per-bucket quarantine and
   the degraded ref tier.  Deadlines are re-checked at COMPLETION too (a
@@ -29,11 +32,10 @@ background dispatcher between callers and the batched pipeline:
   ``RetryPolicy.backoff_max_s``.
 
 The dispatcher is the ONE consumer of the buckets and the one thread that
-launches kernels; the compute happens outside the engine lock, so admission
-keeps flowing while a batch is on the device.  Do not mix the inherited
-synchronous ``step()``/``run()`` with a started async engine.  Dispatch
-across several cards (the reference's ``mesh=``) comes with the port of
-multi-GPU sharding.
+launches kernels (with a mesh, through one thread a shard); the compute
+happens outside the engine lock, so admission keeps flowing while a batch
+is on the device.  Do not mix the inherited
+synchronous ``step()``/``run()`` with a started async engine.
 """
 
 from __future__ import annotations
@@ -62,8 +64,8 @@ class AsyncSVDEngine(SVDEngine):
     ...     sigmas = [f.result(timeout=60).sigma for f in futs]
 
     Construction kwargs extend :class:`SVDEngine` (config / backend /
-    device / autotune) with the serving knobs: ``batch_window_s`` (max extra
-    latency a lone request pays waiting for co-batchable traffic),
+    device / autotune / mesh) with the serving knobs: ``batch_window_s``
+    (max extra latency a lone request pays waiting for co-batchable traffic),
     ``default_timeout_s`` (deadline applied to requests submitted without
     one; ``None`` = wait forever), and ``max_pending`` (admission bound).
 
@@ -84,13 +86,14 @@ class AsyncSVDEngine(SVDEngine):
                  fused_n_max: int | None = None,
                  dc_n_min: int | None = None,
                  faults=None, retry=None, residual_check: bool = False,
-                 tracer=None):
+                 tracer=None, mesh=None):
         super().__init__(config, backend=backend, device=device,
                          max_batch=max_batch, autotune=autotune,
                          autotune_cache=autotune_cache,
                          fused_n_max=fused_n_max, dc_n_min=dc_n_min,
                          faults=faults, retry=retry,
-                         residual_check=residual_check, tracer=tracer)
+                         residual_check=residual_check, tracer=tracer,
+                         mesh=mesh)
         self.finished = collections.deque(maxlen=int(finished_history))
         self.batch_window_s = float(batch_window_s)
         self.default_timeout_s = default_timeout_s

@@ -258,7 +258,15 @@ class SVDEngine:
     as a slower service.  (The reference retries and degrades on every
     error.)
     ``faults`` (a :class:`~repro_torch.serve.faults.FaultPlan`) injects
-    failures into the primary path only.  ``tracer`` (or an ambient one)
+    failures into the primary path only.
+
+    ``mesh`` (a ``launch.mesh.DeviceMesh``, e.g. from
+    ``launch.mesh.serve_mesh()``, of devices of the engine's device type)
+    sends every batched dispatch through
+    ``core.distributed.sharded_pipeline_dispatch``: the padded bucket is
+    split over the mesh's devices, one slice each, and gathered back;
+    ``sharded_batches`` counts such dispatches and ``sharded_retries`` the
+    shards run again after a loss.  ``tracer`` (or an ambient one)
     gets ``serve/dispatch``, ``serve/retry`` and ``serve/degraded`` spans,
     with the pipeline's own spans nested under each dispatch.
     """
@@ -269,7 +277,7 @@ class SVDEngine:
                  fused_n_max: int | None = None,
                  dc_n_min: int | None = None,
                  faults=None, retry: RetryPolicy | None = None,
-                 residual_check: bool = False, tracer=None):
+                 residual_check: bool = False, tracer=None, mesh=None):
         given = config is not None
         if config is None:
             config = tuning.PipelineConfig.resolve(
@@ -291,6 +299,11 @@ class SVDEngine:
         self.fused_n_max = fused_n_max           # fused-tier crossover
         self.dc_n_min = dc_n_min                 # stage-3 dc crossover
         self.faults = faults                     # fault injection hook
+        if mesh is not None and any(torch.device(d).type != self.device.type
+                                    for d in mesh):
+            raise ValueError(f"mesh {mesh!r} is not on the engine's device "
+                             f"type ({self.device.type})")
+        self.mesh = mesh                         # batch dispatch over devices
         self.retry = retry if retry is not None else RetryPolicy()
         self.residual_check = bool(residual_check)
         self.quarantine = BucketQuarantine(
@@ -517,7 +530,18 @@ class SVDEngine:
         batch = _padded_stack(mats, cfg.max_batch, n, tuning.dtype_of(dtype),
                               torch.device(cfg.device))
         u = vt = None
-        if compute_uv:
+        if self.mesh is not None:
+            from repro_torch.core import distributed
+            out = distributed.sharded_pipeline_dispatch(
+                batch, self.mesh, config=cfg, banded=banded,
+                compute_uv=compute_uv, faults=faults,
+                on_shard_retry=lambda k_: self.metrics.add(sharded_retries=k_))
+            if compute_uv:
+                u, sig, vt = out
+            else:
+                sig = out
+            self.metrics.add(sharded_batches=1)
+        elif compute_uv:
             fn = svdmod.banded_svd if banded else svdmod.svd
             u, sig, vt = fn(batch, config=cfg, compute_uv=True)
         elif banded:

@@ -64,7 +64,10 @@ def test_import_leaves_jax_out():
             "repro_torch.obs", "repro_torch.obs.trace",
             "repro_torch.obs.hist", "repro_torch.obs.export",
             "repro_torch.obs.prom", "repro_torch.serve.metrics",
-            "repro_torch.serve.faults", "repro_torch.serve.async_engine"]
+            "repro_torch.serve.faults", "repro_torch.serve.async_engine",
+            "repro_torch.serve.wire", "repro_torch.serve.worker",
+            "repro_torch.serve.router", "repro_torch.core.distributed",
+            "repro_torch.launch.mesh"]
     code = ("import importlib, sys\n"
             f"for m in {mods!r}: importlib.import_module(m)\n"
             "bad = [m for m in sys.modules if m.split('.')[0] in "

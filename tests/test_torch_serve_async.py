@@ -2,8 +2,10 @@
 ``tests/test_serve_async.py``, on the CPU: admission edges and FIFO/error
 regressions of the sync ``SVDEngine``, and the async ``AsyncSVDEngine``
 (futures, deadlines, thread safety, queue bounds, the asyncio bridge, the
-micro-batch window).  Every wait is bounded.  The reference's mesh cases
-wait for the port of multi-GPU sharding."""
+micro-batch window), and the mesh plumbing: ``shard_pad``,
+``serve_mesh``, and both engines dispatching over a mesh of CPU shards
+(the reference's mesh cases run on 8 fake XLA devices; a CPU mesh repeats
+one device, built by hand).  Every wait is bounded."""
 
 import asyncio
 import sys
@@ -286,3 +288,53 @@ def test_async_many_threads_stress_no_lost_update():
     assert snap["submitted"] == snap["completed"] == nthreads * per
     assert snap["served_slots"] == nthreads * per
     assert snap["queue_depth"] == 0 and eng.pending() == 0
+
+
+# ---------------------------------------------------------------------------
+# mesh plumbing
+# ---------------------------------------------------------------------------
+
+def test_shard_pad():
+    from repro_torch.core.distributed import shard_pad
+    assert shard_pad(8, 4) == 0
+    assert shard_pad(9, 4) == 3
+    assert shard_pad(1, 8) == 7
+    assert shard_pad(5, 1) == 0
+
+
+def test_serve_mesh_unset_or_single_device_is_none(monkeypatch):
+    from repro_torch.launch.mesh import serve_mesh
+    monkeypatch.delenv("REPRO_SERVE_MESH", raising=False)
+    assert serve_mesh() is None
+    monkeypatch.setenv("REPRO_SERVE_MESH", "1")
+    assert serve_mesh() is None
+    monkeypatch.setenv("REPRO_SERVE_MESH", "")
+    assert serve_mesh() is None
+
+
+def test_async_sharded_dispatch_on_a_cpu_mesh():
+    """Full buckets split over 4 CPU shards: results match the oracle and,
+    bit for bit, an engine without a mesh; padding to shard divisibility
+    is sliced off; the metrics record the mesh path."""
+    from repro_torch.launch.mesh import DeviceMesh
+    mesh = DeviceMesh(["cpu"] * 4)
+    mats = [dense(i) for i in range(6)]
+    # 6 requests -> pad 2 for 4 shards
+    with AsyncSVDEngine(cfg4(max_batch=6), mesh=mesh,
+                        batch_window_s=0.005) as eng:
+        futs = [eng.submit(SVDRequest(uid=i, matrix=m, bw=4))
+                for i, m in enumerate(mats)]
+        done = [f.result(timeout=300) for f in futs]
+    for r in done:
+        check_sigma(r)
+    snap = eng.metrics.snapshot()
+    assert snap["sharded_batches"] >= 1
+    assert snap["sharded_batches"] == snap["batches"]
+    plain = SVDEngine(cfg4(max_batch=6))
+    for i, m in enumerate(mats):
+        plain.submit(SVDRequest(uid=i, matrix=m, bw=4))
+    ref = {r.uid: r.sigma for r in plain.run()}
+    for r in done:
+        assert np.array_equal(r.sigma, ref[r.uid])
+    with pytest.raises(ValueError, match="device type"):
+        SVDEngine(cfg4(), mesh=DeviceMesh(["cuda:0", "cuda:1"]))

@@ -111,14 +111,23 @@ def test_launch_serve_svd_runs_on_the_cpu(capsys):
 
 
 def test_launch_serve_svd_hosts_names_the_later_slice(capsys):
-    with pytest.raises(SystemExit) as exc:
-        tserve.main(["--svd", "--hosts", "2", "--device", "cpu"])
-    assert exc.value.code != 0
-    err = capsys.readouterr().err
-    assert "later slice" in err and "10b" in err
+    """``--svd --hosts 2 --device cpu`` serves every request across two
+    worker processes (the slice this test once named); without a card and
+    without ``--device cpu`` both SVD modes raise, naming the CPU."""
+    stats = tserve.main(["--svd", "--hosts", "2", "--device", "cpu",
+                         "--requests", "12", "--rate", "100", "--svd-n", "24",
+                         "--svd-bw", "4"])
+    out = capsys.readouterr().out
+    assert stats["served"] == 12 and "served 12/12" in out
+    assert "across 2 hosts" in out and sorted(stats["hosts"]) == ["w0", "w1"]
+    assert sum(stats["completed_per_host"].values()) == 12
+    assert "completed per host:" in out and "merged latency:" in out
+    assert stats["fleet"]["latency"]["merged_summary"]["count"] == 12
     if not torch.cuda.is_available():
         with pytest.raises(RuntimeError, match="device='cpu'"):
             tserve.main(["--svd", "--requests", "1"])
+        with pytest.raises(RuntimeError, match="device='cpu'"):
+            tserve.main(["--svd", "--hosts", "2", "--requests", "1"])
 
 
 def test_launch_serve_padded_vocab_is_never_sampled():
