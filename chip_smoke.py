@@ -6,7 +6,9 @@
                            --chase-bounds | --wy-planted-faults |
                            --wy-bounds | --fused-planted-faults |
                            --fused-threads | --fused-bounds |
-                           --svd-parts TREE | --svd-serve | --svd-fabric]
+                           --svd-parts TREE | --svd-serve | --svd-fabric |
+                           --lm-families | --lm-family-depths |
+                           --lm-family-planted-faults]
 
 Builds the port's CUDA kernels from ``src/repro_torch/kernels/csrc`` (one
 ``nvcc`` per source, all at once), holds each kernel against its plain
@@ -48,7 +50,15 @@ tensor-core flash kernel (``flash_attn_wgmma.cu``, the KV heads grouped)
 held to the same through the plain version, beside
 a witness of bf16 rounding (the plain path's bf16 logits against its fp32
 logits), and 8 requests answered by the token ``Engine`` through
-``repro_torch.launch.serve``.  Every phase prints one JSON line; the line before the last two is the ``kernels``
+``repro_torch.launch.serve``.  The ``lm_families`` phase does the same for
+the other five configs at their published widths (deepseek-moe-16b and
+granite-moe-3b-a800m, hymba-1.5b, rwkv6-1.6b, whisper-medium with its 1500
+frames): two layers in fp32, kernel against plain, each flash launch
+against attention in fp64 and decode against prefill; every layer in bf16
+(deepseek-moe-16b's 28 among them), a timed prefill against the plain one,
+each flash launch against its plain version and 8 Engine requests; for the
+MoE configs the share of routes that flip between the two paths.  Every phase prints
+one JSON line; the line before the last two is the ``kernels``
 summary, then the card's name and power limit as ``nvidia-smi`` gives them,
 then ``{"ok": true, "device": ...}``.
 
@@ -364,6 +374,19 @@ def main() -> int:
                     "phase (sharded dispatch and the column-sharded chase "
                     "on a mesh of two shards of the card, the router and "
                     "two worker processes on it), then exit")
+    ap.add_argument("--lm-families", action="store_true",
+                    help="only build the kernels and run the lm_families "
+                    "phase (the MoE, hymba, RWKV6 and whisper configs at "
+                    "their published widths), then exit")
+    ap.add_argument("--lm-family-depths", action="store_true",
+                    help="only read how far the bf16 kernel-backed prefill "
+                    "of each other family drifts from the plain-backed one "
+                    "with depth, beside the plain path's bf16 rounding, "
+                    "then exit")
+    ap.add_argument("--lm-family-planted-faults", action="store_true",
+                    help="only read how far planted attention faults move "
+                    "each flash launch and the logits that the lm_families "
+                    "phase holds, beside the sound kernels, then exit")
     ap.add_argument("--fused-bounds", action="store_true",
                     help="only time the fused kernel's values mode at the "
                     "main shapes in the repository's build and in copies "
@@ -401,6 +424,12 @@ def main() -> int:
             return fused_bounds(args, torch)
         if args.svd_parts:
             return svd_parts(args, torch, tree)
+        if args.lm_families:
+            return lm_families_only(args, torch)
+        if args.lm_family_depths:
+            return lm_family_depths(args, torch)
+        if args.lm_family_planted_faults:
+            return lm_family_planted_faults(args, torch)
         if args.svd_serve:
             from repro_torch.kernels import _build
             _build.build_all()
@@ -885,23 +914,58 @@ def flash_check_cases(wgmma_d) -> dict:
     """Cases (BH, S, D, g, dtype) that hold each flash kernel to the plain
     version, k and v of BH / g rows.  The wgmma kernel: the FLASH_SHAPES of
     D in ``wgmma_d`` and (8, S, D) at FLASH_SHORT_S, in bf16 and fp16, at
-    g = 1 and 4 (where 4 divides BH), and the serving run's shape.
+    g = 1 and 4 (where 4 divides BH), the serving run's shape and the
+    ``lm_families`` shapes (``family_flash_shapes``) in bf16 and fp16.
     flash_attn.cu: every FLASH_SHAPE in fp32, those of the D it alone takes
-    in bf16 and fp16, one more grouped case and the fp32 check's shape."""
+    in bf16 and fp16, one more grouped case, the fp32 check's shape and the
+    ``lm_families`` shapes in fp32."""
     wg_shapes = [sh for sh in FLASH_SHAPES if sh[2] in wgmma_d] + [
         (8, sl, d) for sl in FLASH_SHORT_S for d in wgmma_d]
+    family = family_flash_shapes()
     return {
         "flash_attention_wgmma_cuda": [
             (bh, sl, d, g, dn) for bh, sl, d in wg_shapes
             for g in (1, FLASH_GROUP) if bh % g == 0
             for dn in ("bfloat16", "float16")] + [
-            FLASH_MAIN + (FLASH_GROUP, "bfloat16")],
+            FLASH_MAIN + (FLASH_GROUP, "bfloat16")] + [
+            sh + (dn,) for sh in family if sh[2] in wgmma_d
+            for dn in ("bfloat16", "float16")],
         "flash_attention_cuda": [
             sh + (1, "float32") for sh in FLASH_SHAPES] + [
             sh + (1, dn) for sh in FLASH_SHAPES if sh[2] not in wgmma_d
             for dn in ("bfloat16", "float16")] + [
             (8, 300, 32, FLASH_GROUP, "float32"),
-            FLASH_MAIN + (FLASH_GROUP, "float32")]}
+            FLASH_MAIN + (FLASH_GROUP, "float32")] + [
+            sh + ("float32",) for sh in family]}
+
+
+def family_flash_shapes() -> list:
+    """(BH, S, D, g) of the flash launches of the ``lm_families`` phase's
+    prefills: b = FAM_B times each family's query heads, its s, head width
+    and GQA group (rwkv6-1.6b has no attention)."""
+    from repro_torch.configs import get_config
+    out = []
+    for arch in FAM_ARCHS:
+        c = get_config(arch)
+        if c.kind != "rwkv":
+            out.append((FAM_B * c.n_heads,
+                        FAM_S_WHISPER if c.kind == "encdec" else FAM_S,
+                        c.head_dim, c.n_heads // c.n_kv))
+    return out
+
+
+def attention_fp64(torch, q, k, v):
+    """Causal attention of q (BH, S, D) against k, v (BH / g, S, D), as the
+    flash kernels take them, computed in fp64: the yardstick of the fp32
+    readings on a model's own inputs."""
+    g = q.shape[0] // k.shape[0]
+    q = q.double()
+    k, v = (x.double().repeat_interleave(g, 0) for x in (k, v))
+    sc = torch.einsum("bsd,btd->bst", q, k).mul_(q.shape[-1] ** -0.5)
+    s_len = q.shape[1]
+    sc.masked_fill_(torch.ones((s_len, s_len), dtype=torch.bool,
+                               device=q.device).triu(1), float("-inf"))
+    return torch.einsum("bst,btd->bsd", torch.softmax(sc, dim=-1), v)
 
 
 def flash_inputs(torch, rng, bh, s, d, g, dname):
@@ -1200,18 +1264,502 @@ def prefill_split(torch, model, batch) -> dict:
                  "device_ms": ev.device_time_total / 1e3} for ev in top]}
 
 
+# ---------------------------------------------------------------------------
+# the other families: MoE, hybrid (hymba), RWKV6, encoder-decoder (whisper)
+# ---------------------------------------------------------------------------
+
+# each family at its published widths: (a) fp32 at FAM_CHECK_LAYERS layers
+# (whisper: as many encoder layers), kernel against plain and decode against
+# prefill; (b) bf16 at each config's full depth, a timed prefill against the
+# plain one and the Engine.  b = 2; s = 2048 decoder tokens, whisper's s =
+# 448 decoder tokens against its 1500 frames.
+FAM_ARCHS = ["deepseek-moe-16b", "granite-moe-3b-a800m", "hymba-1.5b",
+             "rwkv6-1.6b", "whisper-medium"]
+FAM_B, FAM_S, FAM_S_WHISPER = 2, 2048, 448
+# Under the reference's init each softmax is nearly one-hot, and a rounding
+# difference in a layer's attention grows layer by layer until the logits
+# of two sound runs differ by O(1) (``--lm-family-depths``, PERF.md §6): at
+# full depth in bf16 granite-moe's, hymba's and whisper's sound kernel-
+# against-plain readings (0.64-1.15) lie beside the plain path's own bf16
+# against fp32 (0.87-1.33) and past PREFILL_TOLS, and whisper's fp32 plain
+# decode against its own plain prefill reads 0.09 at two layers (on the
+# CPU).  So the logits are held at the depths below, where a sound run
+# reads well inside the limits (fp32: FAM_CHECK_LAYERS; bf16: the first
+# FAM_BF16_HELD_LAYERS of the full-depth model), and every flash launch is
+# held on its own inputs, which does not compound with depth: in bf16 to
+# the plain version within CHECK_TOLS["bfloat16"]; in fp32 to attention in
+# fp64 within FAM_FLASH_FP32_TOL.  CHECK_TOLS["float32"] was placed on N(0,
+# 1) inputs, whose scores are of order 1; the models' reach hundreds, and
+# the rounding of a score grows with its size: on the four families' own
+# inputs the sound kernel reads 6.9e-4-1.6e-3 against fp64 and the plain
+# version in fp32 3.5e-4-1.0e-3, while copies of flash_attn.cu at 1xTF32,
+# with TF32 inputs or with stale V tiles read 0.47-2.05 on the same inputs
+# (``--lm-family-planted-faults``, H100 80GB HBM3, 700 W); the limit sits
+# between.  The same run reads every planted fault's logits past
+# PREFILL_TOLS at the held depths for deepseek-moe-16b, granite-moe and
+# whisper, but not for hymba-1.5b: under the reference's init (std
+# 1/sqrt(L) for every stacked weight) its mamba branch outgrows attention
+# by orders of magnitude at two layers, so its logits barely see attention
+# and its per-launch holds are the only gate on its attention.
+FAM_FLASH_FP32_TOL = 1e-2
+FAM_CHECK_LAYERS = {"deepseek-moe-16b": 2, "granite-moe-3b-a800m": 2,
+                    "hymba-1.5b": 2, "rwkv6-1.6b": 2, "whisper-medium": 1}
+FAM_BF16_HELD_LAYERS = {"deepseek-moe-16b": 28, "granite-moe-3b-a800m": 2,
+                        "hymba-1.5b": 2, "rwkv6-1.6b": 24,
+                        "whisper-medium": 2}
+# MoE decode never drops a token and prefill does past an expert's
+# capacity; at s <= 4 the capacity is s, so decode is held to prefill there
+FAM_MOE_DECODE_S = 4
+
+
 @contextlib.contextmanager
-def planted_fault(torch, ops, fault: str, cfg):
+def moe_routes(torch, log: list, replay: list | None = None):
+    """Record each MoE layer's routes while in the block, one entry a
+    layer appended to ``log``: ``route``, for every (example, token) its
+    top-k experts in ascending order and whether capacity kept each, as a
+    (b, s, 2k) int tensor, and ``dispatch``, the (tok, w, valid) the layer
+    used.  With ``replay`` (an earlier run's log), each layer uses the
+    dispatch recorded there instead of routing anew."""
+    from repro_torch.models import moe
+    orig = moe._route_one
+    layer = iter(replay or ())
+
+    def recording(gate_idx, gate_vals, *, e, cap):
+        if replay is not None:
+            tok, w, valid = next(layer)["dispatch"]
+        else:
+            tok, w, valid = orig(gate_idx, gate_vals, e=e, cap=cap)
+        b, s, _ = gate_idx.shape
+        kept = torch.zeros((b, s, e), dtype=torch.bool,
+                           device=gate_idx.device)
+        bi = torch.arange(b, device=tok.device)[:, None, None].expand_as(tok)
+        ei = torch.arange(e, device=tok.device)[None, :, None].expand_as(tok)
+        kept[bi[valid], tok[valid], ei[valid]] = True
+        experts = gate_idx.sort(-1).values
+        log.append({"route": torch.cat(
+            [experts, kept.gather(-1, experts).long()], -1),
+            "dispatch": (tok, w, valid)})
+        return tok, w, valid
+
+    moe._route_one = recording
+    try:
+        yield log
+    finally:
+        moe._route_one = orig
+
+
+def route_flip_share(torch, a: list, b: list) -> float:
+    """The share of (layer, example, token) routes that differ."""
+    same = torch.stack([(x["route"] == y["route"]).all(-1)
+                        for x, y in zip(a, b)])
+    return 1.0 - float(same.float().mean())
+
+
+@contextlib.contextmanager
+def flash_calls_vs_plain(torch, reads: list, faults: dict | None = None):
+    """While in the block, every ``ops.flash_attention`` call also runs the
+    plain version on the same q, k, v and appends a reading to ``reads``:
+    ``shape`` (BH, S, D, g), ``vs_plain``, the result's ``row_error``
+    against the plain version; at fp32 also ``vs_fp64`` and
+    ``plain_vs_fp64``, the result's and the plain version's against
+    ``attention_fp64``, and ``score_scale``, max |q_i| max |k_j| / sqrt(D)
+    (what the rounding of a score scales with).  ``faults`` (name ->
+    attention fn) run on the same q, k, v, each read against the same
+    yardstick (fp64 at fp32, else the plain version)."""
+    from repro_torch.kernels import ops, ref
+    from repro_torch.kernels.flash_attention import row_error
+    orig = ops.flash_attention
+
+    def checked(q, k, v, **kw):
+        out = orig(q, k, v, **kw)
+        want = plain = ref.flash_attention_ref(q, k, v)
+        bh, s_len, d = q.shape
+        r = {"shape": (bh, s_len, d, bh // k.shape[0]),
+             "vs_plain": row_error(out, plain)}
+        if q.dtype == torch.float32:
+            want = attention_fp64(torch, q, k, v)
+            r.update(vs_fp64=row_error(out, want),
+                     plain_vs_fp64=row_error(plain, want),
+                     score_scale=float(q.norm(dim=-1).max()
+                                       * k.norm(dim=-1).max()) / d ** 0.5)
+        for name, fn in (faults or {}).items():
+            r[name] = row_error(fn(q, k, v), want)
+        reads.append(r)
+        return out
+
+    ops.flash_attention = checked
+    try:
+        yield reads
+    finally:
+        ops.flash_attention = orig
+
+
+def flash_read_summary(reads: list) -> dict:
+    """The largest of each reading over the launches of
+    ``flash_calls_vs_plain``, and the launches' distinct shapes."""
+    keys = [k for k in (reads[0] if reads else {}) if k != "shape"]
+    return {"launches": len(reads),
+            "shapes": sorted({r["shape"] for r in reads}),
+            **{f"{k}_max": max(r[k] for r in reads) for k in keys}}
+
+
+def family_batch(torch, rng, cfg, b: int, s: int, device="cuda") -> dict:
+    batch = {"tokens": torch.from_numpy(rng.integers(0, cfg.vocab, (b, s)))
+             .to(device)}
+    if cfg.kind == "encdec":
+        batch["frames"] = torch.from_numpy(rng.standard_normal(
+            (b, cfg.enc_seq, cfg.d_model)).astype("float32")).to(device)
+    return batch
+
+
+def family_decode_err(torch, model, batch, ref, steps: int) -> float:
+    """One-token decode from empty caches (whisper: the cross KV filled
+    from the batch's frames) at positions 0..steps-1, against ``ref``
+    logits of the same tokens: max |difference| over max(1, max|ref|)."""
+    toks = batch["tokens"]
+    caches = model.init_caches(toks.shape[0], steps)
+    if model.cfg.kind == "encdec":
+        model.fill_cross_cache(batch["frames"], caches)
+    errs = []
+    for t in range(steps):
+        logits, caches = model.decode_step(toks[:, t:t + 1], caches, t)
+        errs.append((logits[:, 0] - ref[:, t]).abs().amax())
+    scale = max(1.0, float(ref[:, :steps].abs().max()))
+    return float(torch.stack(errs).max()) / scale
+
+
+def driven_prefill(torch, m, batch, label, kernel, n_attn, drive) -> tuple:
+    """One prefill of ``m`` on the main path (``drive``: the counts set to 0
+    just before, read just after), with ``n_attn`` launches of the flash
+    kernel ``kernel`` and none of the other, its MoE routes recorded.
+    Returns (logits, the drive record, the routes)."""
+    other = ("flash_attention" if kernel == "flash_attention_wgmma"
+             else "flash_attention_wgmma")
+    routes = []
+    with moe_routes(torch, routes):
+        got, run = drive(label, lambda: m.prefill(batch),
+                         [kernel] if n_attn else [])
+    check(run["launches"][kernel] == n_attn and run["launches"][other] == 0,
+          f"{label}: expected {n_attn} launches of {kernel} and none of "
+          f"{other}, got {run['launches']}")
+    return got, run, routes
+
+
+def logits_vs_plain(torch, m, batch, got, kroutes) -> tuple:
+    """Kernel-backed logits ``got`` (routes ``kroutes``) against the
+    plain-backed prefill of ``m``: max |difference| over max(1, max|plain|).
+    For the MoE configs, the share of (layer, token) routes (experts and
+    capacity drops) that flip between the two, reported, and the reading:
+    the error against a plain prefill that replays the kernel run's routes
+    (all tokens).  The tokens whose routes agree are no shelter: one
+    flipped route reaches the other tokens through the next layers' near
+    one-hot attention (granite-moe-3b-a800m, fp32, two layers: one flip of
+    65,536 moved the agreeing tokens' logits by 0.084, the replayed run
+    reads 0.0015; H100 80GB HBM3, 700 W).  Returns ({readings}, reading)."""
+    proutes, rroutes = [], []
+    with moe_routes(torch, proutes):
+        plain = m.prefill(batch, backend="ref")
+    if m.cfg.kind != "moe":
+        err = logit_err(torch, got, plain)
+        return {"kernel_vs_plain_err_over_scale": err}, err
+    flips = route_flip_share(torch, kroutes, proutes)
+    del plain, proutes
+    with moe_routes(torch, rroutes, replay=kroutes):
+        replayed = m.prefill(batch, backend="ref")
+    k = m.cfg.top_k
+    out = {"route_flip_share": flips,
+           "kernel_vs_plain_routes_replayed": logit_err(torch, got,
+                                                        replayed),
+           "dropped_token_choices": int(sum(
+               int((r["route"][..., k:] == 0).sum()) for r in kroutes)),
+           "token_choices": got.shape[0] * got.shape[1] * k * len(kroutes)}
+    return out, out["kernel_vs_plain_routes_replayed"]
+
+
+def flash_row_errors(torch, m, batch, faults: dict | None = None) -> list:
+    """Each flash launch of one (not driven) prefill of ``m`` read on its
+    own q, k, v (``flash_calls_vs_plain``), layer by layer."""
+    reads = []
+    with flash_calls_vs_plain(torch, reads, faults):
+        m.prefill(batch)
+    return reads
+
+
+def at_depth(m, cfg, layers: int):
+    """``m`` running the first ``layers`` layers of ``cfg`` (and as many
+    encoder layers, at most its own)."""
+    import dataclasses
+    m.cfg = dataclasses.replace(cfg, n_layers=layers, n_enc_layers=min(
+        cfg.n_enc_layers, layers))
+    return m
+
+
+def lm_families(args, torch, rng, drive, gen) -> None:
+    """``lm_families``: each of the five other configs at its published
+    widths, one JSON line each and a summary line.  (a) fp32 at
+    FAM_CHECK_LAYERS: the kernel-backed prefill against the plain-backed
+    one within ``PREFILL_TOLS["float32"]``, one launch of ``flash_attn.cu``
+    a layer with causal self-attention and none of the wgmma kernel, each
+    within FAM_FLASH_FP32_TOL of attention in fp64 on its own inputs (the
+    plain version's own reading beside it), and one-token decode against
+    the prefill at every position (MoE: at s = 4, where nothing drops).
+    (b) bf16 at full depth: a timed prefill, one wgmma launch a layer with
+    attention, each within ``CHECK_TOLS["bfloat16"]`` of the plain version
+    on its own inputs; the logits against the plain-backed prefill within
+    ``PREFILL_TOLS["bfloat16"]`` at FAM_BF16_HELD_LAYERS (the full-depth
+    reading beside it); the plain path's bf16 logits against its fp32
+    logits as a witness (not deepseek-moe-16b, whose fp32 copy would not
+    fit); 8 requests through the Engine (``launch.serve.serve``).  The MoE
+    configs' logits are held with the routes replayed, the share of
+    flipped routes printed beside (``logits_vs_plain``).  Every launch's
+    (BH, S, D, g) must be one that ``flash_check_cases`` holds on N(0, 1)
+    inputs.  Each model is freed before the next."""
+    import dataclasses
+
+    from repro_torch.configs import get_config
+    from repro_torch.kernels.flash_attention import CHECK_TOLS, PREFILL_TOLS
+    from repro_torch.launch import serve as lserve
+    from repro_torch.models import build
+    from repro_torch.models.moe import _capacity
+    from repro_torch.serve import ServeConfig
+
+    t_phase = time.perf_counter()
+    summary = {}
+    checked_shapes = set(family_flash_shapes())
+    for arch in FAM_ARCHS:
+        full = get_config(arch)
+        is_moe, has_attn = full.kind == "moe", full.kind != "rwkv"
+        s = FAM_S_WHISPER if full.kind == "encdec" else FAM_S
+        t_arch = time.perf_counter()
+
+        # ---- (a) fp32 at FAM_CHECK_LAYERS ---------------------------------
+        torch.cuda.reset_peak_memory_stats()
+        la = FAM_CHECK_LAYERS[arch]
+        cfg_a = dataclasses.replace(full, n_layers=la, dtype="float32",
+                                    n_enc_layers=min(full.n_enc_layers, la))
+        m = build(cfg_a).init_params(gen)
+        batch = family_batch(torch, rng, cfg_a, FAM_B, s)
+        small = {k: (v[:, :64] if k == "tokens" else v)
+                 for k, v in batch.items()}
+        m.prefill(small)                       # warm-up: cuBLAS, the kernel
+        got, run_a, kroutes = driven_prefill(
+            torch, m, batch, f"{arch} fp32 {la} layers prefill b={FAM_B} "
+            f"s={s} (flash_attn.cu)", "flash_attention",
+            la if has_attn else 0, drive)
+        t0 = time.perf_counter()
+        line_a, err_a = logits_vs_plain(torch, m, batch, got, kroutes)
+        plain_s = time.perf_counter() - t0
+        rows_a = flash_read_summary(flash_row_errors(torch, m, batch))
+        t0 = time.perf_counter()
+        if is_moe:
+            head = {kk: (v[:, :FAM_MOE_DECODE_S] if kk == "tokens" else v)
+                    for kk, v in batch.items()}
+            dec_steps = FAM_MOE_DECODE_S
+            dec_err = family_decode_err(torch, m, head, m.prefill(head),
+                                        dec_steps)
+        else:
+            dec_steps = s
+            dec_err = family_decode_err(torch, m, batch, got, s)
+        torch.cuda.synchronize()
+        decode_s = time.perf_counter() - t0
+        tol_a = PREFILL_TOLS["float32"]
+        ok_a = (bool(torch.isfinite(got).all()) and err_a <= tol_a
+                and dec_err <= tol_a
+                and rows_a.get("vs_fp64_max", 0.0) <= FAM_FLASH_FP32_TOL
+                and set(rows_a["shapes"]) <= checked_shapes
+                and tuple(got.shape) == (FAM_B, s, full.padded_vocab))
+        line_a.update(layers=la, enc_layers=cfg_a.n_enc_layers,
+                      dtype="float32", tf32=False, b=FAM_B, s=s,
+                      params=sum(p.numel() for p in m.parameters()),
+                      tol=tol_a,
+                      flash=rows_a, flash_tol_vs_fp64=FAM_FLASH_FP32_TOL,
+                      decode_vs_prefill_err_over_scale=dec_err,
+                      decode_steps=dec_steps,
+                      decode_ms_per_step=decode_s / dec_steps * 1e3,
+                      prefill_kernel_s=run_a["wall_s"],
+                      plain_and_compare_s=plain_s,
+                      peak_gib=torch.cuda.max_memory_allocated() / 2**30,
+                      launches=run_a["launches"])
+        if is_moe:
+            line_a["capacity"] = _capacity(s, full)
+        del m, got, kroutes
+        torch.cuda.empty_cache()
+
+        # ---- (b) bf16 at full depth --------------------------------------
+        torch.cuda.reset_peak_memory_stats()
+        lb, held = full.n_layers, FAM_BF16_HELD_LAYERS[arch]
+        cfg_b = full
+        t0 = time.perf_counter()
+        m = build(cfg_b).init_params(gen)
+        torch.cuda.synchronize()
+        init_s = time.perf_counter() - t0
+        m.prefill(small)                                    # warm-up
+        got, run_b, kroutes = driven_prefill(
+            torch, m, batch, f"{arch} bf16 prefill b={FAM_B} s={s} "
+            f"(flash_attn_wgmma.cu)", "flash_attention_wgmma",
+            lb if has_attn else 0, drive)
+        prefill_s = run_b["device_ms"] / 1e3
+        finite_b = bool(torch.isfinite(got).all())
+        t0 = time.perf_counter()
+        full_depth, err_full = logits_vs_plain(torch, m, batch, got, kroutes)
+        plain_s = time.perf_counter() - t0
+        del got, kroutes
+        rows_b = flash_read_summary(flash_row_errors(torch, m, batch))
+        if held < lb:
+            at_depth(m, cfg_b, held)
+            kroutes = []
+            with moe_routes(torch, kroutes):
+                got = m.prefill(batch)
+            held_line, err_b = logits_vs_plain(torch, m, batch, got, kroutes)
+            del got, kroutes
+            m.cfg = cfg_b
+        else:
+            held_line, err_b = full_depth, err_full
+        reqs = lserve.make_requests(full, LM_REQUESTS, LM_NEW_TOKENS,
+                                    args.seed)
+        stats, run_e = drive(
+            f"{arch} bf16 Engine: {LM_REQUESTS} requests x {LM_NEW_TOKENS} "
+            f"new tokens", lambda: lserve.serve(
+                m, reqs, ServeConfig(max_batch=LM_MAX_BATCH,
+                                     max_seq=LM_MAX_SEQ)), [])
+        served = stats["done"]
+        peak_bf16 = torch.cuda.max_memory_allocated() / 2**30
+        witness = None
+        if arch != "deepseek-moe-16b":                 # 67 GB in fp32
+            plain16 = m.prefill(batch, backend="ref")
+            m.to_dtype(torch.float32)                  # the same weights
+            witness = {"plain_bf16_vs_fp32": logit_err(
+                torch, plain16, m.prefill(batch, backend="ref"))}
+            del plain16
+        tol_b = PREFILL_TOLS["bfloat16"]
+        ok_b = (finite_b and err_b <= tol_b
+                and rows_b.get("vs_plain_max", 0.0) <= CHECK_TOLS["bfloat16"]
+                and set(rows_b["shapes"]) <= checked_shapes
+                and len(served) == LM_REQUESTS
+                and all(len(r.output) == LM_NEW_TOKENS
+                        and all(0 <= t < full.vocab for t in r.output)
+                        for r in served))
+        line_b = {"layers": lb, "enc_layers": cfg_b.n_enc_layers,
+                  "dtype": cfg_b.dtype, "b": FAM_B, "s": s,
+                  "params": sum(p.numel() for p in m.parameters()),
+                  "init_s": init_s, "prefill_s": prefill_s,
+                  "prefill_wall_s": run_b["wall_s"],
+                  "tokens_per_s": FAM_B * s / prefill_s,
+                  "plain_and_compare_s": plain_s,
+                  "launches": run_b["launches"],
+                  "flash": rows_b, "flash_tol": CHECK_TOLS["bfloat16"],
+                  "held_layers": held, "held": held_line, "tol": tol_b,
+                  "full_depth_unheld": full_depth if held < lb else None,
+                  "witness": witness,
+                  "engine": {"requests": stats["requests"],
+                             "tokens": stats["tokens"],
+                             "rounds": stats["rounds"],
+                             "seconds": stats["seconds"],
+                             "ms_per_round": stats["seconds"]
+                             / max(stats["rounds"], 1) * 1e3,
+                             "tokens_per_s": stats["tokens_per_s"],
+                             "max_batch": LM_MAX_BATCH,
+                             "max_seq": LM_MAX_SEQ,
+                             "launches": run_e["launches"],
+                             "first_outputs": [r.output
+                                               for r in served[:2]]},
+                  "peak_gib": peak_bf16,
+                  "peak_gib_with_fp32_copy": (
+                      torch.cuda.max_memory_allocated() / 2**30)}
+        del m, stats, served
+        torch.cuda.empty_cache()
+        ok = ok_a and ok_b
+        emit({"phase": f"lm_family_{arch}", "ok": ok, "arch": arch,
+              "kind": full.kind, "d_model": full.d_model,
+              "heads": [full.n_heads, full.n_kv, full.head_dim],
+              "d_ff": full.d_ff, "vocab": full.vocab,
+              "total_params": full.total_params(),
+              "fp32_check": line_a, "bf16": line_b,
+              "seconds": time.perf_counter() - t_arch})
+        summary[arch] = {"ok": ok, "bf16_layers": lb,
+                         "prefill_s": prefill_s, "peak_gib": peak_bf16}
+        check(ok, f"lm_families {arch}: fp32 {err_a:.3g} / decode "
+              f"{dec_err:.3g} (tol {tol_a}), bf16 {err_b:.3g} (tol {tol_b})"
+              f", flash rows {rows_a} / {rows_b}, or an Engine request "
+              f"unanswered")
+    emit({"phase": "lm_families", "ok": True, "archs": summary,
+          "seconds": time.perf_counter() - t_phase})
+
+
+def lm_family_depths(args, torch) -> int:
+    """``--lm-family-depths``: how the bf16 kernel-backed prefill drifts
+    from the plain-backed one with depth, beside the plain path's own bf16
+    rounding (its logits against the same weights' fp32 logits), for each
+    family at b = 2 and its s: the first k layers of the full-depth model,
+    k in 2, 4, 8, 16 and the full depth.  The MoE configs replay the kernel
+    run's routes in the plain runs; deepseek-moe-16b has no fp32 witness
+    (its fp32 copy would not fit).  One JSON line a config; no ``ok`` line.
+    """
+    import dataclasses
+
+    import numpy as np
+
+    from repro_torch.configs import get_config
+    from repro_torch.kernels import _build
+    from repro_torch.models import build
+    torch.backends.cuda.matmul.allow_tf32 = False
+    _build.build_all()
+    gen = torch.Generator(device="cuda")
+    gen.manual_seed(args.seed)
+    rng = np.random.default_rng(args.seed)
+    for arch in FAM_ARCHS:
+        full = get_config(arch)
+        s = FAM_S_WHISPER if full.kind == "encdec" else FAM_S
+        m = build(full).init_params(gen)
+        batch = family_batch(torch, rng, full, FAM_B, s)
+        depths = sorted({d for d in (2, 4, 8, 16) if d < full.n_layers}
+                        | {full.n_layers})
+        rows, keep = {}, {}
+        for k in depths:
+            at_depth(m, full, k)
+            log, rlog = [], []
+            with moe_routes(torch, log):
+                got = m.prefill(batch)
+            with moe_routes(torch, rlog,
+                            replay=log if full.kind == "moe" else None):
+                plain = m.prefill(batch, backend="ref")
+            rows[k] = {"kernel_vs_plain": logit_err(torch, got, plain)}
+            keep[k] = (got.cpu(), plain.cpu())
+            del got, plain, log, rlog
+        if arch != "deepseek-moe-16b":
+            m.to_dtype(torch.float32)
+            for k in depths:
+                at_depth(m, dataclasses.replace(full, dtype="float32"), k)
+                want = m.prefill(batch, backend="ref").cpu()
+                got, plain = keep[k]
+                rows[k].update(kernel_bf16_vs_fp32=logit_err(torch, got,
+                                                             want),
+                               plain_bf16_vs_fp32=logit_err(torch, plain,
+                                                            want))
+        emit({"phase": "lm_family_depths", "arch": arch, "b": FAM_B,
+              "s": s, "routes_replayed": full.kind == "moe",
+              "by_depth": rows})
+        del m, keep
+        torch.cuda.empty_cache()
+    return 0
+
+
+@contextlib.contextmanager
+def planted_fault(torch, ops, fault: str, cfg, libs: dict | None = None):
     """Swap a faulty attention op in for ``ops.flash_attention``:
     ``"mask_off_by_one"``, plain causal attention in which row i also sees
     key i + 1; ``"gqa_group_order"``, the kernel with the KV heads expanded
     to the query heads in tiled order (query head h reads KV head h % n_kv,
-    not h // g) and handed over with g = 1."""
+    not h // g) and handed over with g = 1; a fault of FLASH_FAULTS, its
+    copy of the kernel in ``libs``.  The op ignores ``backend``: a plain
+    run to compare with is made outside the block."""
     orig = ops.flash_attention
     nh, nkv = cfg.n_heads, cfg.n_kv
     tiled = [h % nkv for h in range(nh)]
 
     def faulty(q, k, v, **kw):
+        if fault in FLASH_FAULTS:
+            return planted_flash(torch, libs, fault, q, k, v)
         if fault == "mask_off_by_one":
             s_len, d = q.shape[1], q.shape[2]
             g = q.shape[0] // k.shape[0]
@@ -1232,6 +1780,97 @@ def planted_fault(torch, ops, fault: str, cfg):
         yield
     finally:
         ops.flash_attention = orig
+
+
+# Faults read at the lm_families phase's held depths and on its models' own
+# inputs (--lm-family-planted-faults): the copies of FLASH_FAULTS of each
+# dtype, beside planted_fault's attention faults
+FAM_FAULTS = {"float32": ["fp32_stale_v_last_two_tiles",
+                          "fp32_lo_terms_dropped", "fp32_at_tf32_precision"],
+              "bfloat16": ["stale_stage_last_two_tiles",
+                           "stale_v_last_diagonal"]}
+
+
+def lm_family_planted_faults(args, torch) -> int:
+    """How far planted attention faults move what the ``lm_families`` phase
+    holds, beside the sound kernels, for each family with attention at the
+    phase's b and s and its held depths (fp32: FAM_CHECK_LAYERS; bf16:
+    FAM_BF16_HELD_LAYERS).  (1) Each flash launch of the sound prefill on
+    its own q, k, v (``flash_calls_vs_plain``): the sound kernel and each
+    copy of FAM_FAULTS of the dtype on those same inputs; at fp32 against
+    attention in fp64, beside the plain version's own reading, at bf16
+    against the plain version.  (2) The logits of a prefill with each fault
+    (those copies, the causal mask off by one, the GQA group order tiled
+    where g > 1) against the plain-backed prefill, the MoE configs' routes
+    replayed (``logits_vs_plain``).  One JSON line a family and dtype;
+    these readings place FAM_FLASH_FP32_TOL and say which faults the logit
+    limits (PREFILL_TOLS) catch at these depths."""
+    import dataclasses
+    import functools
+    import tempfile
+
+    import numpy as np
+
+    from repro_torch.configs import get_config
+    from repro_torch.kernels import _build, ops
+    from repro_torch.kernels.flash_attention import CHECK_TOLS, PREFILL_TOLS
+    from repro_torch.models import build
+
+    torch.backends.cuda.matmul.allow_tf32 = False
+    torch.backends.cudnn.allow_tf32 = False
+    _build.build_all()
+    tmp = tempfile.TemporaryDirectory()
+    libs = build_copies(tmp.name, {
+        f: (FLASH_FAULTS[f][0], FLASH_FAULTS[f][2])
+        for names in FAM_FAULTS.values() for f in names})
+    gen = torch.Generator(device="cuda")
+    gen.manual_seed(args.seed)
+    rng = np.random.default_rng(args.seed)
+    for arch in FAM_ARCHS:
+        full = get_config(arch)
+        if full.kind == "rwkv":
+            continue
+        s = FAM_S_WHISPER if full.kind == "encdec" else FAM_S
+        for dname, layers in (("float32", FAM_CHECK_LAYERS[arch]),
+                              ("bfloat16", FAM_BF16_HELD_LAYERS[arch])):
+            t0 = time.perf_counter()
+            cfg = dataclasses.replace(full, n_layers=layers, dtype=dname,
+                                      n_enc_layers=min(full.n_enc_layers,
+                                                       layers))
+            m = build(cfg).init_params(gen)
+            batch = family_batch(torch, rng, cfg, FAM_B, s)
+            copies = {f: functools.partial(planted_flash, torch, libs, f)
+                      for f in FAM_FAULTS[dname]}
+            flash = flash_read_summary(flash_row_errors(torch, m, batch,
+                                                        copies))
+            faults = ["sound"] + FAM_FAULTS[dname] + ["mask_off_by_one"] + (
+                ["gqa_group_order"] if full.n_kv < full.n_heads else [])
+            logits = {}
+            for fault in faults:
+                kroutes = []
+                with contextlib.ExitStack() as stack:
+                    if fault != "sound":
+                        stack.enter_context(planted_fault(torch, ops, fault,
+                                                          full, libs))
+                    stack.enter_context(moe_routes(torch, kroutes))
+                    got = m.prefill(batch)
+                line, logits[fault] = logits_vs_plain(torch, m, batch, got,
+                                                      kroutes)
+                if "route_flip_share" in line:
+                    logits[f"{fault}_route_flip_share"] = line[
+                        "route_flip_share"]
+                del got, kroutes
+            emit({"phase": "lm_family_planted_faults", "arch": arch,
+                  "dtype": dname, "layers": layers, "b": FAM_B, "s": s,
+                  "flash": flash, "flash_tol": (
+                      FAM_FLASH_FP32_TOL if dname == "float32"
+                      else CHECK_TOLS[dname]),
+                  "logits": logits, "logit_tol": PREFILL_TOLS[dname],
+                  "seconds": time.perf_counter() - t0})
+            del m, batch
+            torch.cuda.empty_cache()
+    tmp.cleanup()
+    return 0
 
 
 def lm_planted_faults(args, torch) -> int:
@@ -1303,7 +1942,6 @@ def flash_planted_faults(args, torch) -> int:
     whole-output measure max|err| / max(1, max|o|).  The late-tile faults
     are read where S spans more than two 128-row tiles.  One JSON line per
     kernel and dtype; these readings place CHECK_TOLS."""
-    import ctypes
     import tempfile
 
     import numpy as np
@@ -1314,18 +1952,6 @@ def flash_planted_faults(args, torch) -> int:
     tmp = tempfile.TemporaryDirectory()
     libs = build_copies(tmp.name, {f: (src, edits) for f, (src, _, edits)
                                    in FLASH_FAULTS.items()})
-
-    def planted(fault, q, k, v):
-        bh, s_len, d = q.shape
-        suffix = {torch.float32: "f32", torch.bfloat16: "bf16",
-                  torch.float16: "f16"}[q.dtype]
-        fn = getattr(libs[fault], f"{FLASH_FAULTS[fault][0]}_{suffix}")
-        out = torch.empty_like(q)
-        err = fn(*(ctypes.c_void_p(x.data_ptr()) for x in (q, k, v, out)),
-                 bh, k.shape[0], s_len, d, ctypes.c_float(1.0 / d ** 0.5),
-                 ctypes.c_void_p(torch.cuda.current_stream().cuda_stream))
-        check(err == 0, f"{fault}: error {err}")
-        return out
 
     def whole(got, want):
         err, scale = max_err(torch, got, want)
@@ -1352,7 +1978,7 @@ def flash_planted_faults(args, torch) -> int:
                         if src == sources[name] and dn == dname
                         and ("stale" not in f or case[1] > 2 * 128)]
                 for fault in here:
-                    got = planted(fault, q, k, v)
+                    got = planted_flash(torch, libs, fault, q, k, v)
                     faults.setdefault(fault, []).append(
                         (flash_attention.row_error(got, want),
                          whole(got, want), case))
@@ -1370,6 +1996,23 @@ def flash_planted_faults(args, torch) -> int:
                              for f, r in faults.items()}})
     tmp.cleanup()
     return 0
+
+
+def planted_flash(torch, libs: dict, fault: str, q, k, v):
+    """Causal attention of q, k, v by the copy of FLASH_FAULTS' ``fault``
+    in ``libs`` (``build_copies``), called as the wrappers call the
+    repository's build (not counted as a launch)."""
+    import ctypes
+    bh, s_len, d = q.shape
+    suffix = {torch.float32: "f32", torch.bfloat16: "bf16",
+              torch.float16: "f16"}[q.dtype]
+    fn = getattr(libs[fault], f"{FLASH_FAULTS[fault][0]}_{suffix}")
+    out = torch.empty_like(q)
+    err = fn(*(ctypes.c_void_p(x.data_ptr()) for x in (q, k, v, out)),
+             bh, k.shape[0], s_len, d, ctypes.c_float(1.0 / d ** 0.5),
+             ctypes.c_void_p(torch.cuda.current_stream().cuda_stream))
+    check(err == 0, f"{fault}: error {err}")
+    return out
 
 
 def build_copies(tmp: str, faults: dict) -> dict:
@@ -3146,6 +3789,48 @@ def svd_fabric_phase(torch, main_counts=None, device="cuda",
     check(out["ok"], f"svd_fabric: {failures}")
 
 
+def make_drive(torch, ops, main_counts: dict):
+    """``drive(label, fn, expect)``: run ``fn`` with every launch count set
+    to 0 just before and read just after, fail unless each kernel in
+    ``expect`` launched, add the counts to ``main_counts``; returns (fn's
+    result, {label, device_ms (CUDA events), wall_s, launches})."""
+    def drive(label, fn, expect):
+        ops.reset_launch_counts()
+        torch.cuda.synchronize()
+        t_host = time.perf_counter()
+        start = torch.cuda.Event(enable_timing=True)
+        end = torch.cuda.Event(enable_timing=True)
+        start.record()
+        out = fn()
+        end.record()
+        torch.cuda.synchronize()
+        wall = time.perf_counter() - t_host
+        counts = ops.launch_counts()
+        for k in expect:
+            check(counts[k] > 0, f"{label}: kernel {k} was not launched")
+        for k, v in counts.items():
+            main_counts[k] += v
+        return out, {"label": label, "device_ms": start.elapsed_time(end),
+                     "wall_s": wall, "launches": counts}
+    return drive
+
+
+def lm_families_only(args, torch) -> int:
+    """``--lm-families``: build the kernels, run the ``lm_families`` phase
+    alone (no ``ok`` line)."""
+    import numpy as np
+
+    from repro_torch.kernels import _build, ops
+    torch.backends.cuda.matmul.allow_tf32 = False
+    torch.backends.cudnn.allow_tf32 = False
+    _build.build_all()
+    gen = torch.Generator(device="cuda")
+    gen.manual_seed(args.seed)
+    drive = make_drive(torch, ops, {k: 0 for k in ops.launch_counts()})
+    lm_families(args, torch, np.random.default_rng(args.seed), drive, gen)
+    return 0
+
+
 def run(args, torch) -> int:
     import numpy as np
 
@@ -3947,25 +4632,7 @@ def run(args, torch) -> int:
 
     # ---- main path: counts set to 0 before each run, read after ---------
     main_counts = {k: 0 for k in ops.launch_counts()}
-
-    def drive(label, fn, expect):
-        ops.reset_launch_counts()
-        torch.cuda.synchronize()
-        t_host = time.perf_counter()
-        start = torch.cuda.Event(enable_timing=True)
-        end = torch.cuda.Event(enable_timing=True)
-        start.record()
-        out = fn()
-        end.record()
-        torch.cuda.synchronize()
-        wall = time.perf_counter() - t_host
-        counts = ops.launch_counts()
-        for k in expect:
-            check(counts[k] > 0, f"{label}: kernel {k} was not launched")
-        for k, v in counts.items():
-            main_counts[k] += v
-        return out, {"label": label, "device_ms": start.elapsed_time(end),
-                     "wall_s": wall, "launches": counts}
+    drive = make_drive(torch, ops, main_counts)
 
     gen = torch.Generator(device="cuda")
     gen.manual_seed(args.seed)
@@ -4239,6 +4906,9 @@ def run(args, torch) -> int:
 
     # ---- 10 and 11. the LM serving path: phi3-medium-14b ---------------
     lm_phases(args, torch, rng, drive, gen)
+
+    # ---- the other families: MoE, hymba, RWKV6, whisper ----------------
+    lm_families(args, torch, rng, drive, gen)
 
     # ---- where stage 2's time goes: torch.profiler over one stage ------
     from torch.profiler import ProfilerActivity, profile

@@ -1,4 +1,4 @@
-"""Model configurations of the port: the reference's dense decoders."""
+"""Model configurations of the port: the reference's ten architectures."""
 from repro_torch.configs.base import (ModelConfig, get_config, list_configs,
                                       smoke_of)
 

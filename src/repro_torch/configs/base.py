@@ -3,9 +3,10 @@
 
 One file per ported architecture lives next to this module; each registers a
 ``ModelConfig`` under its public id (``--arch <id>`` in the launcher) and a
-``smoke`` variant (same family, tiny widths) that the CPU tests use.  This
-slice ports the five ``kind="dense"`` configs; asking for any other
-registered architecture raises ``NotImplementedError``.
+``smoke`` variant (same family, tiny widths) that the CPU tests use.  All
+ten of the reference's architectures are registered: five dense decoders,
+two MoE decoders, the hybrid (hymba), RWKV6 and the encoder-decoder
+(whisper).
 """
 
 from __future__ import annotations
@@ -15,23 +16,9 @@ from typing import Literal
 
 import torch
 
-__all__ = ["ModelConfig", "register", "get_config", "list_configs", "smoke_of",
-           "LATER"]
+__all__ = ["ModelConfig", "register", "get_config", "list_configs", "smoke_of"]
 
 BlockKind = Literal["dense", "moe", "hymba", "rwkv", "encdec"]
-
-# the reference's other architectures, by block kind: a later slice
-LATER = {
-    "moe": "MoE blocks (granite-moe-3b-a800m, deepseek-moe-16b) come in a "
-           "later slice of the port",
-    "hymba": "hymba blocks (hymba-1.5b) come in a later slice of the port",
-    "rwkv": "rwkv blocks (rwkv6-1.6b) come in a later slice of the port",
-    "encdec": "the encoder-decoder (whisper-medium) comes in a later slice "
-              "of the port",
-}
-_LATER_ARCHS = {"granite-moe-3b-a800m": "moe", "deepseek-moe-16b": "moe",
-                "hymba-1.5b": "hymba", "rwkv6-1.6b": "rwkv",
-                "whisper-medium": "encdec"}
 
 
 @dataclasses.dataclass(frozen=True)
@@ -123,23 +110,17 @@ def register(cfg: ModelConfig, smoke: ModelConfig):
     return cfg
 
 
-def _lookup(table: dict, name: str) -> ModelConfig:
-    _ensure_loaded()
-    if name in _LATER_ARCHS:
-        raise NotImplementedError(f"{name}: {LATER[_LATER_ARCHS[name]]}")
-    return table[name]
-
-
 def get_config(name: str) -> ModelConfig:
-    return _lookup(_REGISTRY, name)
+    _ensure_loaded()
+    return _REGISTRY[name]
 
 
 def smoke_of(name: str) -> ModelConfig:
-    return _lookup(_SMOKE, name)
+    _ensure_loaded()
+    return _SMOKE[name]
 
 
 def list_configs() -> list[str]:
-    """The ported architectures."""
     _ensure_loaded()
     return sorted(_REGISTRY)
 
@@ -148,4 +129,6 @@ def _ensure_loaded():
     if _REGISTRY:
         return
     from repro_torch.configs import (  # noqa: F401
-        codeqwen15_7b, granite_3_2b, llama3_8b, phi3_medium_14b, pixtral_12b)
+        codeqwen15_7b, deepseek_moe_16b, granite_3_2b, granite_moe_3b_a800m,
+        hymba_1_5b, llama3_8b, phi3_medium_14b, pixtral_12b, rwkv6_1_6b,
+        whisper_medium)

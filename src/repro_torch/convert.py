@@ -55,8 +55,11 @@ def band_from_numpy(arr, device="cuda") -> torch.Tensor:
 
 
 def model_params_from_reference(params_np: dict, cfg, device="cuda"):
-    """This package's ``Model`` of ``cfg`` (a ``repro_torch`` ModelConfig)
-    holding the reference's parameters.
+    """This package's ``Model`` of ``cfg`` (a ``repro_torch`` ModelConfig,
+    any of the ten architectures: a decoder's ``layers``, or whisper's
+    ``enc_layers`` and ``dec_layers``) holding the reference's parameters,
+    each in the dtype of its parameter here (the leaves kept in fp32 stay
+    fp32).
 
     ``params_np`` is the reference's parameter tree flattened to
     ``{path: numpy array}``, the path its keys joined by "." (e.g.

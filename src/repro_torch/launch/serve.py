@@ -4,12 +4,14 @@ to 8 tokens, answered by the batched token ``Engine``) and ``--svd``, an
 open-loop stream of SVD requests answered by ``AsyncSVDEngine``.
 
   python -m repro_torch.launch.serve --arch phi3-medium-14b --device cpu
+  python -m repro_torch.launch.serve --arch whisper-medium --device cpu
   python -m repro_torch.launch.serve --arch phi3-medium-14b --full
   python -m repro_torch.launch.serve --svd --device cpu --requests 16 \\
       --rate 200 --svd-n 32 --svd-bw 4
   python -m repro_torch.launch.serve --svd --hosts 2 --device cpu \\
       --requests 12 --rate 100 --svd-n 24 --svd-bw 4
 
+``--arch`` takes any of the ten architectures (``configs.list_configs``).
 Without ``--full`` the model is the architecture's smoke variant (tiny
 widths).  ``--device`` defaults to the card; without one the run raises,
 naming ``--device cpu``.  ``--svd --hosts N`` serves the same stream
@@ -25,7 +27,7 @@ import time
 import numpy as np
 import torch
 
-from repro_torch.configs.base import get_config, smoke_of
+from repro_torch.configs.base import get_config, list_configs, smoke_of
 from repro_torch.models import build
 from repro_torch.serve import Engine, Request, ServeConfig
 
@@ -35,13 +37,20 @@ __all__ = ["main", "main_svd", "main_svd_multihost", "make_requests",
 
 def make_requests(cfg, n: int, new_tokens: int, seed: int = 0
                   ) -> list[Request]:
-    """``n`` requests with prompts of 2 to 8 random tokens in [1, vocab)."""
+    """``n`` requests with prompts of 2 to 8 random tokens in [1, vocab)
+    and, for an encoder-decoder, standard normal frames (enc_seq, d) in
+    fp32, drawn in the reference launcher's order: each uid's prompt, then
+    its frames."""
     rng = np.random.default_rng(seed)
-    return [Request(uid=uid,
-                    prompt=list(map(int, rng.integers(
-                        1, cfg.vocab, int(rng.integers(2, 9))))),
-                    max_new_tokens=new_tokens)
-            for uid in range(n)]
+    reqs = []
+    for uid in range(n):
+        prompt = list(map(int, rng.integers(1, cfg.vocab,
+                                            int(rng.integers(2, 9)))))
+        frames = (rng.standard_normal((cfg.enc_seq, cfg.d_model)).astype("f")
+                  if cfg.kind == "encdec" else None)
+        reqs.append(Request(uid=uid, prompt=prompt, max_new_tokens=new_tokens,
+                            frames=frames))
+    return reqs
 
 
 def serve(model, requests: list[Request], cfg: ServeConfig) -> dict:
@@ -65,7 +74,7 @@ def serve(model, requests: list[Request], cfg: ServeConfig) -> dict:
 
 def main(argv=None):
     ap = argparse.ArgumentParser(description=__doc__.split("\n")[0])
-    ap.add_argument("--arch", default="llama3-8b")
+    ap.add_argument("--arch", default="llama3-8b", choices=list_configs())
     ap.add_argument("--full", action="store_true",
                     help="full config (default: smoke, CPU-runnable)")
     ap.add_argument("--requests", type=int, default=8)

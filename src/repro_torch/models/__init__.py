@@ -1,6 +1,8 @@
-"""The LM substrate of the port: dense decoders (``zoo.Model``) with the
-full-sequence path through the flash-attention kernel and one-token decode
-against a KV cache."""
+"""The LM substrate of the port: the reference's ten architectures
+(``zoo.Model``: dense, MoE, hybrid and RWKV6 decoders, and the whisper
+encoder-decoder) with the full-sequence path, causal self-attention
+through the flash-attention kernel, and one-token decode against the
+caches."""
 from repro_torch.models.zoo import Model, build
 
 __all__ = ["Model", "build"]

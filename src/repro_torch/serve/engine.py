@@ -8,7 +8,12 @@ round issues ONE batched decode step: prefilling slots feed their next
 prompt token, generating slots feed their last sampled token, finished
 slots are refilled from the queue.  Greedy sampling; the padded-vocab tail
 is masked at sample time.  Idle slots sit at position 0 and write their row
-0 every round, as in the reference.
+0 every round, as in the reference.  An encoder-decoder engine writes each
+admitted request's frames (zeros when it has none) through the encoder
+into its slot's cross-KV rows.  A departure on purpose: admission zeroes
+the slot's recurrent state (rwkv, hymba), which the reference leaves as the
+last occupant, or the idle rounds, left it; so an answer does not depend on
+what ran in the slot before.
 
 The model carries its weights and its device (``models.zoo.Model``); the
 caches live on the same device.
@@ -48,6 +53,7 @@ class Request:
     uid: int
     prompt: list[int]
     max_new_tokens: int = 16
+    frames: np.ndarray | None = None          # enc-dec (whisper) stub input
     output: list[int] = dataclasses.field(default_factory=list)
     done: bool = False
 
@@ -84,9 +90,14 @@ class Engine:
         self.queue.append(req)
 
     def _admit(self):
+        admitted = []
         for i in range(self.cfg.max_batch):
             if self.slots[i] is None and self.queue:
                 self.slots[i] = _Slot(self.queue.pop(0))
+                admitted.append(i)
+        if admitted:
+            self.model.admit(self.caches, admitted,
+                             [self.slots[i].req.frames for i in admitted])
 
     def step(self) -> int:
         """One batched decode round.  Returns number of active slots."""

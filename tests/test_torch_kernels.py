@@ -1193,6 +1193,100 @@ def test_phi3_width_bf16_prefill_on_the_card_launches_wgmma(cuda):
     assert err <= tflash.PREFILL_TOLS["bfloat16"], err
 
 
+# (arch, query heads, KV heads, head dim, s) of the causal self-attention
+# the other families' prefill gives the flash kernels: GQA groups 3 and 5,
+# and whisper's decoder at s = 448 (not a multiple of 128)
+FAMILY_FLASH = [("deepseek-moe-16b", 16, 16, 128, 2048),
+                ("granite-moe-3b-a800m", 24, 8, 64, 2048),
+                ("hymba-1.5b", 25, 5, 64, 2048),
+                ("whisper-medium", 16, 16, 64, 448)]
+
+
+@pytest.mark.cuda
+@pytest.mark.parametrize("dtype", ["float32", "bfloat16"])
+@pytest.mark.parametrize("arch,nh,nkv,d,s", FAMILY_FLASH,
+                         ids=[f[0] for f in FAMILY_FLASH])
+def test_flash_kernels_at_the_families_shapes(cuda, arch, nh, nkv, d, s,
+                                              dtype):
+    """At b = 2, the kernel ``kernel_for`` names (the wgmma kernel at bf16,
+    ``flash_attn.cu`` at fp32) against the plain version, each query row
+    within ``CHECK_TOLS``; query row b*nh + h reads KV row b*nkv + h // g."""
+    torch.backends.cuda.matmul.allow_tf32 = False
+    q, k, v = _grouped_inputs(2 * nkv, nh // nkv, s, d, nh * s + d,
+                              torch_dtype(dtype), cuda)
+    route = tflash.kernel_for(q.dtype, d)
+    assert route == ("wgmma" if dtype == "bfloat16" else "simt")
+    fn = (tflash.flash_attention_wgmma_cuda if route == "wgmma"
+          else tflash.flash_attention_cuda)
+    got = fn(q, k, v)
+    torch.cuda.synchronize()
+    assert got.dtype == q.dtype and got.shape == q.shape
+    _close_rows(got, tref.flash_attention_ref(q, k, v), dtype)
+
+
+@pytest.mark.cuda
+@pytest.mark.parametrize("arch", ["deepseek-moe-16b", "granite-moe-3b-a800m",
+                                  "hymba-1.5b", "rwkv6-1.6b",
+                                  "whisper-medium"])
+def test_family_layer_on_the_card_matches_the_cpu(cuda, arch, monkeypatch):
+    """One layer of each family at its published widths (whisper: one
+    encoder and one decoder layer over its 1500 frames), fp32 without TF32:
+    the kernel-backed prefill on the card against the plain one on the CPU
+    within ``PREFILL_TOLS["float32"]`` (the init's nearly one-hot softmax
+    amplifies rounding, as in the phi3 test above), and one launch of
+    ``flash_attn.cu`` for each layer with causal self-attention (none for
+    rwkv).  An MoE router's top-k can flip between the card's and the
+    CPU's rounding, and one flip moves that token's logits a long way: the
+    CPU run takes the card run's dispatch (experts, weights, capacity
+    drops), and at most 5 % of the tokens may route otherwise on their
+    own (granite-moe's top 8 of 40 read 1.3 % on an H100 80GB HBM3; a
+    broken router moves most)."""
+    from repro_torch.configs import get_config
+    from repro_torch.models import build
+    from repro_torch.models import moe
+    route_one = moe._route_one
+    card_routes, host_routes = [], []
+
+    def recording(gate_idx, gate_vals, *, e, cap):
+        out = route_one(gate_idx, gate_vals, e=e, cap=cap)
+        (card_routes if gate_idx.is_cuda else host_routes).append(
+            (gate_idx.sort(-1).values.cpu(), out))
+        if gate_idx.is_cuda:
+            return out
+        return tuple(t.cpu() for t in card_routes[len(host_routes) - 1][1])
+
+    monkeypatch.setattr(moe, "_route_one", recording)
+    torch.backends.cuda.matmul.allow_tf32 = False
+    cfg = get_config(arch)
+    cfg = dataclasses.replace(cfg, n_layers=1, dtype="float32",
+                              n_enc_layers=min(cfg.n_enc_layers, 1))
+    card = build(cfg, device=cuda).init_params(
+        torch.Generator(device=cuda).manual_seed(0))
+    host = build(cfg, device="cpu")
+    host.load_state_dict(card.state_dict())
+    rng = np.random.default_rng(4)
+    batch = {"tokens": rng.integers(0, cfg.vocab, (1, 300))}
+    if cfg.kind == "encdec":
+        batch["frames"] = rng.standard_normal(
+            (1, cfg.enc_seq, cfg.d_model)).astype(np.float32)
+    before = ops.launch_counts()
+    got = card.prefill(batch)
+    torch.cuda.synchronize()
+    after = ops.launch_counts()
+    attn_layers = 0 if cfg.kind == "rwkv" else 1
+    assert (after["flash_attention"], after["flash_attention_wgmma"]) == (
+        before["flash_attention"] + attn_layers,
+        before["flash_attention_wgmma"])
+    want = host.prefill(batch)
+    assert len(card_routes) == len(host_routes) == (cfg.kind == "moe")
+    for (experts, _), (mine, _) in zip(card_routes, host_routes):
+        assert float((experts != mine).any(-1).float().mean()) <= 0.05
+    assert bool(torch.isfinite(got).all())
+    scale = max(1.0, float(want.abs().max()))
+    err = float((got.cpu() - want).abs().max()) / scale
+    assert err <= tflash.PREFILL_TOLS["float32"], err
+
+
 @pytest.mark.cuda
 def test_svd_engine_on_the_card_matches_the_cpu(cuda):
     """One fused and one staged (full SVD) bucket through ``AsyncSVDEngine``

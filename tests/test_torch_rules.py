@@ -67,7 +67,14 @@ def test_import_leaves_jax_out():
             "repro_torch.serve.faults", "repro_torch.serve.async_engine",
             "repro_torch.serve.wire", "repro_torch.serve.worker",
             "repro_torch.serve.router", "repro_torch.core.distributed",
-            "repro_torch.launch.mesh"]
+            "repro_torch.launch.mesh", "repro_torch.models.moe",
+            "repro_torch.models.ssm", "repro_torch.models.rwkv",
+            "repro_torch.models.encdec",
+            "repro_torch.configs.deepseek_moe_16b",
+            "repro_torch.configs.granite_moe_3b_a800m",
+            "repro_torch.configs.hymba_1_5b",
+            "repro_torch.configs.rwkv6_1_6b",
+            "repro_torch.configs.whisper_medium"]
     code = ("import importlib, sys\n"
             f"for m in {mods!r}: importlib.import_module(m)\n"
             "bad = [m for m in sys.modules if m.split('.')[0] in "
@@ -111,6 +118,25 @@ def test_model_and_engine_default_to_the_card():
     with pytest.raises(RuntimeError, match="device='cpu'"):
         serve.main(["--arch", "phi3-medium-14b", "--requests", "1"])
     assert build(cfg, device="cpu").device.type == "cpu"
+
+
+@pytest.mark.parametrize("arch", ["deepseek-moe-16b", "granite-moe-3b-a800m",
+                                  "hymba-1.5b", "rwkv6-1.6b",
+                                  "whisper-medium"])
+def test_every_family_defaults_to_the_card(arch):
+    """``build`` of each family's full config, and the launcher, default to
+    the card: without one they raise, naming ``device="cpu"``."""
+    from repro_torch.configs import get_config, smoke_of
+    from repro_torch.launch import serve
+    from repro_torch.models import build
+    if torch.cuda.is_available():
+        assert build(smoke_of(arch)).device.type == "cuda"
+        return
+    with pytest.raises(RuntimeError, match="device='cpu'"):
+        build(get_config(arch))
+    with pytest.raises(RuntimeError, match="device='cpu'"):
+        serve.main(["--arch", arch, "--requests", "1"])
+    assert build(smoke_of(arch), device="cpu").device.type == "cpu"
 
 
 def test_cuda_backend_on_cpu_tensor_raises():

@@ -11,7 +11,7 @@ import jax
 import numpy as np
 import pytest
 import torch
-from torch_port_common import LM_ARCHS as ARCHS
+from torch_port_common import DENSE_ARCHS as ARCHS
 from torch_port_common import lm_models as models
 from torch_port_common import to_np
 

@@ -100,20 +100,26 @@ def flat_params(tree, prefix: str = "") -> dict:
     return out
 
 
-# the reference's dense decoders, whose smoke configs the LM tests compare
-LM_ARCHS = ["llama3-8b", "granite-3-2b", "codeqwen1.5-7b", "phi3-medium-14b",
-            "pixtral-12b"]
+# the reference's architectures, whose smoke configs the LM tests compare:
+# the dense decoders, and the other families (moe, hymba, rwkv, encdec)
+DENSE_ARCHS = ["llama3-8b", "granite-3-2b", "codeqwen1.5-7b",
+               "phi3-medium-14b", "pixtral-12b"]
+FAMILY_ARCHS = ["deepseek-moe-16b", "granite-moe-3b-a800m", "hymba-1.5b",
+                "rwkv6-1.6b", "whisper-medium"]
+LM_ARCHS = DENSE_ARCHS + FAMILY_ARCHS
 
 
 def _perturbed(tree, rng):
-    """The tree with every norm gain and bias (constant at init) moved by
-    N(0, 0.1)."""
+    """The tree with every leaf that is constant at init moved by N(0, 0.1):
+    the norm gains and biases, rwkv's ``mu``, ``w_b``, ``u``, ``w0`` (the
+    token-shift lerps and the LoRA decay), mamba's ``a_log``, ``d_skip``,
+    ``dt_bias``, ``conv_b``."""
     import jax.numpy as jnp
     out = {}
     for key, val in tree.items():
         if isinstance(val, dict):
             out[key] = _perturbed(val, rng)
-        elif key.startswith(("ln", "final_norm", "b")):
+        elif np.all(np.asarray(val) == np.asarray(val).flat[0]):
             out[key] = val + jnp.asarray(
                 0.1 * rng.standard_normal(val.shape), val.dtype)
         else:
@@ -124,8 +130,9 @@ def _perturbed(tree, rng):
 @functools.lru_cache(maxsize=None)
 def lm_models(arch: str):
     """(reference model, its params, the port's model holding them) of the
-    smoke config of ``arch``, on the CPU.  The norm gains and QKV biases are
-    moved off their constant inits, so that those paths count."""
+    smoke config of ``arch``, on the CPU.  Every leaf constant at init (norm
+    gains, biases, rwkv's and mamba's constant leaves) is moved off its
+    constant, so that those paths count."""
     import jax
 
     from repro.configs.base import smoke_of as jsmoke_of
