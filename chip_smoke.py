@@ -8,7 +8,8 @@
                            --fused-threads | --fused-bounds |
                            --svd-parts TREE | --svd-serve | --svd-fabric |
                            --lm-families | --lm-family-depths |
-                           --lm-family-planted-faults]
+                           --lm-family-planted-faults | --train |
+                           --flash-bwd-planted-faults]
 
 Builds the port's CUDA kernels from ``src/repro_torch/kernels/csrc`` (one
 ``nvcc`` per source, all at once), holds each kernel against its plain
@@ -57,7 +58,15 @@ frames): two layers in fp32, kernel against plain, each flash launch
 against attention in fp64 and decode against prefill; every layer in bf16
 (deepseek-moe-16b's 28 among them), a timed prefill against the plain one,
 each flash launch against its plain version and 8 Engine requests; for the
-MoE configs the share of routes that flip between the two paths.  Every phase prints
+MoE configs the share of routes that flip between the two paths.  The
+``train`` phase holds the flash backward kernel (``flash_attn_bwd.cu``)
+against its plain version at granite-3-2b's training shape and the
+others above, one fp32 step of granite-3-2b (two layers, full width)
+through the kernels against the same step through the plain versions,
+then trains granite-3-2b at full width and depth in bf16 for three AdamW
+steps through ``repro_torch.launch.train`` (batch 8 x 4096, two
+microbatches, the spectral monitor every step, a checkpoint), and runs the
+restart drill on the card.  Every phase prints
 one JSON line; the line before the last two is the ``kernels``
 summary, then the card's name and power limit as ``nvidia-smi`` gives them,
 then ``{"ok": true, "device": ...}``.
@@ -387,6 +396,16 @@ def main() -> int:
                     help="only read how far planted attention faults move "
                     "each flash launch and the logits that the lm_families "
                     "phase holds, beside the sound kernels, then exit")
+    ap.add_argument("--train", action="store_true",
+                    help="only build the kernels and run the train phase "
+                    "(the flash backward kernel against its plain version, "
+                    "an fp32 step kernels against plain, granite-3-2b "
+                    "through launch.train, the restart drill), then exit")
+    ap.add_argument("--flash-bwd-planted-faults", action="store_true",
+                    help="only read how far faults planted in copies of "
+                    "flash_attn_bwd.cu move dq, dk, dv and the fp32 step's "
+                    "gradients (the readings behind BWD_CHECK_TOLS and "
+                    "TRAIN_STEP_TOL), then exit")
     ap.add_argument("--fused-bounds", action="store_true",
                     help="only time the fused kernel's values mode at the "
                     "main shapes in the repository's build and in copies "
@@ -430,6 +449,10 @@ def main() -> int:
             return lm_family_depths(args, torch)
         if args.lm_family_planted_faults:
             return lm_family_planted_faults(args, torch)
+        if args.train:
+            return train_only(args, torch)
+        if args.flash_bwd_planted_faults:
+            return flash_bwd_planted_faults(args, torch)
         if args.svd_serve:
             from repro_torch.kernels import _build
             _build.build_all()
@@ -476,12 +499,14 @@ def kernel_name(key: str) -> str:
 
 def profiler_ms(torch, fn, name: str, iters: int):
     """(device ms per call, kernels per call, ms of each kernel) of the
-    kernels whose name contains ``name``, over ``iters`` calls of ``fn``,
+    kernels whose name contains ``name`` (or one of a tuple of names),
+    over ``iters`` calls of ``fn``,
     from torch.profiler: a call launches each of its kernels (each of its
     own name) once, so its time is the sum over those names of the
     kernel's mean time (which a trace that drops an event does not skew).
     None when the profiler sees no device time."""
     from torch.profiler import ProfilerActivity, profile
+    names = (name,) if isinstance(name, str) else name
     torch.cuda.synchronize()
     with profile(activities=[ProfilerActivity.CUDA]) as prof:
         for _ in range(iters):
@@ -490,7 +515,8 @@ def profiler_ms(torch, fn, name: str, iters: int):
     means = {kernel_name(ev.key):
              ev.device_time_total / ev.count / 1e3
              for ev in prof.key_averages()
-             if name in ev.key and ev.count and ev.device_time_total > 0}
+             if any(n in ev.key for n in names) and ev.count
+             and ev.device_time_total > 0}
     return ((sum(means.values()), len(means), means) if means else None)
 
 
@@ -3789,6 +3815,472 @@ def svd_fabric_phase(torch, main_counts=None, device="cuda",
     check(out["ok"], f"svd_fabric: {failures}")
 
 
+# ---------------------------------------------------------------------------
+# training (the ``train`` phase, ``--train``): the flash backward kernel
+# against its plain version, one fp32 step through the kernels against the
+# same step through the plain versions, granite-3-2b through launch.train,
+# and the restart drill
+# ---------------------------------------------------------------------------
+
+TRAIN_ARCH = "granite-3-2b"
+TRAIN_SEQ = 4096                  # train_4k's length (configs/shapes.py)
+TRAIN_BATCH, TRAIN_ACCUM, TRAIN_STEPS = 8, 2, 3
+TRAIN_CHECK = (2, 1, 2048)        # layers, b, s of the fp32 step check
+# granite's training shape a launch: the microbatch of 4 x 32 query heads
+# of 64 against 4 x 8 KV heads (g = 4), S = 4096
+BWD_MAIN = (128, TRAIN_SEQ, 64, 4)
+# How the fp32 two-layer step through the kernels is held against the same
+# step through the plain versions: the largest over leaves of max |g -
+# g_plain| / max |g_plain|, and the loss's relative difference.  Under the
+# reference's init (std 1/sqrt(L) a stacked weight) attention is near
+# one-hot and the sound reading is 0.055 (wq); the faults of
+# FLASH_BWD_FAULTS read through the same step 0.65 (dq's diagonal tile),
+# 0.94 (a group row dropped) and NaN (the mask off by one)
+# (``--flash-bwd-planted-faults`` on an H100 80GB HBM3 at 700 W).
+TRAIN_STEP_TOL = 0.15
+# Faults planted in copies of flash_attn_bwd.cu (--flash-bwd-planted-
+# faults): fault -> [(text, replacement, times it occurs)]
+FLASH_BWD_FAULTS = {
+    # the causal mask off by one in dkdv_kernel: key j also takes query
+    # row j - 1
+    "dkdv_mask_off_by_one": [(
+        "const bool live = key <= row && row < S && key < S;",
+        "const bool live = key <= row + 1 && row < S && key < S;", 1)],
+    # one query row of each group (the last of g > 1) dropped from the dK
+    # and dV sums
+    "dkdv_group_row_dropped": [(
+        "  for (int h = 0; h < g; ++h) {",
+        "  for (int h = 0; h < (g > 1 ? g - 1 : g); ++h) {", 1)],
+    # dq_kernel's second walk stops before the diagonal key tile
+    "dq_diagonal_tile_dropped": [(
+        "  for (int kt = 0; kt <= tile; ++kt) {\n    const int k0 = kt * kB;"
+        "\n    __syncthreads();\n    load_tile(sK, ld, k + kv_base, S, D, "
+        "k0);\n    load_tile(sV",
+        "  for (int kt = 0; kt < tile; ++kt) {\n    const int k0 = kt * kB;"
+        "\n    __syncthreads();\n    load_tile(sK, ld, k + kv_base, S, D, "
+        "k0);\n    load_tile(sV", 1)]}
+BWD_SOURCE = "src/repro_torch/kernels/csrc/flash_attn_bwd.cu"
+BWD_KERNELS = ("dq_kernel", "dkdv_kernel")
+
+
+def bwd_check_cases() -> list:
+    """(BH, S, D, g, dtype) of the backward kernel's checks: granite's
+    training shape BWD_MAIN, the ``lm_families`` shapes, FLASH_SHAPES at
+    g = 1, (8, 300, 32, 4) and phi3's FLASH_MAIN at g = 4, each in fp32,
+    bf16 and fp16."""
+    shapes = ([BWD_MAIN] + family_flash_shapes()
+              + [sh + (1,) for sh in FLASH_SHAPES]
+              + [(8, 300, 32, FLASH_GROUP), FLASH_MAIN + (FLASH_GROUP,)])
+    return [sh + (dn,) for sh in shapes
+            for dn in ("float32", "bfloat16", "float16")]
+
+
+def bwd_inputs(torch, rng, bh, s, d, g, dname):
+    """Standard normal q, dO (bh, s, d) and k, v (bh / g, s, d) on the
+    card, and o = the plain forward's output."""
+    from repro_torch.kernels import ref
+    q, k, v, do = (torch.from_numpy(rng.standard_normal((rows, s, d))).to(
+        "cuda", getattr(torch, dname))
+        for rows in (bh, bh // g, bh // g, bh))
+    return q, k, v, ref.flash_attention_ref(q, k, v), do
+
+
+def bwd_bound(bh, bh_kv, s, d, dtype, itemsize, fma=False):
+    """q, o, dO and the grouped k, v read once, dq, dk, dv written once;
+    10 D flops per (query, key) pair on or below the diagonal (the five
+    products of the backward: S, dP, dV, dQ, dK), at the card's peak for
+    the inputs' type on the tensor cores (bf16/fp16 989 TFLOP/s; fp32 at
+    fp32 accuracy, 3xTF32, 165), or with ``fma`` at the fp32 FMA rate."""
+    nbytes = 4 * (bh + bh_kv) * s * d * itemsize
+    flops = 10 * d * bh * s * (s + 1) // 2
+    t_bytes = nbytes / HBM_BYTES_PER_S
+    t_ops = flops / (PEAK_FLOPS["float32"] if fma else PEAK_3XTF32_FLOPS
+                     if dtype == "float32" else PEAK_MATMUL_FLOPS[dtype])
+    return (max(t_bytes, t_ops) * 1e3,
+            "bytes" if t_bytes >= t_ops else "operations", nbytes, flops)
+
+
+def bwd_errors(torch, got, want) -> list:
+    """Per-row errors of (dq, dk, dv) against the plain ones
+    (``flash_attention.grad_row_errors``)."""
+    from repro_torch.kernels import flash_attention
+    return flash_attention.grad_row_errors(got, want)
+
+
+def planted_bwd(torch, libs: dict, fault: str, q, k, v, o, do):
+    """The gradients by the copy of FLASH_BWD_FAULTS' ``fault`` in ``libs``
+    (``build_copies``), called as the wrapper calls the repository's build
+    (not counted as a launch)."""
+    from repro_torch.kernels import flash_attention
+    bh, s_len, d = q.shape
+    dq, dk, dv = (torch.empty_like(x) for x in (q, k, v))
+    lse, dsum = (torch.empty((bh, s_len), dtype=torch.float32,
+                             device=q.device) for _ in "ld")
+    fn = flash_attention.bwd_symbol(libs[fault], q.dtype)
+    err = fn(*(x.data_ptr() for x in (q, k, v, o, do, dq, dk, dv, lse,
+                                      dsum)), bh, k.shape[0], s_len, d,
+             1.0 / d ** 0.5, torch.cuda.current_stream().cuda_stream)
+    check(err == 0, f"{fault}: error {err}")
+    return dq, dk, dv
+
+
+def train_step_check(torch, gen, seed: int, drive=None, lib=None) -> dict:
+    """granite-3-2b at full width, TRAIN_CHECK's layers in fp32, b 1, s
+    2048 (remat on, as the config): one loss and gradient through the
+    kernels (driven when ``drive`` is given; with ``lib``, the backward
+    kernel of that library) against the same through the plain versions
+    (``backend="ref"``).  Returns the readings."""
+    import dataclasses
+
+    from repro_torch.configs import get_config
+    from repro_torch.kernels import flash_attention
+    from repro_torch.models import build
+    from repro_torch.train import DataConfig, batch_at
+    from repro_torch.train.tree import items
+    layers, b, s = TRAIN_CHECK
+    full = get_config(TRAIN_ARCH)
+    m = build(dataclasses.replace(full, n_layers=layers, dtype="float32"))
+    m.init_params(gen).requires_grad_(True)
+    dc = DataConfig(vocab=full.vocab, seq_len=s, global_batch=b, seed=seed)
+    batch = {k: torch.as_tensor(v, device="cuda")
+             for k, v in batch_at(dc, 0).items()}
+    paths = [".".join(p) for p, _ in items(m.params)]
+    leaves = [leaf for _, leaf in items(m.params)]
+
+    def grads(backend):
+        loss, _ = m.loss_fn(batch, backend=backend)
+        return loss.detach(), torch.autograd.grad(loss, leaves)
+
+    saved = flash_attention._FNS.get(("flash_attn_bwd", torch.float32))
+    if lib is not None:
+        flash_attention._FNS[("flash_attn_bwd", torch.float32)] = \
+            flash_attention.bwd_symbol(lib, torch.float32)
+    try:
+        if drive is not None:
+            (lk, gk), run = drive(
+                f"{TRAIN_ARCH} fp32 {layers} layers b={b} s={s}: loss and "
+                f"gradients (flash_attn.cu, flash_attn_bwd.cu)",
+                lambda: grads("auto"), ["flash_attention",
+                                        "flash_attention_bwd"])
+            check(run["launches"]["flash_attention"] == 2 * layers
+                  and run["launches"]["flash_attention_bwd"] == layers,
+                  f"fp32 step: expected {2 * layers} forward launches "
+                  f"(remat) and {layers} backward, got {run['launches']}")
+        else:
+            lk, gk = grads("auto")
+    finally:
+        if lib is not None:
+            if saved is None:
+                flash_attention._FNS.pop(("flash_attn_bwd", torch.float32))
+            else:
+                flash_attention._FNS[("flash_attn_bwd", torch.float32)] = \
+                    saved
+    lp, gp = grads("ref")
+    torch.cuda.synchronize()
+    rel = {name: float((a - w).abs().max() / w.abs().max().clamp_min(
+        torch.finfo(torch.float32).tiny)) for name, a, w in zip(paths, gk,
+                                                               gp)}
+    out = {"loss_kernels": float(lk), "loss_plain": float(lp),
+           "loss_rel_diff": abs(float(lk) - float(lp)) / abs(float(lp)),
+           "grad_rel_err_by_leaf": rel, "grad_rel_err_max": max(rel.values())}
+    del m, gk, gp, leaves
+    torch.cuda.empty_cache()
+    return out
+
+
+def restart_drill(torch, seed: int) -> dict:
+    """``run_with_restarts`` at granite-3-2b's smoke config on the card, 12
+    steps with a checkpoint every 5, clean and with a failure injected at
+    step 7, and the clean run once more: the final states bit for bit."""
+    import tempfile
+
+    from repro_torch.configs import smoke_of
+    from repro_torch.models import build
+    from repro_torch.train import (AdamWConfig, DataConfig, FailureInjector,
+                                   Trainer, batch_at, checkpoint,
+                                   run_with_restarts)
+    from repro_torch.train.tree import items
+    cfg = smoke_of(TRAIN_ARCH)
+    model = build(cfg)
+    dc = DataConfig(vocab=cfg.vocab, seq_len=64, global_batch=4, seed=9)
+    opt = AdamWConfig(peak_lr=1e-3, warmup_steps=1, total_steps=20)
+    tmp = tempfile.TemporaryDirectory()
+
+    def driver(name, injector):
+        tr = Trainer(model, opt)
+        ckdir = str(Path(tmp.name) / name)
+        state, _, restarts = run_with_restarts(
+            total_steps=12, ckpt_dir=ckdir,
+            make_state=lambda: tr.init_state(
+                torch.Generator("cuda").manual_seed(seed)),
+            restore_state=lambda step, t: checkpoint.restore(ckdir, step, t),
+            step_fn=lambda step, st: tr.step(st, {
+                k: torch.as_tensor(v, device="cuda")
+                for k, v in batch_at(dc, step).items()}),
+            save_every=5, injector=injector)
+        return {".".join(p): x.detach().clone() for p, x in items(state)}, \
+            restarts
+
+    clean, r0 = driver("clean", FailureInjector())
+    again, _ = driver("again", FailureInjector())
+    crash, r1 = driver("crash", FailureInjector(fail_at=(7,)))
+    tmp.cleanup()
+    check(r0 == 0 and r1 == 1, f"restart drill: restarts {r0}, {r1}")
+    bitwise = all(torch.equal(crash[k], clean[k]) for k in clean)
+    repeat = all(torch.equal(again[k], clean[k]) for k in clean)
+    diff = max(float((crash[k].double() - clean[k].double()).abs().max())
+               for k in clean)
+    check(bitwise, f"restart drill: the restarted run ends {diff} from the "
+          f"clean one (a repeat of the clean run bit for bit: {repeat})")
+    return {"steps": 12, "fail_at": 7, "restarts": r1,
+            "bitwise_vs_clean": bitwise, "clean_repeat_bitwise": repeat,
+            "max_abs_diff": diff, "leaves": len(clean)}
+
+
+def train_phase(args, torch, drive, gen, smi_line: str) -> dict:
+    """The ``train`` phase; returns the backward kernel's row of the
+    kernels line ({"timing", "worst", "main_err"})."""
+    import tempfile
+
+    import numpy as np
+
+    import torch.nn.functional as tnf
+    from repro_torch.kernels import flash_attention, ref
+    from repro_torch.launch import train as ltrain
+
+    t_phase = time.perf_counter()
+    rng = np.random.default_rng(args.seed + 24)
+
+    # ---- (1) the backward kernel against its plain version --------------
+    reads, worst, main_err = [], 0.0, 0.0
+    for bh, s, d, g, dname in bwd_check_cases():
+        q, k, v, o, do = bwd_inputs(torch, rng, bh, s, d, g, dname)
+        got = flash_attention.flash_attention_bwd_cuda(q, k, v, o, do)
+        again = flash_attention.flash_attention_bwd_cuda(q, k, v, o, do)
+        want = ref.flash_attention_bwd_ref(q, k, v, o, do)
+        torch.cuda.synchronize()
+        errs = bwd_errors(torch, got, want)
+        same = all(torch.equal(a, b) for a, b in zip(got, again))
+        tol = flash_attention.BWD_CHECK_TOLS[dname]
+        reads.append({"case": [bh, s, d, g, dname],
+                      "row_error_dq_dk_dv": errs, "repeat_bitwise": same})
+        check(max(errs) <= tol, f"flash_attention_bwd_cuda at "
+              f"{(bh, s, d, g, dname)}: row errors {errs} above {tol}")
+        check(same, f"flash_attention_bwd_cuda at {(bh, s, d, g, dname)}: "
+              f"a repeat is not bit for bit")
+        worst = max(worst, max(errs) / tol)
+        if (bh, s, d, g) == BWD_MAIN and dname == "bfloat16":
+            main_err = max(float((g_.double() - w_.double()).abs().max())
+                           for g_, w_ in zip(got, want))
+        del q, k, v, o, do, got, again, want
+    emit({"phase": "train_bwd_vs_plain", "ok": True, "card": smi_line,
+          "cases": reads, "tolerances": flash_attention.BWD_CHECK_TOLS,
+          "worst_err_over_tol": worst,
+          "seconds": round(time.perf_counter() - t_phase, 3)})
+
+    # ---- the backward kernel's time at granite's training shape ---------
+    bh, s, d, g = BWD_MAIN
+    q, k, v, o, do = bwd_inputs(torch, rng, bh, s, d, g, "bfloat16")
+
+    def call():
+        return flash_attention.flash_attention_bwd_cuda(q, k, v, o, do)
+    events = gpu_ms(torch, call, iters=5, warmup=1)
+    prof = profiler_ms(torch, call, BWD_KERNELS, 5)
+    plain = gpu_ms(torch, lambda: ref.flash_attention_bwd_ref(q, k, v, o, do),
+                   iters=2, warmup=1)
+    # the library yardstick: scaled_dot_product_attention's backward, is_causal,
+    # on q and the KV heads repeated to the query heads (its dk, dv per
+    # query head, not summed over the group)
+    lq, lk, lv = (x[None].detach().requires_grad_() for x in (
+        q, k.repeat_interleave(g, 0), v.repeat_interleave(g, 0)))
+    lo = tnf.scaled_dot_product_attention(lq, lk, lv, is_causal=True)
+    library = gpu_ms(torch, lambda: torch.autograd.grad(
+        lo, (lq, lk, lv), do[None], retain_graph=True), iters=5, warmup=1)
+    lib_kernels = profiler_ms(torch, lambda: torch.autograd.grad(
+        lo, (lq, lk, lv), do[None], retain_graph=True), "", 2)
+    timing = dict(
+        shape=f"q, o, dO ({bh},{s},{d}), k and v ({bh // g},{s},{d}) "
+              f"bfloat16, causal, g = {g}",
+        ms=prof[0] if prof is not None else events,
+        ms_from="torch.profiler" if prof is not None else "cuda events",
+        events_ms=events, kernels_per_call=prof and prof[1],
+        ms_by_kernel=prof and prof[2], plain_ms=plain, library_ms=library,
+        library_kernels=lib_kernels,
+        bound=bwd_bound(bh, bh // g, s, d, "bfloat16", 2),
+        fma_bound_ms=bwd_bound(bh, bh // g, s, d, "bfloat16", 2,
+                               fma=True)[0])
+    del q, k, v, o, do, lq, lk, lv, lo
+    torch.cuda.empty_cache()
+    emit({"phase": "train_bwd_time", "ok": True, "card": smi_line,
+          **{k_: (v_ if k_ != "bound" else {"ms": v_[0], "by": v_[1],
+                                             "bytes": v_[2], "flops": v_[3]})
+             for k_, v_ in timing.items()}})
+
+    # ---- (2) one fp32 step, kernels against plain -----------------------
+    t0 = time.perf_counter()
+    step = train_step_check(torch, gen, args.seed, drive=drive)
+    held = (step["grad_rel_err_max"] <= TRAIN_STEP_TOL
+            and step["loss_rel_diff"] <= TRAIN_STEP_TOL)
+    emit({"phase": "train_fp32_step", "ok": held, "card": smi_line,
+          "config": f"{TRAIN_ARCH} at full width, {TRAIN_CHECK[0]} layers, "
+                    f"fp32, b={TRAIN_CHECK[1]}, s={TRAIN_CHECK[2]}",
+          "tol": TRAIN_STEP_TOL, **step,
+          "seconds": round(time.perf_counter() - t0, 3)})
+    check(held, f"fp32 step: kernels against plain "
+          f"{step['grad_rel_err_max']} (loss {step['loss_rel_diff']}) above "
+          f"{TRAIN_STEP_TOL}")
+
+    # ---- (3) granite-3-2b, bf16, 40 layers, through launch.train --------
+    from repro_torch.configs import get_config
+    full = get_config(TRAIN_ARCH)
+    tmp = tempfile.TemporaryDirectory()
+    argv = ["--arch", TRAIN_ARCH, "--steps", str(TRAIN_STEPS), "--batch",
+            str(TRAIN_BATCH), "--seq", str(TRAIN_SEQ), "--accum",
+            str(TRAIN_ACCUM), "--spectral-every", "1", "--log-every", "1",
+            "--ckpt-dir", tmp.name, "--save-every", str(TRAIN_STEPS),
+            "--seed", str(args.seed)]
+    torch.cuda.empty_cache()
+    torch.cuda.reset_peak_memory_stats()
+    out, run = drive(f"{TRAIN_ARCH} bf16 {full.n_layers} layers, "
+                     f"{TRAIN_STEPS} steps of batch {TRAIN_BATCH} x "
+                     f"{TRAIN_SEQ} (accum {TRAIN_ACCUM}) through "
+                     f"launch.train", lambda: ltrain.main(argv),
+                     ["flash_attention_wgmma", "flash_attention_bwd",
+                      "tape_apply_cuda", "chase_cycle_cuda",
+                      "sturm_bisect_cuda"])
+    peak = torch.cuda.max_memory_allocated() / 2 ** 30
+    micro = full.n_layers * TRAIN_ACCUM * TRAIN_STEPS
+    check(run["launches"]["flash_attention_bwd"] == micro
+          and run["launches"]["flash_attention_wgmma"] == 2 * micro
+          and run["launches"]["flash_attention"] == 0,
+          f"granite run: expected {micro} backward and {2 * micro} forward "
+          f"launches (remat), got {run['launches']}")
+    lines = out["lines"]
+    check(len(lines) == TRAIN_STEPS and all(
+        math.isfinite(ln["loss"]) and math.isfinite(ln["grad_norm"])
+        and math.isfinite(ln.get("sigma0", float("nan"))) for ln in lines),
+        f"granite run: a step not finite or missing: {lines}")
+    from repro_torch.train import checkpoint
+    saved = checkpoint.latest_step(tmp.name)
+    ck_bytes = sum(f.stat().st_size for f in Path(tmp.name).rglob("*")
+                   if f.is_file())
+    tmp.cleanup()
+    check(saved == TRAIN_STEPS, f"granite run: checkpoint {saved}")
+    tokens = TRAIN_BATCH * TRAIN_SEQ
+    steady = out["step_s"][1:] or out["step_s"]
+    emit({"phase": "train_granite", "ok": True, "card": smi_line,
+          "config": f"{TRAIN_ARCH} (ibm-granite/granite-3.0-2b-base): "
+                    f"{full.n_layers} layers, d {full.d_model}, bf16, "
+                    f"{full.total_params()} parameters",
+          "steps": lines, "step_s": out["step_s"],
+          "tokens_per_s_after_first": tokens / (sum(steady) / len(steady)),
+          "tokens_per_s_all": tokens * TRAIN_STEPS / sum(out["step_s"]),
+          "monitor_s": out["monitor_s"],
+          "monitor_share": out["monitor_s"] / sum(out["step_s"]),
+          "run_s": out["seconds"], "peak_gib": peak,
+          "checkpoint_step": saved, "checkpoint_gb": ck_bytes / 1e9,
+          "checkpoint_s": out["checkpoint_s"],
+          "launches": run["launches"],
+          "expected": {"flash_attention_bwd": micro,
+                       "flash_attention_wgmma": 2 * micro}})
+
+    # ---- (4) the restart drill -------------------------------------------
+    t0 = time.perf_counter()
+    drill = restart_drill(torch, args.seed)
+    emit({"phase": "train_restart_drill", "ok": True, **drill,
+          "seconds": round(time.perf_counter() - t0, 3)})
+    emit({"phase": "train", "ok": True,
+          "seconds": round(time.perf_counter() - t_phase, 3)})
+    return {"timing": timing, "worst": worst, "main_err": main_err}
+
+
+def train_only(args, torch) -> int:
+    """``--train``: build the kernels, run the ``train`` phase alone (no
+    ``ok`` line)."""
+    from repro_torch.kernels import _build, ops
+    torch.backends.cuda.matmul.allow_tf32 = False
+    torch.backends.cudnn.allow_tf32 = False
+    t0 = time.perf_counter()
+    _build.build_all()
+    emit({"phase": "build", "ok": True,
+          "seconds": round(time.perf_counter() - t0, 3),
+          "ptxas": [ln.strip() for ln in _build.LOGS.get(
+              "flash_attn_bwd", "").splitlines()
+              if "registers" in ln or "Compiling entry" in ln]})
+    gen = torch.Generator(device="cuda")
+    gen.manual_seed(args.seed)
+    main_counts = {k: 0 for k in ops.launch_counts()}
+    out = train_phase(args, torch, make_drive(torch, ops, main_counts), gen,
+                      smi_name())
+    emit({"phase": "train_summary", "launches": main_counts,
+          "worst_err_over_tol": out["worst"]})
+    return 0
+
+
+def smi_name() -> str:
+    """``nvidia-smi --query-gpu=name,power.limit`` of the first card."""
+    smi = subprocess.run(
+        ["nvidia-smi", "--query-gpu=name,power.limit",
+         "--format=csv,noheader"], capture_output=True, text=True,
+        timeout=60).stdout.strip().splitlines()
+    return smi[0] if smi else "nvidia-smi: no output"
+
+
+def flash_bwd_planted_faults(args, torch) -> int:
+    """How far the faults of FLASH_BWD_FAULTS, each built into its own copy
+    of flash_attn_bwd.cu, move dq, dk, dv from the plain backward, beside
+    the sound kernel, at every case of ``bwd_check_cases`` (the group fault
+    where g > 1), one JSON line per dtype; then the fp32 two-layer step
+    with each fault in place of the backward kernel.  These readings place
+    BWD_CHECK_TOLS and TRAIN_STEP_TOL."""
+    import tempfile
+
+    import numpy as np
+
+    from repro_torch.kernels import _build, flash_attention, ref
+
+    torch.backends.cuda.matmul.allow_tf32 = False
+    _build.build_all(["flash_attn", "flash_attn_bwd"])
+    rng = np.random.default_rng(args.seed)
+    tmp = tempfile.TemporaryDirectory()
+    libs = build_copies(tmp.name, {f: ("flash_attn_bwd", edits)
+                                   for f, edits in FLASH_BWD_FAULTS.items()})
+    smi = smi_name()
+    for dname in ("float32", "bfloat16", "float16"):
+        sound, faults = [], {}
+        for case in (c for c in bwd_check_cases() if c[4] == dname):
+            q, k, v, o, do = bwd_inputs(torch, rng, *case)
+            want = ref.flash_attention_bwd_ref(q, k, v, o, do)
+            got = flash_attention.flash_attention_bwd_cuda(q, k, v, o, do)
+            sound.append((max(bwd_errors(torch, got, want)), case))
+            for fault in FLASH_BWD_FAULTS:
+                if fault == "dkdv_group_row_dropped" and case[3] == 1:
+                    continue
+                got = planted_bwd(torch, libs, fault, q, k, v, o, do)
+                faults.setdefault(fault, []).append(
+                    (max(bwd_errors(torch, got, want)), case))
+            del q, k, v, o, do, want, got
+        emit({"kernel": "flash_attention_bwd_cuda", "dtype": dname,
+              "card": smi, "cases": len(sound),
+              "tol": flash_attention.BWD_CHECK_TOLS[dname],
+              "sound_row_error_max": max(sound),
+              "faults": {f: {"cases": len(r), "row_error_min": min(r)}
+                         for f, r in faults.items()}})
+    gen = torch.Generator(device="cuda")
+    reads = {}
+    for fault in (None, *FLASH_BWD_FAULTS):
+        gen.manual_seed(args.seed)
+        r = train_step_check(torch, gen, args.seed,
+                             lib=None if fault is None else libs[fault])
+        reads[fault or "sound"] = {k: r[k] for k in (
+            "grad_rel_err_max", "loss_rel_diff")}
+    emit({"phase": "train_step_faults", "card": smi, "tol": TRAIN_STEP_TOL,
+          "config": f"{TRAIN_ARCH} fp32, {TRAIN_CHECK[0]} layers, b="
+                    f"{TRAIN_CHECK[1]}, s={TRAIN_CHECK[2]}", "reads": reads})
+    tmp.cleanup()
+    return 0
+
+
 def make_drive(torch, ops, main_counts: dict):
     """``drive(label, fn, expect)``: run ``fn`` with every launch count set
     to 0 just before and read just after, fail unless each kernel in
@@ -3861,11 +4353,7 @@ def run(args, torch) -> int:
 
     # ---- 1. device -------------------------------------------------------
     kind = torch.cuda.get_device_name(0)
-    smi = subprocess.run(
-        ["nvidia-smi", "--query-gpu=name,power.limit",
-         "--format=csv,noheader"], capture_output=True, text=True,
-        timeout=60).stdout.strip().splitlines()
-    smi_line = smi[0] if smi else "nvidia-smi: no output"
+    smi_line = smi_name()
     emit({"phase": "device", "ok": True, "kind": kind,
           "count": torch.cuda.device_count(), "nvidia_smi": smi_line,
           "torch": torch.__version__, "cuda": torch.version.cuda})
@@ -4910,6 +5398,12 @@ def run(args, torch) -> int:
     # ---- the other families: MoE, hymba, RWKV6, whisper ----------------
     lm_families(args, torch, rng, drive, gen)
 
+    # ---- training: the flash backward, granite-3-2b, the restart drill --
+    trained = train_phase(args, torch, drive, gen, smi_line)
+    timing["flash_attention_bwd_cuda"] = trained["timing"]
+    worst["flash_attention_bwd_cuda"] = trained["worst"]
+    main_err["flash_attention_bwd_cuda"] = trained["main_err"]
+
     # ---- where stage 2's time goes: torch.profiler over one stage ------
     from torch.profiler import ProfilerActivity, profile
 
@@ -4987,7 +5481,8 @@ def run(args, torch) -> int:
                    "src/repro_torch/kernels/csrc/flash_attn_wgmma.cu",
                "dc_leaf_cuda": "src/repro_torch/kernels/csrc/dc.cu",
                "dc_deflate_cuda": "src/repro_torch/kernels/csrc/dc.cu",
-               "dc_secular_cuda": "src/repro_torch/kernels/csrc/dc.cu"}
+               "dc_secular_cuda": "src/repro_torch/kernels/csrc/dc.cu",
+               "flash_attention_bwd_cuda": BWD_SOURCE}
     replaces = {
         "chase_cycle_cuda": "src/repro/kernels/bulge_chase.py:126",
         "chase_superstep_cuda": "src/repro/kernels/bulge_chase.py:225",
@@ -5009,12 +5504,16 @@ def run(args, torch) -> int:
                            "scan of _merge_pair, :574-605; lax.scan, no "
                            "pallas_call)",
         "dc_secular_cuda": "src/repro/core/bidiag_dc.py:297 (_secular_roots"
-                           "; jnp, no pallas_call)"}
+                           "; jnp, no pallas_call)",
+        "flash_attention_bwd_cuda": "src/repro/models/attention.py:62 (the "
+                                    "gradient XLA derives of its dense "
+                                    "attention; no pallas_call)"}
     # the flash kernels' counters keep the op's name, under which
     # ops.launch_counts() reports them; the others are named after their
     # kernel
     count_key = {"flash_attention_cuda": "flash_attention",
-                 "flash_attention_wgmma_cuda": "flash_attention_wgmma"}
+                 "flash_attention_wgmma_cuda": "flash_attention_wgmma",
+                 "flash_attention_bwd_cuda": "flash_attention_bwd"}
     kernels = []
     for name in sources:
         t = timing[name]

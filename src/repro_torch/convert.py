@@ -1,8 +1,9 @@
 """Carry the reference package's state across into this one.
 
 What it carries is the SVD pipeline's configuration and packed band
-storage, and an LM's parameter tree, as plain Python values and numpy
-arrays, so this module needs nothing from the reference package.
+storage, an LM's parameter tree and a training state, as plain Python
+values and numpy arrays, so this module needs nothing from the reference
+package.
 """
 
 from __future__ import annotations
@@ -13,7 +14,7 @@ import torch
 from repro_torch.core import tuning
 
 __all__ = ["pipeline_config_from_reference", "band_from_numpy",
-           "model_params_from_reference"]
+           "model_params_from_reference", "train_state_from_reference"]
 
 _BACKENDS = {"pallas": "cuda", "ref": "ref", "fused_small": "fused_small"}
 _KEPT = ("bw", "tw", "fuse", "dtype", "compute_uv", "stage3", "dc_leaf_n",
@@ -84,3 +85,39 @@ def model_params_from_reference(params_np: dict, cfg, device="cuda"):
             arr = arr.astype(np.float32)
         p.data.copy_(torch.from_numpy(np.array(arr)))
     return model
+
+
+def train_state_from_reference(state_np: dict, cfg, device="cuda"):
+    """(model, state) of this package from the reference's training state
+    ``{"params", "opt": {"step", "m", "v"}}`` flattened to numpy as the
+    reference's checkpoints flatten it: ``{key path joined by "|": array}``
+    (``params|layers|attn|wq``, ``opt|m|...``, ``opt|step``).
+
+    The model of ``cfg`` holds the parameters, made trainable; the state is
+    ``{"params": model.params, "opt": {"step": int32, "m": ..., "v": ...}}``
+    with m and v in fp32, as ``train.Trainer.init_state`` makes it.  A
+    missing or extra key or a shape mismatch raises ``ValueError``."""
+    from repro_torch.train.optimizer import adamw_init
+    from repro_torch.train.tree import items
+
+    def part(prefix):
+        return {k[len(prefix):].replace("|", "."): v
+                for k, v in state_np.items() if k.startswith(prefix)}
+
+    model = model_params_from_reference(part("params|"), cfg, device=device)
+    model.requires_grad_(True)
+    params = model.params
+    state = {"params": params, "opt": adamw_init(params)}
+    want = {"|".join(("opt",) + path) for path, _ in items(state["opt"])}
+    got = {k for k in state_np if k.startswith("opt|")}
+    if want != got:
+        raise ValueError(f"optimizer keys differ: missing "
+                         f"{sorted(want - got)}, extra {sorted(got - want)}")
+    with torch.no_grad():
+        for path, leaf in items(state["opt"]):
+            arr = np.asarray(state_np["|".join(("opt",) + path)])
+            if tuple(arr.shape) != tuple(leaf.shape):
+                raise ValueError(f"opt|{'|'.join(path)}: shape {arr.shape}, "
+                                 f"expected {tuple(leaf.shape)}")
+            leaf.copy_(torch.from_numpy(np.array(arr)).to(leaf.dtype))
+    return model, state

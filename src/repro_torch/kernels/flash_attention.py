@@ -1,12 +1,12 @@
-"""Wrappers of the two CUDA causal flash-attention kernels, and the rule that
-picks one.
+"""Wrappers of the two CUDA causal flash-attention kernels, the rule that
+picks one, and the wrapper of their backward kernel.
 
-Both take the contract of the reference's ``flash_attention_pallas`` with
-grouped KV heads: causal softmax attention of q (BH, S, D) against k, v
-(BH / g, S, D), query row bh reading KV row bh // g (g = 1 is the
-reference's contract), scale 1/sqrt(D), an online softmax in fp32, forward
-only, the result in ``q.dtype``, any S (the ragged edge is masked in the
-kernels).  Nothing here takes the reference's ``block_q``/``block_k``: each
+Both forward kernels take the contract of the reference's
+``flash_attention_pallas`` with grouped KV heads: causal softmax attention
+of q (BH, S, D) against k, v (BH / g, S, D), query row bh reading KV row
+bh // g (g = 1 is the reference's contract), scale 1/sqrt(D), an online
+softmax in fp32, the result in ``q.dtype``, any S (the ragged edge is
+masked in the kernels).  Nothing here takes the reference's ``block_q``/``block_k``: each
 kernel's tile is its own.
 
 - ``flash_attention_wgmma_cuda`` (``csrc/flash_attn_wgmma.cu``): bf16 and
@@ -18,6 +18,12 @@ kernel's tile is its own.
   at fp32 accuracy: each fp32 operand (and P, kept in fp32) is split into
   two TF32 parts and a product is three TF32 products summed in fp32
   (3xTF32).  bf16 and fp16 values are exact in TF32.
+
+- ``flash_attention_bwd_cuda`` (``csrc/flash_attn_bwd.cu``): the gradients
+  dQ, dK, dV of that attention given o and dO, fp32, bf16 and fp16, 8 <= D
+  <= 128 with D a multiple of 8, every product on fp32 FMAs, dK and dV
+  summed over each KV row's g query rows in the kernel (no atomics, so a
+  repeat is bit for bit the same).  ``ops.flash_attention``'s backward.
 
 ``kernel_for`` is the rule ``ops.flash_attention`` follows.  Each wrapper
 takes CUDA tensors only: it launches its kernel or raises, and counts the
@@ -36,10 +42,13 @@ from repro_torch.kernels import _build
 from repro_torch.kernels.ref import gqa_group
 
 __all__ = ["flash_attention_cuda", "flash_attention_wgmma_cuda",
-           "kernel_for", "launches", "row_error", "MAX_D", "MAX_BH",
-           "WGMMA_D", "CHECK_TOLS", "PREFILL_TOLS"]
+           "flash_attention_bwd_cuda", "bwd_symbol", "kernel_for",
+           "launches", "row_error", "grad_row_errors",
+           "MAX_D", "MAX_BWD_D", "MAX_BH", "WGMMA_D", "CHECK_TOLS",
+           "BWD_CHECK_TOLS", "PREFILL_TOLS"]
 
-launches = {"flash_attention": 0, "flash_attention_wgmma": 0}
+launches = {"flash_attention": 0, "flash_attention_wgmma": 0,
+            "flash_attention_bwd": 0}
 
 # How the kernels are held against their plain version (the card tests,
 # chip_smoke.py and the CPU tests against the reference): ``row_error`` at
@@ -66,7 +75,21 @@ CHECK_TOLS = {"float32": 1e-5, "bfloat16": 3e-2, "float16": 1e-3}
 # bf16, 40 layers (flash_attn_wgmma.cu): sound 0.1117, faults 1.19-1.38.
 PREFILL_TOLS = {"float32": 3e-2, "bfloat16": 0.4}
 
+# How the backward kernel is held against its plain version
+# (``ref.flash_attention_bwd_ref``) on the card: ``grad_row_errors`` of dQ,
+# dK and dV each at most BWD_CHECK_TOLS.  Both sides compute in fp32 from the
+# same inputs and round once to the storage type, so the sound reading is
+# the storage type's rounding and fp32 summation order.  Each limit sits
+# between the sound kernel and faults planted in copies of it (the dkdv
+# mask off by one, a group's query row dropped from dK and dV, dq's
+# diagonal key tile dropped) at every case of ``chip_smoke.py``'s check,
+# from ``chip_smoke.py --flash-bwd-planted-faults`` on an H100 80GB HBM3 at
+# 700 W: sound fp32 1.9e-5, bf16 3.1e-3, fp16 5.3e-4; every fault 0.93 or
+# more.
+BWD_CHECK_TOLS = {"float32": 1e-4, "bfloat16": 3e-2, "float16": 4e-3}
+
 MAX_D = 256                 # flash_attn.cu's widest padded head (DP)
+MAX_BWD_D = 128             # flash_attn_bwd.cu's widest head
 MAX_BH = 65535              # flash_attn.cu: one grid row per (batch, head)
 WGMMA_D = (64, 128)         # the head widths flash_attn_wgmma.cu takes
 _WGMMA_MAX_TILES = 65535    # flash_attn_wgmma.cu: grid y, 128 rows a tile
@@ -95,6 +118,24 @@ def row_error(got: torch.Tensor, want: torch.Tensor) -> float:
     return float(((g - w).norm(dim=-1) / den).max())
 
 
+def grad_row_errors(got, want, floor: float = 1e-2) -> list[float]:
+    """``row_error`` for the gradients (dq, dk, dv), each (..., S, D): each
+    row held to its own norm, floored at ``floor`` of the largest row norm
+    over the three ``want`` tensors.  A gradient row that is zero in exact
+    arithmetic (dq and dk of a query row that attends to its own key alone,
+    where dS = P (dP - D) = 0: row 0, or all of them at S = 1) comes out of
+    the kernel and of the plain version as rounding noise of either side,
+    which ``row_error`` would hold to itself."""
+    rows = [(g.detach().double().reshape(-1, g.shape[-1]),
+             w.detach().to(g.device, torch.float64).reshape(-1, w.shape[-1]))
+            for g, w in zip(got, want)]
+    top = max((float(w.norm(dim=-1).max()) for _, w in rows if w.numel()),
+              default=0.0)
+    den_min = max(floor * top, torch.finfo(torch.float64).tiny)
+    return [float(((g - w).norm(dim=-1) / w.norm(dim=-1).clamp_min(
+        den_min)).max()) if w.numel() else 0.0 for g, w in rows]
+
+
 def _fn(source: str, dtype: torch.dtype):
     f = _FNS.get((source, dtype))
     if f is None:
@@ -106,9 +147,14 @@ def _fn(source: str, dtype: torch.dtype):
     return f
 
 
-def _check(q, k, v, dtypes) -> int:
-    """Device, dtype and layout checks shared by both wrappers; returns g."""
-    for name, x in (("q", q), ("k", k), ("v", v)):
+def _check(q, k, v, dtypes, more=()) -> int:
+    """Device, dtype and layout checks shared by the wrappers (``more``:
+    further (name, tensor) pairs of q's shape); returns g."""
+    for name, x in more:
+        if x.shape != q.shape:
+            raise ValueError(f"{name}: shape {tuple(x.shape)}, expected q's "
+                             f"{tuple(q.shape)}")
+    for name, x in (("q", q), ("k", k), ("v", v), *more):
         if x.device.type != "cuda":
             raise ValueError(f"{name} must be a CUDA tensor, got {x.device}")
         if x.dtype not in dtypes:
@@ -177,3 +223,56 @@ def flash_attention_wgmma_cuda(q: torch.Tensor, k: torch.Tensor,
                          f"{_WGMMA_MAX_TILES * 128}")
     _check_aligned(q, k, v, "TMA")
     return _launch("flash_attn_wgmma", "flash_attention_wgmma", q, k, v)
+
+
+def bwd_symbol(lib: ctypes.CDLL, dtype: torch.dtype):
+    """The C entry of ``flash_attn_bwd.cu`` for ``dtype`` in a loaded
+    library (the repository's build, or a copy of the source), its argument
+    types set: q, k, v, o, do, dq, dk, dv, lse, dsum, BH, BH / g, S, D,
+    scale, stream."""
+    f = getattr(lib, f"flash_attn_bwd_{_SUFFIX[dtype]}")
+    p, i = ctypes.c_void_p, ctypes.c_int
+    f.argtypes = [p] * 10 + [i, i, i, i, ctypes.c_float, p]
+    f.restype = ctypes.c_int
+    return f
+
+
+def _bwd_fn(dtype: torch.dtype):
+    f = _FNS.get(("flash_attn_bwd", dtype))
+    if f is None:
+        f = _FNS[("flash_attn_bwd", dtype)] = bwd_symbol(
+            _build.load("flash_attn_bwd"), dtype)
+    return f
+
+
+def flash_attention_bwd_cuda(q: torch.Tensor, k: torch.Tensor,
+                             v: torch.Tensor, o: torch.Tensor,
+                             do: torch.Tensor):
+    """``flash_attn_bwd.cu``: the gradients (dq, dk, dv) of causal attention
+    of contiguous CUDA tensors of one dtype, q, o, do (BH, S, D) and k, v
+    (BH / g, S, D), 8 <= D <= 128 with D % 8 == 0; new tensors of that
+    dtype, dk and dv summed over the g query rows of each KV row.  Two
+    kernels a launch (dq, then dk and dv), with an fp32 (BH, S) scratch of
+    each row's log-sum-exp and dO . O between them."""
+    _check(q, k, v, tuple(_SUFFIX), (("o", o), ("do", do)))
+    bh, s, d = q.shape
+    if not (8 <= d <= MAX_BWD_D and d % 8 == 0):
+        raise ValueError(f"head dim {d}: the backward kernel takes 8 <= D <= "
+                         f"{MAX_BWD_D} with D % 8 == 0")
+    if bh > MAX_BH:
+        raise ValueError(f"BH = {bh}: the backward kernel takes at most "
+                         f"{MAX_BH}")
+    dq, dk, dv = (torch.empty_like(x) for x in (q, k, v))
+    if bh * s:
+        lse, dsum = (torch.empty((bh, s), dtype=torch.float32,
+                                 device=q.device) for _ in "ld")
+        with torch.cuda.device(q.device):
+            stream = torch.cuda.current_stream().cuda_stream
+            err = _bwd_fn(q.dtype)(*(x.data_ptr() for x in (
+                q, k, v, o, do, dq, dk, dv, lse, dsum)), bh, k.shape[0], s,
+                d, 1.0 / d ** 0.5, stream)
+        if err != 0:
+            raise RuntimeError(f"flash_attn_bwd: error {err} (a CUDA error "
+                               f"code)")
+        _build.count_launch(launches, "flash_attention_bwd")
+    return dq, dk, dv

@@ -27,7 +27,8 @@ __all__ = ["chase_cycle", "chase_cycle_band", "chase_superstep_band",
            "band_stage", "sturm_bisect", "dc_leaf", "dc_deflate",
            "dc_secular",
            "tape_apply", "hh_block_apply",
-           "fused_svd", "flash_attention", "register_backend", "check_device",
+           "fused_svd", "flash_attention", "flash_attention_bwd",
+           "register_backend", "check_device",
            "resolve_backend", "backend_names", "launch_counts",
            "reset_launch_counts"]
 
@@ -148,6 +149,11 @@ def _ref_flash(q, k, v):
     return ref.flash_attention_ref(q, k, v)
 
 
+def _ref_flash_bwd(q, k, v, o, do):
+    from repro_torch.kernels import ref
+    return ref.flash_attention_bwd_ref(q, k, v, o, do)
+
+
 register_backend("ref", chase_cycle=_ref_chase,
                  chase_cycle_band=_ref_cycle_band,
                  chase_superstep_band=_ref_superstep_band,
@@ -155,7 +161,8 @@ register_backend("ref", chase_cycle=_ref_chase,
                  sturm_bisect=_ref_bisect, dc_leaf=_ref_dc_leaf,
                  dc_deflate=_ref_dc_deflate, dc_secular=_ref_dc_secular,
                  tape_apply=_ref_tape, hh_block_apply=_ref_hh,
-                 fused_svd=_ref_fused, flash_attention=_ref_flash)
+                 fused_svd=_ref_fused, flash_attention=_ref_flash,
+                 flash_attention_bwd=_ref_flash_bwd)
 
 
 # ---- "cuda": the Hopper kernels (built on first use) ----------------------
@@ -236,6 +243,11 @@ def _cuda_flash(q, k, v):
     return fa.flash_attention_cuda(q, k, v)
 
 
+def _cuda_flash_bwd(q, k, v, o, do):
+    from repro_torch.kernels import flash_attention as fa
+    return fa.flash_attention_bwd_cuda(q, k, v, o, do)
+
+
 register_backend("cuda", chase_cycle=_cuda_chase,
                  chase_cycle_band=_cuda_cycle_band,
                  chase_superstep_band=_cuda_superstep_band,
@@ -243,7 +255,8 @@ register_backend("cuda", chase_cycle=_cuda_chase,
                  sturm_bisect=_cuda_bisect, dc_leaf=_cuda_dc_leaf,
                  dc_deflate=_cuda_dc_deflate, dc_secular=_cuda_dc_secular,
                  tape_apply=_cuda_tape, hh_block_apply=_cuda_hh,
-                 fused_svd=_cuda_fused, flash_attention=_cuda_flash)
+                 fused_svd=_cuda_fused, flash_attention=_cuda_flash,
+                 flash_attention_bwd=_cuda_flash_bwd)
 
 
 # ---- "fused_small": by the device of the op's first tensor ----------------
@@ -421,6 +434,28 @@ def fused_svd(mats: torch.Tensor, *, bw: int, compute_uv: bool = False,
     return impl(mats, bw=bw, compute_uv=compute_uv, max_iter=max_iter)
 
 
+class _FlashAttention(torch.autograd.Function):
+    """Causal flash attention with its gradient: the forward is the
+    backend's ``flash_attention`` op, the backward its
+    ``flash_attention_bwd`` op on the saved q, k, v and o (on the card the
+    kernel of ``flash_attn_bwd.cu``; the plain version on the CPU or with
+    ``backend="ref"``).  Neither is differentiated by autograd."""
+
+    @staticmethod
+    def forward(ctx, q, k, v, backend):
+        o = _impl("flash_attention", backend, None, q.device)(q, k, v)
+        ctx.backend = backend
+        ctx.save_for_backward(q, k, v, o)
+        return o
+
+    @staticmethod
+    def backward(ctx, do):
+        q, k, v, o = ctx.saved_tensors
+        dq, dk, dv = flash_attention_bwd(q, k, v, o, do.contiguous(),
+                                         backend=ctx.backend)
+        return dq, dk, dv, None
+
+
 def flash_attention(q: torch.Tensor, k: torch.Tensor, v: torch.Tensor, *,
                     backend: str = "auto", block_q: int = 128,
                     block_k: int = 128) -> torch.Tensor:
@@ -431,9 +466,28 @@ def flash_attention(q: torch.Tensor, k: torch.Tensor, v: torch.Tensor, *,
     kernel for bf16 and fp16 at D in {64, 128}, else ``flash_attn.cu``); on
     the CPU the plain version.  ``block_q``/``block_k`` are the
     reference's keywords; the kernels' tiles are their own, so both are
-    ignored."""
+    ignored.
+
+    Differentiable: where any input requires grad, the call goes through a
+    ``torch.autograd.Function`` whose backward is :func:`flash_attention_bwd`
+    of the same backend on the saved q, k, v and output; otherwise nothing
+    is saved."""
     del block_q, block_k
+    if torch.is_grad_enabled() and any(x.requires_grad for x in (q, k, v)):
+        return _FlashAttention.apply(q, k, v, backend)
     return _impl("flash_attention", backend, None, q.device)(q, k, v)
+
+
+def flash_attention_bwd(q: torch.Tensor, k: torch.Tensor, v: torch.Tensor,
+                        o: torch.Tensor, do: torch.Tensor, *,
+                        backend: str = "auto"):
+    """The gradients (dq, dk, dv) of :func:`flash_attention` given its
+    output o and the output's gradient do (q's shape): on a CUDA tensor one
+    launch of ``flash_attn_bwd.cu`` (two kernels), on the CPU the plain
+    version ``ref.flash_attention_bwd_ref``.  dk and dv are summed over the
+    g query rows of each KV row."""
+    return _impl("flash_attention_bwd", backend, None, q.device)(q, k, v, o,
+                                                                 do)
 
 
 def _launch_tables():

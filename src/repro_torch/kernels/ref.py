@@ -34,7 +34,7 @@ __all__ = ["chase_cycle_ref", "chase_superstep_ref", "chase_cycle_band_ref",
            "chase_superstep_band_ref", "BandStageRef", "tape_apply_ref",
            "hh_block_apply_ref", "effective_bw", "fused_walk", "fused_lines",
            "fused_reduce_band", "fused_small_svd_ref", "flash_attention_ref",
-           "gqa_group"]
+           "flash_attention_bwd_ref", "gqa_group"]
 
 
 def _chase_window(win: torch.Tensor, first: torch.Tensor, *, b_in: int,
@@ -554,3 +554,52 @@ def flash_attention_ref(q: torch.Tensor, k: torch.Tensor,
                         device=q.device).triu(1)
     w = torch.softmax(scores.masked_fill_(future, -1e30), dim=-1)
     return torch.einsum("bst,btd->bsd", w, v.float()).to(q.dtype)
+
+
+# (BH, S, S) elements of fp32 temporaries formed at once by the plain
+# backward: it walks the KV rows in chunks of at most this many scores
+_BWD_CHUNK = 1 << 28
+
+
+def flash_attention_bwd_ref(q: torch.Tensor, k: torch.Tensor,
+                            v: torch.Tensor, o: torch.Tensor,
+                            do: torch.Tensor):
+    """The plain backward of :func:`flash_attention_ref`: (dq, dk, dv) given
+    q, o = the forward's output and do = its gradient (BH, S, D), and k, v
+    (BH / g, S, D), written out as the kernel computes it, not by autograd:
+    the row log-sum-exp of the scaled causal scores LSE, D = rowsum(dO * O),
+    P = exp(S - LSE), dV = P^T dO, dS = P * (dO V^T - D), dQ = dS K * scale,
+    dK = dS^T Q * scale, dK and dV summed over the g query rows bh that read
+    KV row bh // g.  Computed in fp32 (fp64 for fp64 inputs), the results in
+    the inputs' dtype.  The KV rows are walked in chunks, so that the (rows,
+    S, S) temporaries stay near 1 GiB at the LM's training shapes."""
+    g = gqa_group(q, k, v)
+    if o.shape != q.shape or do.shape != q.shape:
+        raise ValueError(f"o {tuple(o.shape)} and do {tuple(do.shape)} must "
+                         f"have q's shape {tuple(q.shape)}")
+    bh, s_len, d = q.shape
+    acc = torch.float64 if q.dtype == torch.float64 else torch.float32
+    scale = 1.0 / d ** 0.5
+    future = torch.ones((s_len, s_len), dtype=torch.bool,
+                        device=q.device).triu(1)
+    dq, dk, dv = (torch.empty_like(x) for x in (q, k, v))
+    per = max(1, _BWD_CHUNK // max(1, g * s_len * s_len))
+    for c0 in range(0, k.shape[0], per):
+        kv = slice(c0, min(c0 + per, k.shape[0]))
+        rows = slice(kv.start * g, kv.stop * g)
+        qf, of, dof = (x[rows].to(acc) for x in (q, o, do))
+        kf, vf = (x[kv].to(acc).repeat_interleave(g, dim=0) for x in (k, v))
+        scores = torch.einsum("bsd,btd->bst", qf, kf).mul_(scale)
+        scores.masked_fill_(future, float("-inf"))
+        lse = torch.logsumexp(scores, dim=-1, keepdim=True)
+        p = scores.sub_(lse).exp_()
+        dsum = (dof * of).sum(-1, keepdim=True)
+        dv_rows = torch.einsum("bst,bsd->btd", p, dof)
+        ds = torch.einsum("bsd,btd->bst", dof, vf).sub_(dsum).mul_(p)
+        del p
+        dq[rows] = torch.einsum("bst,btd->bsd", ds, kf).mul_(scale).to(q.dtype)
+        dk_rows = torch.einsum("bst,bsd->btd", ds, qf).mul_(scale)
+        n_kv = kv.stop - kv.start
+        dk[kv] = dk_rows.reshape(n_kv, g, s_len, d).sum(1).to(k.dtype)
+        dv[kv] = dv_rows.reshape(n_kv, g, s_len, d).sum(1).to(v.dtype)
+    return dq, dk, dv

@@ -21,7 +21,7 @@ from repro_torch.models import attention as attn
 from repro_torch.models import modules as nn
 from repro_torch.models.modules import param
 from repro_torch.models.transformer import (_logits_out, _stack, _zero_aux,
-                                            layer_slice)
+                                            layer_slice, scan_layers)
 
 __all__ = ["encdec_param_specs", "encode", "encdec_forward",
            "encdec_decode_step", "init_encdec_caches", "fill_cross_cache",
@@ -110,31 +110,40 @@ def _cross_attention(x, k, v, p, cfg):
     return nn.dense(_attend(q, k, v, cfg, x.dtype), p["wo"])
 
 
+def _enc_block(x, lp, cfg):
+    h = x + _bidir_attention(nn.rmsnorm(x, lp["ln1"], cfg.norm_eps),
+                             lp["attn"], cfg)
+    return h + _mlp(nn.rmsnorm(h, lp["ln2"], cfg.norm_eps), lp["mlp"]), None
+
+
+def _dec_block(x, lp, enc_out, cfg, backend):
+    h = x + attn.attention(nn.rmsnorm(x, lp["ln1"], cfg.norm_eps),
+                           lp["attn"], cfg, backend=backend)
+    k, v = cross_kv(enc_out, lp["xattn"], cfg)
+    h = h + _cross_attention(nn.rmsnorm(h, lp["lnx"], cfg.norm_eps),
+                             k, v, lp["xattn"], cfg)
+    return h + _mlp(nn.rmsnorm(h, lp["ln2"], cfg.norm_eps), lp["mlp"]), None
+
+
 def encode(params, cfg, frames):
-    """frames: (b, enc_seq, d) precomputed embeddings (the stub frontend)."""
+    """frames: (b, enc_seq, d) precomputed embeddings (the stub frontend).
+    Under grad with ``cfg.remat == "full"`` each layer is checkpointed."""
     x = frames.to(cfg.param_dtype)
-    layers = params["enc_layers"]
-    for i in range(cfg.n_enc_layers):
-        lp = layer_slice(layers, i)
-        h = x + _bidir_attention(nn.rmsnorm(x, lp["ln1"], cfg.norm_eps),
-                                 lp["attn"], cfg)
-        x = h + _mlp(nn.rmsnorm(h, lp["ln2"], cfg.norm_eps), lp["mlp"])
+    x, _ = scan_layers(lambda h, lp: _enc_block(h, lp, cfg), x,
+                       params["enc_layers"], cfg.n_enc_layers, {},
+                       remat=cfg.remat == "full")
     return nn.rmsnorm(x, params["enc_norm"], cfg.norm_eps)
 
 
 def encdec_forward(params, cfg, tokens, frames, *, backend: str = "auto"):
-    """Teacher-forced forward: (logits (b, s, padded_vocab) fp32, aux)."""
+    """Teacher-forced forward: (logits (b, s, padded_vocab) fp32, aux).
+    Keeps the autograd graph where grad is enabled; ``cfg.remat ==
+    "full"`` then checkpoints each encoder and decoder layer."""
     enc_out = encode(params, cfg, frames)
     x = params["embed"].to(cfg.param_dtype)[tokens]
-    layers = params["dec_layers"]
-    for i in range(cfg.n_layers):
-        lp = layer_slice(layers, i)
-        h = x + attn.attention(nn.rmsnorm(x, lp["ln1"], cfg.norm_eps),
-                               lp["attn"], cfg, backend=backend)
-        k, v = cross_kv(enc_out, lp["xattn"], cfg)
-        h = h + _cross_attention(nn.rmsnorm(h, lp["lnx"], cfg.norm_eps),
-                                 k, v, lp["xattn"], cfg)
-        x = h + _mlp(nn.rmsnorm(h, lp["ln2"], cfg.norm_eps), lp["mlp"])
+    x, _ = scan_layers(
+        lambda h, lp: _dec_block(h, lp, enc_out, cfg, backend), x,
+        params["dec_layers"], cfg.n_layers, {}, remat=cfg.remat == "full")
     x = nn.rmsnorm(x, params["final_norm"], cfg.norm_eps)
     return _logits_out(x, params, cfg), _zero_aux(x.device)
 

@@ -3,17 +3,21 @@ stacked layer parameters (a leading (L,) axis), four block kinds (dense,
 moe, hymba, rwkv), and the full-sequence (prefill) and one-token (decode)
 paths.
 
-The reference scans over the stacked axis; here a Python loop walks it, one
-layer's slices at a time, with no rematerialization (inference only).
+The reference scans over the stacked axis; here a Python loop walks it
+(``scan_layers``), one layer's views at a time.  Under autograd with
+``cfg.remat == "full"`` each layer is one ``torch.utils.checkpoint``
+segment, as the reference's ``jax.checkpoint`` of its scan body: only the
+layer inputs are kept, and the backward runs each layer's forward again.
 Decode updates every cache in place through ``layer_slice`` views: the KV
 rows and the recurrent states (rwkv's ``x_tm``, ``x_cm``, ``state``;
-hymba's ``mamba.conv``, ``mamba.state``).  The training loss is a later
-slice.
+hymba's ``mamba.conv``, ``mamba.state``).  ``lm_loss`` is the reference's
+next-token cross entropy.
 """
 
 from __future__ import annotations
 
 import torch
+from torch.utils.checkpoint import checkpoint
 
 from repro_torch.models import attention as attn
 from repro_torch.models import modules as nn
@@ -23,7 +27,8 @@ from repro_torch.models import ssm as ssmmod
 from repro_torch.models.modules import param
 
 __all__ = ["decoder_param_specs", "stack_layer_specs", "decoder_forward",
-           "decoder_decode_step", "init_caches", "reset_slot"]
+           "decoder_decode_step", "lm_loss", "init_caches", "reset_slot",
+           "scan_layers"]
 
 
 # ---------------------------------------------------------------------------
@@ -82,6 +87,35 @@ def layer_slice(tree, i: int):
     if isinstance(tree, torch.Tensor):
         return tree[i]
     return {k: layer_slice(v, i) for k, v in tree.items()}
+
+
+def _unstack(tree, n: int):
+    """The n layers of a stacked tree, each leaf split by one ``unbind``:
+    under autograd a stacked leaf then gets one backward node that stacks
+    its n slices' gradients, where n ``leaf[i]`` views would each write a
+    gradient of the whole stacked shape."""
+    if isinstance(tree, torch.Tensor):
+        return tree.unbind(0)
+    parts = {k: _unstack(v, n) for k, v in tree.items()}
+    return [{k: part[i] for k, part in parts.items()} for i in range(n)]
+
+
+def scan_layers(body, x, layers, n: int, aux: dict, *, remat: bool):
+    """x through ``body(x, layer_params) -> (x, layer aux or None)`` for
+    each of the n stacked layers, each layer's aux added to ``aux``.  With
+    ``remat`` and grad enabled each layer is one non-reentrant
+    ``torch.utils.checkpoint`` segment (the blocks draw no random numbers,
+    so no RNG state is kept).  Returns (x, aux)."""
+    ckpt = remat and torch.is_grad_enabled()
+    for lp in _unstack(layers, n):
+        if ckpt:
+            x, layer_aux = checkpoint(body, x, lp, use_reentrant=False,
+                                      preserve_rng_state=False)
+        else:
+            x, layer_aux = body(x, lp)
+        if layer_aux is not None:
+            aux = {k: aux[k] + layer_aux[k] for k in aux}
+    return x, aux
 
 
 # ---------------------------------------------------------------------------
@@ -168,14 +202,13 @@ def decoder_forward(params, cfg, tokens, *, extra_embeds=None,
                     backend: str = "auto"):
     """tokens: (b, s) -> (logits (b, s', padded_vocab) fp32, aux).  aux
     holds the reference's auxiliary losses, each summed over the layers
-    (zero but for moe blocks)."""
+    (zero but for moe blocks).  Keeps the autograd graph where grad is
+    enabled; ``cfg.remat == "full"`` then checkpoints each layer."""
     x = _embed_in(params, cfg, tokens, extra_embeds)
-    aux = _zero_aux(x.device)
-    layers = params["layers"]
-    for i in range(cfg.n_layers):
-        x, layer_aux = _block(x, layer_slice(layers, i), cfg, backend=backend)
-        if layer_aux is not None:
-            aux = {k: aux[k] + layer_aux[k] for k in aux}
+    x, aux = scan_layers(
+        lambda h, lp: _block(h, lp, cfg, backend=backend), x,
+        params["layers"], cfg.n_layers, _zero_aux(x.device),
+        remat=cfg.remat == "full")
     x = nn.rmsnorm(x, params["final_norm"], cfg.norm_eps)
     return _logits_out(x, params, cfg), aux
 
@@ -216,3 +249,28 @@ def decoder_decode_step(params, cfg, token, caches, pos):
                              layer_slice(caches, i), pos)
     x = nn.rmsnorm(x, params["final_norm"], cfg.norm_eps)
     return _logits_out(x, params, cfg), caches
+
+
+# ---------------------------------------------------------------------------
+# loss
+# ---------------------------------------------------------------------------
+
+def lm_loss(logits, labels, mask=None, aux=None):
+    """Next-token cross entropy (labels already shifted by the data
+    pipeline): the fp32 log-sum-exp of each row less its gold logit, the
+    mean over ``mask``; each aux term is added to the loss and reported.
+    Returns (loss, metrics {"ce", aux terms..., "loss"})."""
+    logits = logits.float()
+    logz = torch.logsumexp(logits, dim=-1)
+    gold = torch.gather(logits, -1, labels.long()[..., None])[..., 0]
+    nll = logz - gold
+    if mask is None:
+        mask = torch.ones_like(nll)
+    loss = torch.sum(nll * mask) / torch.clamp(torch.sum(mask), min=1)
+    metrics = {"ce": loss}
+    if aux:
+        for k, v in aux.items():
+            loss = loss + v
+            metrics[k] = v
+    metrics["loss"] = loss
+    return loss, metrics

@@ -3,8 +3,10 @@ builds any of the reference's architectures from its ``ModelConfig`` as an
 ``nn.Module``: a decoder (dense, moe, hymba, rwkv blocks) or the
 encoder-decoder (whisper), by ``cfg.kind``.
 
-Its parameters are ``nn.Parameter``s (no gradient: inference only) whose
-``state_dict()`` keys are the reference's parameter-tree paths joined by
+Its parameters are ``nn.Parameter``s, made without gradient (serving);
+``requires_grad_(True)`` (``train.Trainer.init_state``) makes them
+trainable, and ``loss_fn`` then keeps the graph.  Their ``state_dict()``
+keys are the reference's parameter-tree paths joined by
 ".", e.g. ``layers.attn.wq`` of shape (L, d, nh*hd) and ``embed`` of shape
 (padded_vocab, d); ``params`` gives the same tensors as the nested dict the
 functional code takes.  The leaves the reference keeps in fp32 at every
@@ -57,8 +59,10 @@ def _param_specs(cfg) -> dict:
 
 
 class Model(_Tree):
-    """One model: ``init_params``, ``forward``/``prefill`` (the full
-    sequence; causal self-attention through the flash kernel on the card),
+    """One model: ``init_params``, ``forward``/``loss_fn`` (training: the
+    full sequence with its graph kept where grad is enabled, causal
+    self-attention through the flash kernel and its backward on the card),
+    ``prefill`` (the same forward for serving, without a graph),
     ``init_caches`` and ``decode_step`` (one token per sequence against the
     caches: KV rows, recurrent states, whisper's cross KV),
     ``fill_cross_cache`` (whisper: the encoder's output into the cross KV
@@ -112,12 +116,12 @@ class Model(_Tree):
                 for k in ("tokens", "images", "frames")
                 if batch.get(k) is not None}
 
-    @torch.no_grad()
     def forward(self, batch: dict, *, backend: str = "auto"):
         """batch {"tokens": (b, s)[, "images": (b, n_img, d)][, "frames":
         (b, enc_seq, d)]} -> (logits (b, s, padded_vocab) fp32, aux).
         ``backend`` picks the attention op's backend ("auto": by the
-        device)."""
+        device).  The graph is kept where grad is enabled and a parameter
+        requires it."""
         cfg = self.cfg
         bt = self._batch(batch)
         if cfg.kind == "encdec":
@@ -130,6 +134,19 @@ class Model(_Tree):
             logits = logits[:, cfg.n_img_tokens:]
         return logits, aux
 
+    def loss_fn(self, batch: dict, *, backend: str = "auto"):
+        """(loss, metrics) of the reference's ``Model.loss_fn``: ``forward``
+        and ``transformer.lm_loss`` against batch["labels"] (b, s) and,
+        where given, batch["mask"] (b, s); pixtral's logits are taken past
+        its image tokens, as ``forward`` gives them."""
+        logits, aux = self.forward(batch, backend=backend)
+        labels = torch.as_tensor(batch["labels"], device=self.device)
+        mask = batch.get("mask")
+        if mask is not None:
+            mask = torch.as_tensor(mask, device=self.device)
+        return tf.lm_loss(logits, labels, mask, aux)
+
+    @torch.no_grad()
     def prefill(self, batch: dict, *, backend: str = "auto") -> torch.Tensor:
         """Full-sequence forward for serving (logits over the prompt)."""
         return self.forward(batch, backend=backend)[0]

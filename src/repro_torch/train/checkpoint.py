@@ -1,0 +1,162 @@
+"""Fault-tolerant checkpointing: atomic, keep-N, async, after the
+reference's ``train/checkpoint.py``, in its layout.
+
+``<dir>/step_<k>/state.npz`` holds every leaf of the state tree under its
+key path joined by "|" (``params|layers|attn|wq``, ``opt|m|...``,
+``opt|step``), and a ``DONE`` marker is written *after* a successful
+fsync: a partly written checkpoint is never restored.  An fp32 checkpoint
+that the reference wrote therefore restores here.
+
+bf16 leaves, which numpy cannot hold, are stored as their bits: an int16
+array under the leaf's own key, with the keys so stored listed in the
+member ``__bfloat16__``; ``restore`` reads them back bit for bit.  Every
+other leaf is stored in its own dtype.
+
+``restore`` loads into the template's tensors in place (a model's
+parameters stay the tensors the model holds) and casts each stored array
+to the template leaf's dtype, as the reference's ``astype`` does.
+"""
+
+from __future__ import annotations
+
+import os
+import queue
+import shutil
+import threading
+
+import numpy as np
+import torch
+
+from repro_torch.train.tree import items
+
+__all__ = ["save", "restore", "latest_step", "AsyncCheckpointer"]
+
+_SEP = "|"
+_BF16 = "__bfloat16__"
+
+
+def _flatten(tree) -> dict:
+    """{key path joined by "|": numpy array} on the host; bf16 leaves as
+    their int16 bits, listed under ``__bfloat16__``."""
+    out, bf16 = {}, []
+    for path, leaf in items(tree):
+        key = _SEP.join(str(p) for p in path)
+        leaf = leaf.detach().cpu()
+        if leaf.dtype == torch.bfloat16:
+            bf16.append(key)
+            leaf = leaf.view(torch.int16)
+        out[key] = leaf.numpy().copy()
+    if bf16:
+        out[_BF16] = np.array(bf16)
+    return out
+
+
+def _save_flat(ckpt_dir: str, step: int, flat: dict, keep: int) -> str:
+    os.makedirs(ckpt_dir, exist_ok=True)
+    final = os.path.join(ckpt_dir, f"step_{step:08d}")
+    tmp = final + ".tmp"
+    if os.path.exists(tmp):
+        shutil.rmtree(tmp)
+    os.makedirs(tmp)
+    path = os.path.join(tmp, "state.npz")
+    with open(path, "wb") as f:
+        np.savez(f, **flat)
+        f.flush()
+        os.fsync(f.fileno())
+    with open(os.path.join(tmp, "DONE"), "w") as f:
+        f.write(str(step))
+        f.flush()
+        os.fsync(f.fileno())
+    if os.path.exists(final):
+        shutil.rmtree(final)
+    os.replace(tmp, final)
+    _prune(ckpt_dir, keep)
+    return final
+
+
+def save(ckpt_dir: str, step: int, state: dict, *, keep: int = 3) -> str:
+    """Atomically persist ``state`` (nested dicts of tensors) for ``step``;
+    prune all but the newest ``keep``."""
+    return _save_flat(ckpt_dir, step, _flatten(state), keep)
+
+
+def _prune(ckpt_dir: str, keep: int):
+    steps = sorted(_complete_steps(ckpt_dir))
+    for s in steps[:-keep] if keep > 0 else []:
+        shutil.rmtree(os.path.join(ckpt_dir, f"step_{s:08d}"),
+                      ignore_errors=True)
+
+
+def _complete_steps(ckpt_dir: str) -> list[int]:
+    if not os.path.isdir(ckpt_dir):
+        return []
+    out = []
+    for name in os.listdir(ckpt_dir):
+        if name.startswith("step_") and not name.endswith(".tmp"):
+            if os.path.exists(os.path.join(ckpt_dir, name, "DONE")):
+                out.append(int(name.split("_")[1]))
+    return out
+
+
+def latest_step(ckpt_dir: str) -> int | None:
+    steps = _complete_steps(ckpt_dir)
+    return max(steps) if steps else None
+
+
+@torch.no_grad()
+def restore(ckpt_dir: str, step: int, template: dict) -> dict:
+    """Load ``step`` into the tensors of ``template`` in place, each cast
+    to its template leaf's dtype; returns ``template``."""
+    path = os.path.join(ckpt_dir, f"step_{step:08d}", "state.npz")
+    with np.load(path) as z:
+        loaded = {k: z[k] for k in z.files}
+    bf16 = set(loaded.pop(_BF16, np.array([], dtype=str)).tolist())
+    for pathk, leaf in items(template):
+        key = _SEP.join(str(p) for p in pathk)
+        src = torch.from_numpy(loaded[key])
+        if key in bf16:
+            src = src.view(torch.bfloat16)
+        leaf.copy_(src.to(leaf.dtype))
+    return template
+
+
+class AsyncCheckpointer:
+    """Latest-wins background writer: the train loop never blocks on I/O.
+    ``submit`` copies the state to the host at once; the write runs in a
+    thread."""
+
+    def __init__(self, ckpt_dir: str, keep: int = 3):
+        self.ckpt_dir = ckpt_dir
+        self.keep = keep
+        self._q: queue.Queue = queue.Queue(maxsize=1)
+        self._err: Exception | None = None
+        self._thread = threading.Thread(target=self._worker, daemon=True)
+        self._thread.start()
+
+    def submit(self, step: int, state: dict):
+        flat = _flatten(state)                  # gather now
+        try:
+            self._q.put_nowait((step, flat))
+        except queue.Full:                      # drop the stale pending write
+            try:
+                self._q.get_nowait()
+            except queue.Empty:
+                pass
+            self._q.put_nowait((step, flat))
+
+    def _worker(self):
+        while True:
+            item = self._q.get()
+            if item is None:
+                return
+            step, flat = item
+            try:
+                _save_flat(self.ckpt_dir, step, flat, self.keep)
+            except Exception as e:              # surfaced on close()
+                self._err = e
+
+    def close(self):
+        self._q.put(None)
+        self._thread.join()
+        if self._err:
+            raise self._err

@@ -14,7 +14,9 @@ bf16 ulp (``wy_tol``); bisection agrees to 1e-13 * sigma_max at fp64 and
 and the deflation scan bit for bit, the secular roots within 1e-13 (fp64)
 or 1e-5 (fp32) of the pole scale; causal flash attention, both kernels,
 with k and v of BH or BH / g rows, each query row to its own size
-(``flash_attention.row_error`` within ``flash_attention.CHECK_TOLS``).
+(``flash_attention.row_error`` within ``flash_attention.CHECK_TOLS``); its
+backward (dq, dk, dv) likewise (``flash_attention.grad_row_errors``)
+within ``flash_attention.BWD_CHECK_TOLS``.
 """
 
 import dataclasses
@@ -1056,6 +1058,81 @@ def test_flash_attention_counts_its_launches(cuda):
     ops.flash_attention(q, k, v, backend="ref")
     assert [ops.launch_counts()[key] for key in keys] == [before[0] + 1,
                                                           before[1] + 1]
+
+
+# ---------------------------------------------------------------------------
+# the flash backward (flash_attention.row_error within BWD_CHECK_TOLS)
+# ---------------------------------------------------------------------------
+
+def _bwd_inputs(bh_kv, g, s, d, seed, dtype, device):
+    """q, o, do (bh_kv * g, s, d) and k, v (bh_kv, s, d): o the plain
+    forward's output."""
+    rng = np.random.default_rng(seed)
+    q, do = (torch.from_numpy(rng.standard_normal((bh_kv * g, s, d))).to(
+        device, dtype) for _ in "qo")
+    k, v = (torch.from_numpy(rng.standard_normal((bh_kv, s, d))).to(
+        device, dtype) for _ in "kv")
+    return q, k, v, tref.flash_attention_ref(q, k, v), do
+
+
+@pytest.mark.cuda
+@pytest.mark.parametrize("s", [1, 63, 64, 65, 200, 1000])
+@pytest.mark.parametrize("g", [1, 4])
+@pytest.mark.parametrize("d", [8, 64, 96, 128])
+@pytest.mark.parametrize("dtype", ["float32", "bfloat16", "float16"])
+def test_flash_attention_bwd_matches_plain(cuda, dtype, d, g, s):
+    """dq, dk and dv of ``flash_attn_bwd.cu`` against the plain backward
+    across the ragged edge of its 64-row tiles, with k and v of BH or BH / 4
+    rows (dk, dv summed over the group); a repeat bit for bit."""
+    q, k, v, o, do = _bwd_inputs(2, g, s, d, s * d + g, torch_dtype(dtype),
+                                 cuda)
+    got = tflash.flash_attention_bwd_cuda(q, k, v, o, do)
+    again = tflash.flash_attention_bwd_cuda(q, k, v, o, do)
+    want = tref.flash_attention_bwd_ref(q, k, v, o, do)
+    torch.cuda.synchronize()
+    for g_, a_, w_ in zip(got, again, want):
+        assert g_.dtype == w_.dtype and g_.shape == w_.shape
+        assert torch.equal(g_, a_)
+    errs = tflash.grad_row_errors(got, want)
+    assert max(errs) <= tflash.BWD_CHECK_TOLS[dtype], (errs, dtype)
+
+
+@pytest.mark.cuda
+def test_flash_attention_autograd_launches_the_backward_kernel(cuda):
+    """Through ``ops.flash_attention`` under autograd on the card: the
+    forward kernel once, the backward kernel once, and the gradients those
+    of ``flash_attention_bwd_cuda`` on the saved output, bit for bit; the
+    "ref" backend launches neither."""
+    q, k, v, _, do = _bwd_inputs(2, 4, 130, 64, 5, torch.bfloat16, cuda)
+    leaves = [x.clone().requires_grad_() for x in (q, k, v)]
+    before = ops.launch_counts()
+    o = ops.flash_attention(*leaves)
+    o.backward(do)
+    after = ops.launch_counts()
+    assert after["flash_attention_wgmma"] == before["flash_attention_wgmma"] + 1
+    assert after["flash_attention_bwd"] == before["flash_attention_bwd"] + 1
+    want = tflash.flash_attention_bwd_cuda(q, k, v, o.detach(), do)
+    for x, w in zip(leaves, want):
+        assert torch.equal(x.grad, w)
+    ref_leaves = [x.clone().requires_grad_() for x in (q, k, v)]
+    ops.flash_attention(*ref_leaves, backend="ref").backward(do)
+    assert ops.launch_counts()["flash_attention_bwd"] == \
+        after["flash_attention_bwd"] + 1
+
+
+@pytest.mark.cuda
+def test_flash_attention_bwd_rejects_what_it_does_not_take(cuda):
+    q, k, v, o, do = _bwd_inputs(1, 2, 64, 32, 1, torch.float32, cuda)
+    with pytest.raises(ValueError, match="head dim"):
+        tflash.flash_attention_bwd_cuda(*(torch.zeros(
+            (x.shape[0], 64, 136), device=cuda) for x in (q, k, v, o, do)))
+    with pytest.raises(ValueError, match="shape"):
+        tflash.flash_attention_bwd_cuda(q, k, v, o[:, :32], do)
+    with pytest.raises(ValueError, match="CUDA"):
+        tflash.flash_attention_bwd_cuda(q.cpu(), k, v, o, do)
+    with pytest.raises(ValueError, match="contiguous"):
+        tflash.flash_attention_bwd_cuda(q, k, v, o, do.transpose(1, 2)
+                                        .contiguous().transpose(1, 2))
 
 
 def _grouped_inputs(bh_kv, g, s, d, seed, dtype, device):

@@ -74,7 +74,12 @@ def test_import_leaves_jax_out():
             "repro_torch.configs.granite_moe_3b_a800m",
             "repro_torch.configs.hymba_1_5b",
             "repro_torch.configs.rwkv6_1_6b",
-            "repro_torch.configs.whisper_medium"]
+            "repro_torch.configs.whisper_medium",
+            "repro_torch.configs.shapes", "repro_torch.train",
+            "repro_torch.train.tree", "repro_torch.train.optimizer",
+            "repro_torch.train.data", "repro_torch.train.checkpoint",
+            "repro_torch.train.ft", "repro_torch.train.spectral",
+            "repro_torch.train.trainer", "repro_torch.launch.train"]
     code = ("import importlib, sys\n"
             f"for m in {mods!r}: importlib.import_module(m)\n"
             "bad = [m for m in sys.modules if m.split('.')[0] in "
@@ -176,3 +181,43 @@ def test_dc_kernels_refuse_cpu_tensors_and_autotune_defaults_to_the_card():
         autotune_main(["--shapes", "n=16:bw=4", "--no-store"])
     with pytest.raises(RuntimeError, match="device='cpu'"):
         repro_torch.PipelineConfig.resolve(bw=4, n=16, autotune=True)
+
+
+def test_training_defaults_to_the_card():
+    """``launch.train`` and a Trainer of a default-built model run on the
+    card: without one they raise, naming ``device="cpu"``."""
+    from repro_torch.configs import smoke_of
+    from repro_torch.launch import train
+    from repro_torch.models import build
+    from repro_torch.train import AdamWConfig, Trainer
+    if torch.cuda.is_available():
+        tr = Trainer(build(smoke_of("granite-3-2b")), AdamWConfig())
+        state = tr.init_state(torch.Generator("cuda").manual_seed(0))
+        assert state["params"]["embed"].device.type == "cuda"
+        return
+    with pytest.raises(RuntimeError, match="device='cpu'"):
+        train.main(["--arch", "granite-3-2b", "--smoke", "--steps", "1"])
+    with pytest.raises(RuntimeError, match="device='cpu'"):
+        Trainer(build(smoke_of("granite-3-2b")), AdamWConfig())
+
+
+def test_flash_backward_on_a_cuda_tensor_launches_or_raises():
+    """``backend="cuda"`` for the backward takes CUDA tensors only, and the
+    kernel's wrapper refuses CPU tensors; nothing falls back."""
+    from repro_torch.kernels import flash_attention
+    q = torch.zeros(2, 8, 16)
+    k = torch.zeros(1, 8, 16)
+    with pytest.raises(ValueError, match="CUDA"):
+        ops.flash_attention_bwd(q, k, k, q, q, backend="cuda")
+    with pytest.raises(ValueError, match="CUDA"):
+        flash_attention.flash_attention_bwd_cuda(q, k, k, q, q)
+    leaves = [x.clone().requires_grad_() for x in (q, k, k)]
+    with pytest.raises(ValueError, match="CUDA"):
+        ops.flash_attention(*leaves, backend="cuda")
+    assert flash_attention.launches["flash_attention_bwd"] == 0 or \
+        torch.cuda.is_available()
+    if torch.cuda.is_available():
+        before = ops.launch_counts()["flash_attention_bwd"]
+        dev = [x.detach().cuda().requires_grad_() for x in (q, k, k)]
+        ops.flash_attention(*dev).sum().backward()
+        assert ops.launch_counts()["flash_attention_bwd"] == before + 1
