@@ -37,7 +37,8 @@ BUILD = Path(__file__).resolve().parent / "build"
 SOURCES = {"chase": "chase.cu", "sturm": "sturm.cu", "hh_apply": "hh_apply.cu",
            "fused_small": "fused_small.cu", "flash_attn": "flash_attn.cu",
            "flash_attn_wgmma": "flash_attn_wgmma.cu", "dc": "dc.cu",
-           "flash_attn_bwd": "flash_attn_bwd.cu"}
+           "flash_attn_bwd": "flash_attn_bwd.cu",
+           "flash_attn_bwd_wgmma": "flash_attn_bwd_wgmma.cu"}
 # No --use_fast_math: the kernels need IEEE division, sqrt and subnormals.
 FLAGS = ["-gencode", "arch=compute_90a,code=sm_90a", "-std=c++17", "-O3",
          "-shared", "-Xcompiler", "-fPIC", "-Xptxas", "-v"]

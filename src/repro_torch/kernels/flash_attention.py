@@ -19,15 +19,21 @@ kernel's tile is its own.
   two TF32 parts and a product is three TF32 products summed in fp32
   (3xTF32).  bf16 and fp16 values are exact in TF32.
 
-- ``flash_attention_bwd_cuda`` (``csrc/flash_attn_bwd.cu``): the gradients
-  dQ, dK, dV of that attention given o and dO, fp32, bf16 and fp16, 8 <= D
-  <= 128 with D a multiple of 8, every product on fp32 FMAs, dK and dV
-  summed over each KV row's g query rows in the kernel (no atomics, so a
-  repeat is bit for bit the same).  ``ops.flash_attention``'s backward.
+- ``flash_attention_bwd_wgmma_cuda`` (``csrc/flash_attn_bwd_wgmma.cu``):
+  the gradients dQ, dK, dV of that attention given o and dO, bf16 and fp16
+  with D in {64, 128}, every product on the tensor cores (wgmma on tiles
+  that TMA brings into shared memory), dK and dV summed over each KV row's
+  g query rows in the kernel (no atomics, so a repeat is bit for bit the
+  same).  P and dS are rounded to the storage type before the products
+  that take them.
+- ``flash_attention_bwd_cuda`` (``csrc/flash_attn_bwd.cu``): the same
+  gradients for fp32, bf16 and fp16, 8 <= D <= 128 with D a multiple of 8,
+  every product on fp32 FMAs.
 
-``kernel_for`` is the rule ``ops.flash_attention`` follows.  Each wrapper
-takes CUDA tensors only: it launches its kernel or raises, and counts the
-launch in ``launches`` under its own key.  The plain version
+``kernel_for`` is the rule ``ops.flash_attention`` follows,
+``bwd_kernel_for`` the rule of its backward.  Each wrapper takes CUDA
+tensors only: it launches its kernel or raises, and counts the launch in
+``launches`` under its own key.  The plain version
 ``ref.flash_attention_ref`` is chosen for CPU tensors by ``kernels/ops.py``,
 not here.  The libraries are built on first use.
 """
@@ -42,13 +48,14 @@ from repro_torch.kernels import _build
 from repro_torch.kernels.ref import gqa_group
 
 __all__ = ["flash_attention_cuda", "flash_attention_wgmma_cuda",
-           "flash_attention_bwd_cuda", "bwd_symbol", "kernel_for",
-           "launches", "row_error", "grad_row_errors",
+           "flash_attention_bwd_cuda", "flash_attention_bwd_wgmma_cuda",
+           "bwd_symbol", "kernel_for", "bwd_kernel_for", "launches",
+           "row_error", "grad_row_errors",
            "MAX_D", "MAX_BWD_D", "MAX_BH", "WGMMA_D", "CHECK_TOLS",
            "BWD_CHECK_TOLS", "PREFILL_TOLS"]
 
 launches = {"flash_attention": 0, "flash_attention_wgmma": 0,
-            "flash_attention_bwd": 0}
+            "flash_attention_bwd": 0, "flash_attention_bwd_wgmma": 0}
 
 # How the kernels are held against their plain version (the card tests,
 # chip_smoke.py and the CPU tests against the reference): ``row_error`` at
@@ -75,17 +82,19 @@ CHECK_TOLS = {"float32": 1e-5, "bfloat16": 3e-2, "float16": 1e-3}
 # bf16, 40 layers (flash_attn_wgmma.cu): sound 0.1117, faults 1.19-1.38.
 PREFILL_TOLS = {"float32": 3e-2, "bfloat16": 0.4}
 
-# How the backward kernel is held against its plain version
+# How the backward kernels are held against their plain version
 # (``ref.flash_attention_bwd_ref``) on the card: ``grad_row_errors`` of dQ,
 # dK and dV each at most BWD_CHECK_TOLS.  Both sides compute in fp32 from the
-# same inputs and round once to the storage type, so the sound reading is
-# the storage type's rounding and fp32 summation order.  Each limit sits
-# between the sound kernel and faults planted in copies of it (the dkdv
+# same inputs and round once to the storage type (the wgmma kernel also
+# rounds P and dS before their products), so the sound reading is the
+# storage type's rounding and fp32 summation order.  Each limit sits
+# between the sound kernels and faults planted in copies of each (the dkdv
 # mask off by one, a group's query row dropped from dK and dV, dq's
-# diagonal key tile dropped) at every case of ``chip_smoke.py``'s check,
-# from ``chip_smoke.py --flash-bwd-planted-faults`` on an H100 80GB HBM3 at
-# 700 W: sound fp32 1.9e-5, bf16 3.1e-3, fp16 5.3e-4; every fault 0.93 or
-# more.
+# diagonal key tiles dropped) at every case of ``chip_smoke.py``'s check
+# that the kernel takes, from ``chip_smoke.py --flash-bwd-planted-faults``
+# on an H100 80GB HBM3 at 700 W: flash_attn_bwd.cu sound fp32 1.9e-5, bf16
+# 3.2e-3, fp16 4.5e-4; flash_attn_bwd_wgmma.cu sound bf16 5.5e-3, fp16
+# 6.8e-4; every fault of either 0.96 or more.
 BWD_CHECK_TOLS = {"float32": 1e-4, "bfloat16": 3e-2, "float16": 4e-3}
 
 MAX_D = 256                 # flash_attn.cu's widest padded head (DP)
@@ -104,6 +113,14 @@ def kernel_for(dtype: torch.dtype, d: int) -> str:
     if dtype in (torch.bfloat16, torch.float16) and d in WGMMA_D:
         return "wgmma"
     return "simt"
+
+
+def bwd_kernel_for(dtype: torch.dtype, d: int) -> str:
+    """The backward kernel that takes causal attention of this storage type
+    and head width on the card: ``"wgmma"`` (``flash_attn_bwd_wgmma.cu``)
+    for bf16 and fp16 with D in {64, 128}, else ``"simt"``
+    (``flash_attn_bwd.cu``)."""
+    return kernel_for(dtype, d)
 
 
 def row_error(got: torch.Tensor, want: torch.Tensor) -> float:
@@ -167,8 +184,8 @@ def _check(q, k, v, dtypes, more=()) -> int:
     return gqa_group(q, k, v)
 
 
-def _check_aligned(q, k, v, why: str) -> None:
-    for name, x in (("q", q), ("k", k), ("v", v)):
+def _check_aligned(q, k, v, why: str, more=()) -> None:
+    for name, x in (("q", q), ("k", k), ("v", v), *more):
         if x.data_ptr() % 16:
             raise ValueError(f"{name} must start on a 16-byte boundary "
                              f"({why})")
@@ -225,24 +242,48 @@ def flash_attention_wgmma_cuda(q: torch.Tensor, k: torch.Tensor,
     return _launch("flash_attn_wgmma", "flash_attention_wgmma", q, k, v)
 
 
-def bwd_symbol(lib: ctypes.CDLL, dtype: torch.dtype):
-    """The C entry of ``flash_attn_bwd.cu`` for ``dtype`` in a loaded
-    library (the repository's build, or a copy of the source), its argument
-    types set: q, k, v, o, do, dq, dk, dv, lse, dsum, BH, BH / g, S, D,
-    scale, stream."""
-    f = getattr(lib, f"flash_attn_bwd_{_SUFFIX[dtype]}")
+def bwd_symbol(lib: ctypes.CDLL, dtype: torch.dtype,
+               source: str = "flash_attn_bwd"):
+    """The C entry of a backward source (``flash_attn_bwd`` or
+    ``flash_attn_bwd_wgmma``) for ``dtype`` in a loaded library (the
+    repository's build, or a copy of the source), its argument types set:
+    q, k, v, o, do, dq, dk, dv, lse, dsum, BH, BH / g, S, D, scale,
+    stream."""
+    f = getattr(lib, f"{source}_{_SUFFIX[dtype]}")
     p, i = ctypes.c_void_p, ctypes.c_int
     f.argtypes = [p] * 10 + [i, i, i, i, ctypes.c_float, p]
     f.restype = ctypes.c_int
     return f
 
 
-def _bwd_fn(dtype: torch.dtype):
-    f = _FNS.get(("flash_attn_bwd", dtype))
+def _bwd_fn(source: str, dtype: torch.dtype):
+    f = _FNS.get((source, dtype))
     if f is None:
-        f = _FNS[("flash_attn_bwd", dtype)] = bwd_symbol(
-            _build.load("flash_attn_bwd"), dtype)
+        f = _FNS[(source, dtype)] = bwd_symbol(_build.load(source), dtype,
+                                               source)
     return f
+
+
+def _bwd_launch(source: str, key: str, q, k, v, o, do):
+    """dq, dk, dv by one launch of a backward source (two kernels), with
+    an fp32 (BH, S) scratch of each row's log-sum-exp and dO . O between
+    them."""
+    bh, s, d = q.shape
+    dq, dk, dv = (torch.empty_like(x) for x in (q, k, v))
+    if bh * s:
+        lse, dsum = (torch.empty((bh, s), dtype=torch.float32,
+                                 device=q.device) for _ in "ld")
+        with torch.cuda.device(q.device):
+            stream = torch.cuda.current_stream().cuda_stream
+            err = _bwd_fn(source, q.dtype)(*(x.data_ptr() for x in (
+                q, k, v, o, do, dq, dk, dv, lse, dsum)), bh, k.shape[0], s,
+                d, 1.0 / d ** 0.5, stream)
+        if err != 0:
+            raise RuntimeError(f"{source}: error {err} (a CUDA error code; "
+                               f"100000 + a CUresult: a refused tensor map; "
+                               f"-1: no cuTensorMapEncodeTiled)")
+        _build.count_launch(launches, key)
+    return dq, dk, dv
 
 
 def flash_attention_bwd_cuda(q: torch.Tensor, k: torch.Tensor,
@@ -262,17 +303,29 @@ def flash_attention_bwd_cuda(q: torch.Tensor, k: torch.Tensor,
     if bh > MAX_BH:
         raise ValueError(f"BH = {bh}: the backward kernel takes at most "
                          f"{MAX_BH}")
-    dq, dk, dv = (torch.empty_like(x) for x in (q, k, v))
-    if bh * s:
-        lse, dsum = (torch.empty((bh, s), dtype=torch.float32,
-                                 device=q.device) for _ in "ld")
-        with torch.cuda.device(q.device):
-            stream = torch.cuda.current_stream().cuda_stream
-            err = _bwd_fn(q.dtype)(*(x.data_ptr() for x in (
-                q, k, v, o, do, dq, dk, dv, lse, dsum)), bh, k.shape[0], s,
-                d, 1.0 / d ** 0.5, stream)
-        if err != 0:
-            raise RuntimeError(f"flash_attn_bwd: error {err} (a CUDA error "
-                               f"code)")
-        _build.count_launch(launches, "flash_attention_bwd")
-    return dq, dk, dv
+    return _bwd_launch("flash_attn_bwd", "flash_attention_bwd", q, k, v, o,
+                       do)
+
+
+def flash_attention_bwd_wgmma_cuda(q: torch.Tensor, k: torch.Tensor,
+                                   v: torch.Tensor, o: torch.Tensor,
+                                   do: torch.Tensor):
+    """``flash_attn_bwd_wgmma.cu``: the gradients (dq, dk, dv) of causal
+    attention of contiguous bf16 or fp16 CUDA tensors, q, o, do (BH, S, D)
+    and k, v (BH / g, S, D), D in {64, 128}; what
+    :func:`flash_attention_bwd_cuda` returns, on the tensor cores, with P
+    and dS rounded to the storage type before the products that take
+    them."""
+    if q.dtype not in (torch.bfloat16, torch.float16):
+        raise ValueError(f"q: dtype {q.dtype}: the wgmma backward takes "
+                         f"bfloat16 and float16")
+    if q.shape[-1] not in WGMMA_D:
+        raise ValueError(f"head dim {q.shape[-1]}: the wgmma backward takes "
+                         f"D in {WGMMA_D}")
+    _check(q, k, v, (torch.bfloat16, torch.float16), (("o", o), ("do", do)))
+    if -(-q.shape[1] // 128) > _WGMMA_MAX_TILES:
+        raise ValueError(f"S = {q.shape[1]}: the wgmma backward takes at "
+                         f"most {_WGMMA_MAX_TILES * 128}")
+    _check_aligned(q, k, v, "TMA and 16-byte loads", (("o", o), ("do", do)))
+    return _bwd_launch("flash_attn_bwd_wgmma", "flash_attention_bwd_wgmma",
+                       q, k, v, o, do)

@@ -245,6 +245,8 @@ def _cuda_flash(q, k, v):
 
 def _cuda_flash_bwd(q, k, v, o, do):
     from repro_torch.kernels import flash_attention as fa
+    if fa.bwd_kernel_for(q.dtype, q.shape[-1]) == "wgmma":
+        return fa.flash_attention_bwd_wgmma_cuda(q, k, v, o, do)
     return fa.flash_attention_bwd_cuda(q, k, v, o, do)
 
 
@@ -438,8 +440,8 @@ class _FlashAttention(torch.autograd.Function):
     """Causal flash attention with its gradient: the forward is the
     backend's ``flash_attention`` op, the backward its
     ``flash_attention_bwd`` op on the saved q, k, v and o (on the card the
-    kernel of ``flash_attn_bwd.cu``; the plain version on the CPU or with
-    ``backend="ref"``).  Neither is differentiated by autograd."""
+    kernel that ``flash_attention.bwd_kernel_for`` names; the plain version
+    on the CPU or with ``backend="ref"``).  Neither is differentiated by autograd."""
 
     @staticmethod
     def forward(ctx, q, k, v, backend):
@@ -483,8 +485,10 @@ def flash_attention_bwd(q: torch.Tensor, k: torch.Tensor, v: torch.Tensor,
                         backend: str = "auto"):
     """The gradients (dq, dk, dv) of :func:`flash_attention` given its
     output o and the output's gradient do (q's shape): on a CUDA tensor one
-    launch of ``flash_attn_bwd.cu`` (two kernels), on the CPU the plain
-    version ``ref.flash_attention_bwd_ref``.  dk and dv are summed over the
+    launch (two kernels) of the backward kernel that
+    ``flash_attention.bwd_kernel_for`` names (``flash_attn_bwd_wgmma.cu``
+    for bf16 and fp16 at D in {64, 128}, else ``flash_attn_bwd.cu``), on
+    the CPU the plain version ``ref.flash_attention_bwd_ref``.  dk and dv are summed over the
     g query rows of each KV row."""
     return _impl("flash_attention_bwd", backend, None, q.device)(q, k, v, o,
                                                                  do)

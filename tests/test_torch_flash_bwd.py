@@ -161,3 +161,111 @@ def test_bwd_op_on_the_cpu_is_the_plain_version():
         assert torch.equal(a, b)
     with pytest.raises(ValueError, match="CUDA"):
         ops.flash_attention_bwd(q, k, v, o, do, backend="cuda")
+
+
+# ---------------------------------------------------------------------------
+# the backward's route on the card: which kernel takes which dtype and D
+# ---------------------------------------------------------------------------
+
+@pytest.mark.parametrize("dtype,d,want", [
+    (torch.bfloat16, 64, "wgmma"), (torch.bfloat16, 128, "wgmma"),
+    (torch.float16, 64, "wgmma"), (torch.float16, 128, "wgmma"),
+    (torch.float32, 64, "simt"), (torch.float32, 128, "simt"),
+    (torch.bfloat16, 32, "simt"), (torch.float16, 96, "simt"),
+    (torch.bfloat16, 8, "simt"), (torch.float32, 32, "simt")])
+def test_bwd_kernel_for_names_the_route(dtype, d, want):
+    from repro_torch.kernels import flash_attention as fa
+    assert fa.bwd_kernel_for(dtype, d) == want
+
+
+@pytest.mark.parametrize("dtype,d,want", [
+    (torch.bfloat16, 64, "wgmma"), (torch.float16, 128, "wgmma"),
+    (torch.float32, 64, "simt"), (torch.bfloat16, 96, "simt")])
+def test_cuda_backend_calls_the_routed_backward(monkeypatch, dtype, d, want):
+    """``ops._cuda_flash_bwd`` calls the wrapper that ``bwd_kernel_for``
+    names, and only that one."""
+    from repro_torch.kernels import flash_attention as fa
+    calls = []
+    for name, fn in (("wgmma", "flash_attention_bwd_wgmma_cuda"),
+                     ("simt", "flash_attention_bwd_cuda")):
+        monkeypatch.setattr(fa, fn, lambda *a, _n=name: calls.append(_n)
+                            or "ran")
+    q = torch.zeros(2, 5, d, dtype=dtype)
+    k = torch.zeros(1, 5, d, dtype=dtype)
+    assert ops._cuda_flash_bwd(q, k, k, q, q) == "ran"
+    assert calls == [want]
+
+
+@pytest.mark.parametrize("dtype,d,match", [
+    (torch.bfloat16, 64, "CUDA"), (torch.float16, 128, "CUDA"),
+    (torch.float32, 64, "dtype"), (torch.float64, 64, "dtype"),
+    (torch.bfloat16, 32, "head dim"), (torch.float16, 96, "head dim")])
+def test_bwd_wgmma_wrapper_raises_on_what_it_does_not_take(dtype, d, match):
+    """The wgmma backward's wrapper takes CUDA tensors of bf16 and fp16 at
+    D in {64, 128} only; it never falls back to ``flash_attn_bwd.cu`` or
+    the plain version, and counts nothing."""
+    from repro_torch.kernels import flash_attention as fa
+    q = torch.zeros(2, 8, d, dtype=dtype)
+    k = torch.zeros(1, 8, d, dtype=dtype)
+    before = dict(fa.launches)
+    with pytest.raises(ValueError, match=match):
+        fa.flash_attention_bwd_wgmma_cuda(q, k, k, q, q)
+    assert fa.launches == before
+
+
+def test_launch_counts_have_both_backward_kernels():
+    from repro_torch.kernels import _build
+    from repro_torch.kernels import flash_attention as fa
+    counts = ops.launch_counts()
+    for key in ("flash_attention_bwd", "flash_attention_bwd_wgmma"):
+        assert key in fa.launches and key in counts
+    assert _build.SOURCES["flash_attn_bwd_wgmma"] == "flash_attn_bwd_wgmma.cu"
+    assert (_build.CSRC / "flash_attn_bwd_wgmma.cu").is_file()
+
+
+def _chip_smoke():
+    import importlib.util
+    from pathlib import Path
+    path = Path(__file__).resolve().parents[1] / "chip_smoke.py"
+    spec = importlib.util.spec_from_file_location("chip_smoke_for_tests",
+                                                  path)
+    mod = importlib.util.module_from_spec(spec)
+    spec.loader.exec_module(mod)
+    return mod
+
+
+def test_bwd_planted_faults_edit_their_sources():
+    """Each fault of ``chip_smoke.FLASH_BWD_FAULTS`` names a backward source
+    and edits text that occurs there as often as it says; each source has
+    the same three faults."""
+    from repro_torch.kernels import _build
+    smoke = _chip_smoke()
+    by_source = {}
+    for fault, (source, edits) in smoke.FLASH_BWD_FAULTS.items():
+        text = (_build.CSRC / _build.SOURCES[source]).read_text()
+        for old, new, times in edits:
+            assert old != new and text.count(old) == times, (fault, old)
+        by_source.setdefault(source, []).append(
+            fault.removeprefix("wgmma_"))
+    assert by_source["flash_attn_bwd"] == by_source["flash_attn_bwd_wgmma"]
+    assert set(smoke.BWD_ROUTES) == {"wgmma", "simt"}
+
+
+def test_bwd_check_cases_reach_both_routes():
+    """``chip_smoke.bwd_check_cases`` holds the wgmma backward at granite's
+    shape, at D = 128 and at a ragged S with g > 1 in bf16 and fp16, and
+    ``flash_attn_bwd.cu`` at every fp32 case."""
+    from repro_torch.kernels import flash_attention as fa
+    smoke = _chip_smoke()
+    routed = {}
+    for bh, s, d, g, dname in smoke.bwd_check_cases():
+        route = fa.bwd_kernel_for(getattr(torch, dname), d)
+        routed.setdefault(route, []).append((bh, s, d, g, dname))
+    assert all(c[4] != "float32" for c in routed["wgmma"])
+    assert sum(c[4] == "float32" for c in routed["simt"]) == len(
+        smoke.bwd_check_cases()) // 3
+    for dname in ("bfloat16", "float16"):
+        cases = [c for c in routed["wgmma"] if c[4] == dname]
+        assert smoke.BWD_MAIN + (dname,) in cases
+        assert any(c[2] == 128 for c in cases)
+        assert any(c[1] % 128 and c[3] > 1 for c in cases)

@@ -1098,26 +1098,64 @@ def test_flash_attention_bwd_matches_plain(cuda, dtype, d, g, s):
 
 
 @pytest.mark.cuda
+@pytest.mark.parametrize("s", [64, 130, 300])
+@pytest.mark.parametrize("g", [1, 4, 5])
+@pytest.mark.parametrize("d", [64, 128])
+@pytest.mark.parametrize("dtype", ["bfloat16", "float16"])
+def test_flash_attention_bwd_wgmma_matches_plain(cuda, dtype, d, g, s):
+    """dq, dk and dv of ``flash_attn_bwd_wgmma.cu`` against the plain
+    backward across the ragged edge of its 64- and 128-row tiles, with k and
+    v of BH, BH / 4 or BH / 5 rows (dk, dv summed over the group); a repeat
+    bit for bit."""
+    q, k, v, o, do = _bwd_inputs(2, g, s, d, s * d + g, torch_dtype(dtype),
+                                 cuda)
+    got = tflash.flash_attention_bwd_wgmma_cuda(q, k, v, o, do)
+    again = tflash.flash_attention_bwd_wgmma_cuda(q, k, v, o, do)
+    want = tref.flash_attention_bwd_ref(q, k, v, o, do)
+    torch.cuda.synchronize()
+    for g_, a_, w_ in zip(got, again, want):
+        assert g_.dtype == w_.dtype and g_.shape == w_.shape
+        assert torch.equal(g_, a_)
+    errs = tflash.grad_row_errors(got, want)
+    assert max(errs) <= tflash.BWD_CHECK_TOLS[dtype], (errs, dtype)
+
+
+@pytest.mark.cuda
 def test_flash_attention_autograd_launches_the_backward_kernel(cuda):
-    """Through ``ops.flash_attention`` under autograd on the card: the
-    forward kernel once, the backward kernel once, and the gradients those
-    of ``flash_attention_bwd_cuda`` on the saved output, bit for bit; the
+    """Through ``ops.flash_attention`` under autograd on the card, bf16 at D
+    = 64: the forward kernel once, the wgmma backward kernel once and
+    ``flash_attn_bwd.cu`` never, and the gradients those of
+    ``flash_attention_bwd_wgmma_cuda`` on the saved output, bit for bit; the
     "ref" backend launches neither."""
     q, k, v, _, do = _bwd_inputs(2, 4, 130, 64, 5, torch.bfloat16, cuda)
     leaves = [x.clone().requires_grad_() for x in (q, k, v)]
+    keys = ("flash_attention_bwd_wgmma", "flash_attention_bwd")
     before = ops.launch_counts()
     o = ops.flash_attention(*leaves)
     o.backward(do)
     after = ops.launch_counts()
     assert after["flash_attention_wgmma"] == before["flash_attention_wgmma"] + 1
-    assert after["flash_attention_bwd"] == before["flash_attention_bwd"] + 1
-    want = tflash.flash_attention_bwd_cuda(q, k, v, o.detach(), do)
+    assert [after[key] - before[key] for key in keys] == [1, 0]
+    want = tflash.flash_attention_bwd_wgmma_cuda(q, k, v, o.detach(), do)
     for x, w in zip(leaves, want):
         assert torch.equal(x.grad, w)
     ref_leaves = [x.clone().requires_grad_() for x in (q, k, v)]
     ops.flash_attention(*ref_leaves, backend="ref").backward(do)
-    assert ops.launch_counts()["flash_attention_bwd"] == \
-        after["flash_attention_bwd"] + 1
+    assert [ops.launch_counts()[key] - after[key] for key in keys] == [1, 0]
+
+
+@pytest.mark.cuda
+def test_flash_attention_autograd_routes_fp32_to_the_fma_backward(cuda):
+    """fp32 at D = 64 and bf16 at D = 32 under autograd on the card: one
+    launch of ``flash_attn_bwd.cu`` each, none of the wgmma backward."""
+    keys = ("flash_attention_bwd", "flash_attention_bwd_wgmma")
+    for dtype, d in ((torch.float32, 64), (torch.bfloat16, 32)):
+        q, k, v, _, do = _bwd_inputs(1, 2, 70, d, 3, dtype, cuda)
+        leaves = [x.clone().requires_grad_() for x in (q, k, v)]
+        before = ops.launch_counts()
+        ops.flash_attention(*leaves).backward(do)
+        after = ops.launch_counts()
+        assert [after[key] - before[key] for key in keys] == [1, 0], dtype
 
 
 @pytest.mark.cuda
@@ -1133,6 +1171,23 @@ def test_flash_attention_bwd_rejects_what_it_does_not_take(cuda):
     with pytest.raises(ValueError, match="contiguous"):
         tflash.flash_attention_bwd_cuda(q, k, v, o, do.transpose(1, 2)
                                         .contiguous().transpose(1, 2))
+
+
+@pytest.mark.cuda
+def test_flash_attention_bwd_wgmma_rejects_what_it_does_not_take(cuda):
+    q, k, v, o, do = _bwd_inputs(1, 2, 64, 64, 1, torch.bfloat16, cuda)
+    with pytest.raises(ValueError, match="dtype"):
+        tflash.flash_attention_bwd_wgmma_cuda(q.float(), k.float(),
+                                              v.float(), o.float(),
+                                              do.float())
+    with pytest.raises(ValueError, match="head dim"):
+        tflash.flash_attention_bwd_wgmma_cuda(*(x[..., :32].contiguous()
+                                                for x in (q, k, v, o, do)))
+    with pytest.raises(ValueError, match="shape"):
+        tflash.flash_attention_bwd_wgmma_cuda(q, k, v, o[:, :32], do)
+    with pytest.raises(ValueError, match="16-byte"):
+        tflash.flash_attention_bwd_wgmma_cuda(q, k, v, o, torch.empty(
+            do.numel() + 1, dtype=do.dtype, device=cuda)[1:].view_as(do))
 
 
 def _grouped_inputs(bh_kv, g, s, d, seed, dtype, device):
