@@ -9,7 +9,7 @@
                            --svd-parts TREE | --svd-serve | --svd-fabric |
                            --lm-families | --lm-family-depths |
                            --lm-family-planted-faults | --train |
-                           --flash-bwd-planted-faults]
+                           --flash-bwd-planted-faults | --bwd-times TREE]
 
 Builds the port's CUDA kernels from ``src/repro_torch/kernels/csrc`` (one
 ``nvcc`` per source, all at once), holds each kernel against its plain
@@ -60,16 +60,19 @@ against attention in fp64 and decode against prefill; every layer in bf16
 each flash launch against its plain version and 8 Engine requests; for the
 MoE configs the share of routes that flip between the two paths.  The
 ``train`` phase holds the flash backward kernels against their plain
-version at granite-3-2b's training shape and the others above (each case
-through the kernel ``flash_attention.bwd_kernel_for`` routes it to:
-``flash_attn_bwd_wgmma.cu`` for bf16 and fp16 at D in {64, 128}, else
-``flash_attn_bwd.cu``, which is also held once at granite's shape in
-bf16), one fp32 step of granite-3-2b (two layers, full width)
-through the kernels against the same step through the plain versions,
-then trains granite-3-2b at full width and depth in bf16 for three AdamW
-steps through ``repro_torch.launch.train`` (batch 8 x 4096, two
-microbatches, the spectral monitor every step, a checkpoint), and runs the
-restart drill on the card.  Every phase prints
+version at granite-3-2b's and pixtral-12b's training shapes and the others
+above (each case through the kernel ``flash_attention.bwd_kernel_for``
+routes it to: ``flash_attn_bwd_wgmma.cu`` for bf16 and fp16 at D in {64,
+128}, else ``flash_attn_bwd.cu``), times each on its own route beside
+SDPA's backward (``flash_attn_bwd.cu`` in fp32 at granite's shape and in
+bf16 at pixtral's, D = 160), one fp32 step of granite-3-2b (two layers,
+full width) through the kernels against the same step through the plain
+versions, then trains granite-3-2b at full width and depth in bf16 for
+three AdamW steps through ``repro_torch.launch.train`` (batch 8 x 4096,
+two microbatches, the spectral monitor every step), pixtral-12b at its
+published widths with its depth cut to two layers for three Trainer steps
+(its 256 image tokens, head width 160 through ``flash_attn_bwd.cu``), and
+runs the restart drill on the card.  Every phase prints
 one JSON line; the line before the last two is the ``kernels``
 summary, then the card's name and power limit as ``nvidia-smi`` gives them,
 then ``{"ok": true, "device": ...}``.
@@ -416,6 +419,12 @@ def main() -> int:
                     "flash_attn_bwd.cu and flash_attn_bwd_wgmma.cu move dq, "
                     "dk, dv and the fp32 step's gradients (the readings behind BWD_CHECK_TOLS and "
                     "TRAIN_STEP_TOL), then exit")
+    ap.add_argument("--bwd-times", metavar="TREE", type=Path,
+                    help="only time this tree's flash_attn_bwd.cu against "
+                    "the one under TREE (another commit's checkout) in "
+                    "turns on one card, at fp32 granite-3-2b's and bf16 "
+                    "pixtral-12b's shapes, beside SDPA's backward, then "
+                    "exit")
     ap.add_argument("--dc-at-n16384", action="store_true",
                     help="run the whole script with stage 3 by dc also "
                     "on the fp32 n = 16384 matrix of phase 4, and the dc "
@@ -473,6 +482,8 @@ def main() -> int:
             return train_only(args, torch)
         if args.flash_bwd_planted_faults:
             return flash_bwd_planted_faults(args, torch)
+        if args.bwd_times:
+            return bwd_times(args, torch)
         if args.svd_serve:
             from repro_torch.kernels import _build
             _build.build_all()
@@ -3894,6 +3905,17 @@ TRAIN_CHECK = (2, 1, 2048)        # layers, b, s of the fp32 step check
 # granite's training shape a launch: the microbatch of 4 x 32 query heads
 # of 64 against 4 x 8 KV heads (g = 4), S = 4096
 BWD_MAIN = (128, TRAIN_SEQ, 64, 4)
+# pixtral-12b's shape a layer at b = 1: 32 query heads of 5120 / 32 = 160
+# against 8 KV heads (g = 4), S = 4096; D = 160 has no wgmma backward
+BWD_PIXTRAL = (32, TRAIN_SEQ, 160, 4)
+# flash_attn_bwd.cu timed on its own route: fp32 at granite's shape, bf16 at
+# pixtral's
+BWD_SIMT_TIMED = ((BWD_MAIN, "float32"), (BWD_PIXTRAL, "bfloat16"))
+# pixtral-12b at its published widths, its depth cut to PIXTRAL_LAYERS of
+# 40, through Trainer steps: batch, text tokens a row (its 256 image tokens
+# come first, so attention sees TRAIN_SEQ), microbatches, steps
+PIXTRAL_ARCH, PIXTRAL_LAYERS = "pixtral-12b", 2
+PIXTRAL_BATCH, PIXTRAL_TEXT, PIXTRAL_ACCUM, PIXTRAL_STEPS = 2, 3840, 2, 3
 # How the fp32 two-layer step through the kernels is held against the same
 # step through the plain versions: the largest over leaves of max |g -
 # g_plain| / max |g_plain|, and the loss's relative difference.  Under the
@@ -3911,18 +3933,16 @@ TRAIN_STEP_TOL = 0.15
 # second walk without the key tiles that cut the diagonal.
 FLASH_BWD_FAULTS = {
     "dkdv_mask_off_by_one": ("flash_attn_bwd", [(
-        "const bool live = key <= row && row < S && key < S;",
-        "const bool live = key <= row + 1 && row < S && key < S;", 1)]),
+        "const bool live = key <= query && query < S;",
+        "const bool live = key <= query + 1 && query < S;", 1)]),
+    # the loads and the walk share n_iters
     "dkdv_group_row_dropped": ("flash_attn_bwd", [(
-        "  for (int h = 0; h < g; ++h) {",
-        "  for (int h = 0; h < (g > 1 ? g - 1 : g); ++h) {", 1)]),
+        "const int n_iters = g_rows * n_qt;",
+        "const int n_iters = (g_rows > 1 ? g_rows - 1 : g_rows) * n_qt;",
+        1)]),
     "dq_diagonal_tile_dropped": ("flash_attn_bwd", [(
-        "  for (int kt = 0; kt <= tile; ++kt) {\n    const int k0 = kt * kB;"
-        "\n    __syncthreads();\n    load_tile(sK, ld, k + kv_base, S, D, "
-        "k0);\n    load_tile(sV",
-        "  for (int kt = 0; kt < tile; ++kt) {\n    const int k0 = kt * kB;"
-        "\n    __syncthreads();\n    load_tile(sK, ld, k + kv_base, S, D, "
-        "k0);\n    load_tile(sV", 1)]),
+        "const bool ds_tile = wr < S && k0 <= wr + 15;",
+        "const bool ds_tile = wr < S && k0 + BK <= wr;", 1)]),
     "wgmma_dkdv_mask_off_by_one": ("flash_attn_bwd_wgmma", [(
         "const bool live = key <= col && col < S;",
         "const bool live = key <= col + 1 && col < S;", 1)]),
@@ -3945,13 +3965,14 @@ BWD_ROUTES = {"wgmma": ("flash_attention_bwd_wgmma_cuda",
 
 def bwd_check_cases() -> list:
     """(BH, S, D, g, dtype) of the backward kernels' checks: granite's
-    training shape BWD_MAIN, the ``lm_families`` shapes, FLASH_SHAPES at
-    g = 1, (8, 300, 32, 4), (8, 300, 64, 4) and phi3's FLASH_MAIN at g =
-    4, each in fp32, bf16 and fp16."""
-    shapes = ([BWD_MAIN] + family_flash_shapes()
+    training shape BWD_MAIN, pixtral's BWD_PIXTRAL, the ``lm_families``
+    shapes, FLASH_SHAPES at g = 1, (8, 300, 32, 4), (8, 300, 64, 4), (8,
+    1000, 256, 4) and phi3's FLASH_MAIN at g = 4, each in fp32, bf16 and
+    fp16."""
+    shapes = ([BWD_MAIN, BWD_PIXTRAL] + family_flash_shapes()
               + [sh + (1,) for sh in FLASH_SHAPES]
               + [(8, 300, 32, FLASH_GROUP), (8, 300, 64, FLASH_GROUP),
-                 FLASH_MAIN + (FLASH_GROUP,)])
+                 (8, 1000, 256, FLASH_GROUP), FLASH_MAIN + (FLASH_GROUP,)])
     return [sh + (dn,) for sh in shapes
             for dn in ("float32", "bfloat16", "float16")]
 
@@ -3988,22 +4009,68 @@ def bwd_errors(torch, got, want) -> list:
     return flash_attention.grad_row_errors(got, want)
 
 
-def planted_bwd(torch, libs: dict, fault: str, q, k, v, o, do):
-    """The gradients by the copy of FLASH_BWD_FAULTS' ``fault`` in ``libs``
-    (``build_copies``), called as the wrapper calls the repository's build
-    (not counted as a launch)."""
+def lib_bwd(torch, lib, source: str, label: str, q, k, v, o, do):
+    """The gradients by the C entry of backward ``source`` in the loaded
+    library ``lib`` (a copy with a planted fault, ``build_copies``, or
+    another tree's build), called as the wrapper calls the repository's
+    build (not counted as a launch)."""
     from repro_torch.kernels import flash_attention
     bh, s_len, d = q.shape
     dq, dk, dv = (torch.empty_like(x) for x in (q, k, v))
     lse, dsum = (torch.empty((bh, s_len), dtype=torch.float32,
                              device=q.device) for _ in "ld")
-    fn = flash_attention.bwd_symbol(libs[fault], q.dtype,
-                                    FLASH_BWD_FAULTS[fault][0])
+    fn = flash_attention.bwd_symbol(lib, q.dtype, source)
     err = fn(*(x.data_ptr() for x in (q, k, v, o, do, dq, dk, dv, lse,
                                       dsum)), bh, k.shape[0], s_len, d,
              1.0 / d ** 0.5, torch.cuda.current_stream().cuda_stream)
-    check(err == 0, f"{fault}: error {err}")
+    check(err == 0, f"{label}: error {err}")
     return dq, dk, dv
+
+
+def bwd_time(torch, rng, name: str, kernels, shape, dname: str,
+             iters: int) -> dict:
+    """Backward kernel ``name``'s time at ``shape`` (BH, S, D, g) in
+    ``dname`` (CUDA events over ``iters`` calls, and torch.profiler over its
+    ``kernels``), beside the plain version, SDPA's backward in the same
+    dtype and the bound.  SDPA's backward runs is_causal on the KV heads
+    repeated to the query heads (its dk, dv per query head, not summed over
+    the group), as a yardstick only."""
+    import torch.nn.functional as tnf
+
+    from repro_torch.kernels import flash_attention, ref
+    bh, s, d, g = shape
+    q, k, v, o, do = bwd_inputs(torch, rng, bh, s, d, g, dname)
+    fn = getattr(flash_attention, name)
+
+    def call():
+        return fn(q, k, v, o, do)
+    events = gpu_ms(torch, call, iters=iters, warmup=1)
+    prof = profiler_ms(torch, call, kernels, min(iters, 5))
+    plain = gpu_ms(torch, lambda: ref.flash_attention_bwd_ref(q, k, v, o, do),
+                   iters=2, warmup=1)
+    lq, lk, lv = (x[None].detach().requires_grad_() for x in (
+        q, k.repeat_interleave(g, 0), v.repeat_interleave(g, 0)))
+    lo = tnf.scaled_dot_product_attention(lq, lk, lv, is_causal=True)
+
+    def library_call():
+        return torch.autograd.grad(lo, (lq, lk, lv), do[None],
+                                   retain_graph=True)
+    library = gpu_ms(torch, library_call, iters=iters, warmup=1)
+    lib_kernels = profiler_ms(torch, library_call, "", 2)
+    itemsize = q.element_size()
+    del q, k, v, o, do, lq, lk, lv, lo
+    torch.cuda.empty_cache()
+    return dict(shape=f"q, o, dO ({bh},{s},{d}), k and v ({bh // g},{s},{d})"
+                      f" {dname}, causal, g = {g}",
+                ms=prof[0] if prof is not None else events,
+                ms_from="torch.profiler" if prof is not None else
+                "cuda events", events_ms=events,
+                kernels_per_call=prof and prof[1],
+                ms_by_kernel=prof and prof[2], plain_ms=plain,
+                library_ms=library, library_kernels=lib_kernels,
+                bound=bwd_bound(bh, bh // g, s, d, dname, itemsize),
+                fma_bound_ms=bwd_bound(bh, bh // g, s, d, dname, itemsize,
+                                       fma=True)[0])
 
 
 def train_step_check(torch, gen, seed: int, drive=None, lib=None) -> dict:
@@ -4124,7 +4191,6 @@ def train_phase(args, torch, drive, gen, smi_line: str) -> dict:
     kernels line ({"timing", "worst", "main_err"}, each by wrapper name)."""
     import numpy as np
 
-    import torch.nn.functional as tnf
     from repro_torch.kernels import flash_attention, ref
     from repro_torch.launch import train as ltrain
 
@@ -4133,15 +4199,12 @@ def train_phase(args, torch, drive, gen, smi_line: str) -> dict:
     names = [w for w, _ in BWD_ROUTES.values()]
 
     # ---- (1) the backward kernels against their plain version: each case
-    # through the kernel its route names, and flash_attn_bwd.cu once more
-    # at granite's shape in bf16 ----------------------------------------
+    # through the kernel its route names -----------------------------------
     reads = []
     worst = {n: 0.0 for n in names}
     main_err = {n: 0.0 for n in names}
-    cases = [(c, None) for c in bwd_check_cases()] + [
-        (BWD_MAIN + ("bfloat16",), "simt")]
-    for (bh, s, d, g, dname), route in cases:
-        name = BWD_ROUTES[route or flash_attention.bwd_kernel_for(
+    for bh, s, d, g, dname in bwd_check_cases():
+        name = BWD_ROUTES[flash_attention.bwd_kernel_for(
             getattr(torch, dname), d)][0]
         fn = getattr(flash_attention, name)
         q, k, v, o, do = bwd_inputs(torch, rng, bh, s, d, g, dname)
@@ -4159,7 +4222,9 @@ def train_phase(args, torch, drive, gen, smi_line: str) -> dict:
         check(same, f"{name} at {(bh, s, d, g, dname)}: a repeat is not "
               f"bit for bit")
         worst[name] = max(worst[name], max(errs) / tol)
-        if (bh, s, d, g) == BWD_MAIN and dname == "bfloat16":
+        # each kernel's max |err| at the shape and dtype it is timed at
+        if ((bh, s, d, g), dname) in ((BWD_MAIN, "bfloat16"),
+                                      *BWD_SIMT_TIMED[:1]):
             main_err[name] = max(float((g_.double() - w_.double()).abs()
                                        .max()) for g_, w_ in zip(got, want))
         del q, k, v, o, do, got, again, want
@@ -4168,44 +4233,17 @@ def train_phase(args, torch, drive, gen, smi_line: str) -> dict:
           "worst_err_over_tol": worst,
           "seconds": round(time.perf_counter() - t_phase, 3)})
 
-    # ---- both backward kernels' time at granite's training shape --------
-    bh, s, d, g = BWD_MAIN
-    q, k, v, o, do = bwd_inputs(torch, rng, bh, s, d, g, "bfloat16")
-    plain = gpu_ms(torch, lambda: ref.flash_attention_bwd_ref(q, k, v, o, do),
-                   iters=2, warmup=1)
-    # the library yardstick: scaled_dot_product_attention's backward, is_causal,
-    # on q and the KV heads repeated to the query heads (its dk, dv per
-    # query head, not summed over the group)
-    lq, lk, lv = (x[None].detach().requires_grad_() for x in (
-        q, k.repeat_interleave(g, 0), v.repeat_interleave(g, 0)))
-    lo = tnf.scaled_dot_product_attention(lq, lk, lv, is_causal=True)
-    library = gpu_ms(torch, lambda: torch.autograd.grad(
-        lo, (lq, lk, lv), do[None], retain_graph=True), iters=5, warmup=1)
-    lib_kernels = profiler_ms(torch, lambda: torch.autograd.grad(
-        lo, (lq, lk, lv), do[None], retain_graph=True), "", 2)
-    timing = {}
-    for name, kernels, iters in (
-            ("flash_attention_bwd_wgmma_cuda", BWD_WGMMA_KERNELS, 20),
-            ("flash_attention_bwd_cuda", BWD_KERNELS, 5)):
-        fn = getattr(flash_attention, name)
-
-        def call():
-            return fn(q, k, v, o, do)
-        events = gpu_ms(torch, call, iters=iters, warmup=1)
-        prof = profiler_ms(torch, call, kernels, 5)
-        timing[name] = dict(
-            shape=f"q, o, dO ({bh},{s},{d}), k and v ({bh // g},{s},{d}) "
-                  f"bfloat16, causal, g = {g}",
-            ms=prof[0] if prof is not None else events,
-            ms_from="torch.profiler" if prof is not None else "cuda events",
-            events_ms=events, kernels_per_call=prof and prof[1],
-            ms_by_kernel=prof and prof[2], plain_ms=plain,
-            library_ms=library, library_kernels=lib_kernels,
-            bound=bwd_bound(bh, bh // g, s, d, "bfloat16", 2),
-            fma_bound_ms=bwd_bound(bh, bh // g, s, d, "bfloat16", 2,
-                                   fma=True)[0])
-    del q, k, v, o, do, lq, lk, lv, lo
-    torch.cuda.empty_cache()
+    # ---- each backward kernel's time on its own route: the wgmma one at
+    # granite's shape in bf16, flash_attn_bwd.cu at granite's in fp32 and at
+    # pixtral's in bf16 (its second shape) -----------------------------------
+    timing = {"flash_attention_bwd_wgmma_cuda": bwd_time(
+        torch, rng, "flash_attention_bwd_wgmma_cuda", BWD_WGMMA_KERNELS,
+        BWD_MAIN, "bfloat16", 20)}
+    for (shape, dname), key in zip(BWD_SIMT_TIMED, (
+            "flash_attention_bwd_cuda",
+            "flash_attention_bwd_cuda (second shape)")):
+        timing[key] = bwd_time(torch, rng, "flash_attention_bwd_cuda",
+                               BWD_KERNELS, shape, dname, 5)
     for name, t in timing.items():
         emit({"phase": "train_bwd_time", "ok": True, "card": smi_line,
               "kernel": name,
@@ -4252,7 +4290,7 @@ def train_phase(args, torch, drive, gen, smi_line: str) -> dict:
           and run["launches"]["flash_attention_bwd"] == 0
           and run["launches"]["flash_attention_wgmma"] == 2 * micro
           and run["launches"]["flash_attention"] == 0,
-          f"granite run: expected {micro} wgmma backward, no FMA backward "
+          f"granite run: expected {micro} wgmma backward, no flash_attn_bwd.cu "
           f"and {2 * micro} forward launches (remat), got "
           f"{run['launches']}")
     lines = out["lines"]
@@ -4277,7 +4315,10 @@ def train_phase(args, torch, drive, gen, smi_line: str) -> dict:
                        "flash_attention_bwd": 0,
                        "flash_attention_wgmma": 2 * micro}})
 
-    # ---- (4) the restart drill -------------------------------------------
+    # ---- (4) pixtral-12b at its published widths, depth cut --------------
+    pixtral_steps(args, torch, drive, smi_line)
+
+    # ---- (5) the restart drill -------------------------------------------
     t0 = time.perf_counter()
     drill = restart_drill(torch, args.seed)
     emit({"phase": "train_restart_drill", "ok": True, **drill,
@@ -4285,6 +4326,157 @@ def train_phase(args, torch, drive, gen, smi_line: str) -> dict:
     emit({"phase": "train", "ok": True,
           "seconds": round(time.perf_counter() - t_phase, 3)})
     return {"timing": timing, "worst": worst, "main_err": main_err}
+
+
+def pixtral_steps(args, torch, drive, smi_line: str) -> None:
+    """pixtral-12b at its published widths (head width 160), PIXTRAL_LAYERS
+    of its 40 layers, bf16, its 256 image tokens (random, from the seed)
+    before PIXTRAL_TEXT text tokens a row: PIXTRAL_STEPS Trainer steps
+    (``Model.loss_fn``, backward, AdamW) of PIXTRAL_BATCH rows in
+    PIXTRAL_ACCUM microbatches.  Every backward launch is
+    ``flash_attn_bwd.cu``'s, every forward ``flash_attn.cu``'s (remat: two a
+    layer); one JSON line."""
+    import dataclasses
+
+    from repro_torch.configs import get_config
+    from repro_torch.models import build
+    from repro_torch.train import AdamWConfig, DataConfig, Trainer, batch_at
+    full = get_config(PIXTRAL_ARCH)
+    cfg = dataclasses.replace(full, n_layers=PIXTRAL_LAYERS)
+    torch.cuda.empty_cache()
+    torch.cuda.reset_peak_memory_stats()
+    t0 = time.perf_counter()
+    trainer = Trainer(build(cfg, device="cuda"), AdamWConfig(
+        peak_lr=1e-3, warmup_steps=1, total_steps=PIXTRAL_STEPS),
+        accum=PIXTRAL_ACCUM)
+    gen = torch.Generator(device="cuda").manual_seed(args.seed)
+    state = trainer.init_state(gen)
+    images = torch.randn((PIXTRAL_BATCH, cfg.n_img_tokens, cfg.d_model),
+                         generator=gen, device="cuda",
+                         dtype=cfg.param_dtype)
+    dc = DataConfig(vocab=cfg.vocab, seq_len=PIXTRAL_TEXT,
+                    global_batch=PIXTRAL_BATCH, seed=17)
+
+    def steps():
+        st, lines, step_s = state, [], []
+        for step in range(PIXTRAL_STEPS):
+            ts = time.perf_counter()
+            batch = {k: torch.as_tensor(v, device="cuda")
+                     for k, v in batch_at(dc, step).items()}
+            batch["images"] = images
+            st, metrics = trainer.step(st, batch)
+            lines.append({"step": step, "loss": float(metrics["loss"]),
+                          "grad_norm": float(metrics["grad_norm"]),
+                          "lr": float(metrics["lr"])})
+            step_s.append(time.perf_counter() - ts)
+        return lines, step_s
+    (lines, step_s), run = drive(
+        f"{PIXTRAL_ARCH} bf16 {PIXTRAL_LAYERS} of {full.n_layers} layers, "
+        f"{PIXTRAL_STEPS} Trainer steps of batch {PIXTRAL_BATCH} x "
+        f"({cfg.n_img_tokens} image + {PIXTRAL_TEXT} text tokens), accum "
+        f"{PIXTRAL_ACCUM}", steps, ["flash_attention", "flash_attention_bwd"])
+    peak = torch.cuda.max_memory_allocated() / 2 ** 30
+    micro = PIXTRAL_LAYERS * PIXTRAL_ACCUM * PIXTRAL_STEPS
+    expected = {"flash_attention_bwd": micro, "flash_attention_bwd_wgmma": 0,
+                "flash_attention": 2 * micro, "flash_attention_wgmma": 0}
+    check(all(run["launches"][k] == n for k, n in expected.items()),
+          f"pixtral run: expected {expected}, got {run['launches']}")
+    check(len(lines) == PIXTRAL_STEPS and all(
+        math.isfinite(ln["loss"]) and math.isfinite(ln["grad_norm"])
+        for ln in lines), f"pixtral run: a step not finite: {lines}")
+    positions = PIXTRAL_BATCH * (cfg.n_img_tokens + PIXTRAL_TEXT)
+    steady = step_s[1:] or step_s
+    emit({"phase": "train_pixtral", "ok": True, "card": smi_line,
+          "config": f"{PIXTRAL_ARCH} (mistralai/Pixtral-12B-2409 backbone): "
+                    f"d {cfg.d_model}, {cfg.n_heads} heads of "
+                    f"{cfg.head_dim}, {cfg.n_kv} KV heads, d_ff {cfg.d_ff}, "
+                    f"vocab {cfg.vocab}, {cfg.n_img_tokens} image tokens, "
+                    f"bf16; depth cut to {PIXTRAL_LAYERS} of "
+                    f"{full.n_layers} layers",
+          "steps": lines, "step_s": step_s,
+          "positions_per_step": positions,
+          "tokens_per_s_after_first": positions / (sum(steady) / len(steady)),
+          "text_tokens_per_s_after_first": PIXTRAL_BATCH * PIXTRAL_TEXT / (
+              sum(steady) / len(steady)),
+          "peak_gib": peak, "launches": run["launches"],
+          "expected": expected,
+          "seconds": round(time.perf_counter() - t0, 3)})
+    del trainer, state, images
+    torch.cuda.empty_cache()
+
+
+def bwd_times(args, torch) -> int:
+    """``--bwd-times TREE``: this tree's ``flash_attn_bwd.cu`` against the
+    one under TREE (another commit's checkout), both built here, on one card
+    in turns (TREE, this, this, TREE; CUDA events over 5 calls each) at each
+    shape of BWD_SIMT_TIMED that each takes, beside the plain version's
+    errors, SDPA's backward in the same dtype and the bound; one JSON line
+    per shape (no ``ok`` line)."""
+    import ctypes
+    import tempfile
+
+    import numpy as np
+
+    import torch.nn.functional as tnf
+    from repro_torch.kernels import _build, flash_attention, ref
+    torch.backends.cuda.matmul.allow_tf32 = False
+    _build.build_all(["flash_attn_bwd"])
+    # both sources built here once more, for the other's library and both
+    # compilers' register and spill lines
+    tmp = tempfile.TemporaryDirectory()
+    procs = {}
+    for who, tree in (("this", ROOT), ("other", args.bwd_times.resolve())):
+        cu, so = (Path(tmp.name) / f"{who}{ext}" for ext in (".cu", ".so"))
+        cu.write_text((tree / BWD_SOURCE).read_text())
+        procs[who] = (subprocess.Popen(
+            _build.nvcc_command(cu, so), stdout=subprocess.PIPE,
+            stderr=subprocess.STDOUT, text=True), so)
+    logs = {}
+    for who, (proc, so) in procs.items():
+        logs[who], _ = proc.communicate()
+        check(proc.returncode == 0, f"{who}: nvcc failed:\n{logs[who]}")
+    other = ctypes.CDLL(str(procs["other"][1]))
+    smi = smi_name()
+    emit({"phase": "build", **{f"ptxas_{who}": ptxas_lines({who: log})
+                               for who, log in logs.items()}})
+    rng = np.random.default_rng(args.seed)
+    for shape, dname in BWD_SIMT_TIMED:
+        bh, s, d, g = shape
+        q, k, v, o, do = bwd_inputs(torch, rng, bh, s, d, g, dname)
+        want = ref.flash_attention_bwd_ref(q, k, v, o, do)
+        fns = {"this": lambda: flash_attention.flash_attention_bwd_cuda(
+                   q, k, v, o, do),
+               "other": lambda: lib_bwd(torch, other, "flash_attn_bwd",
+                                        str(args.bwd_times), q, k, v, o, do)}
+        row = {"tree": str(args.bwd_times), "card": smi,
+               "shape": [bh, s, d, g, dname], "errors": {}, "ms": {}}
+        for who, fn in fns.items():
+            try:
+                got = fn()
+                torch.cuda.synchronize()
+                row["errors"][who] = bwd_errors(torch, got, want)
+                row["ms"][who] = []
+            except (PhaseFailed, ValueError) as exc:
+                row["errors"][who] = f"refused: {exc}"
+        for who in ("other", "this", "this", "other"):
+            if who in row["ms"]:
+                row["ms"][who].append(gpu_ms(torch, fns[who], iters=5,
+                                             warmup=1))
+        prof = profiler_ms(torch, fns["this"], BWD_KERNELS, 3)
+        row["this_ms_by_kernel"] = prof and prof[2]
+        lq, lk, lv = (x[None].detach().requires_grad_() for x in (
+            q, k.repeat_interleave(g, 0), v.repeat_interleave(g, 0)))
+        lo = tnf.scaled_dot_product_attention(lq, lk, lv, is_causal=True)
+        row["sdpa_bwd_ms"] = gpu_ms(torch, lambda: torch.autograd.grad(
+            lo, (lq, lk, lv), do[None], retain_graph=True), iters=5,
+            warmup=1)
+        bound = bwd_bound(bh, bh // g, s, d, dname, q.element_size())
+        row["bound"] = {"ms": bound[0], "by": bound[1], "flops": bound[3]}
+        emit(row)
+        del q, k, v, o, do, want, lq, lk, lv, lo
+        torch.cuda.empty_cache()
+    tmp.cleanup()
+    return 0
 
 
 def train_only(args, torch) -> int:
@@ -4365,7 +4557,8 @@ def flash_bwd_planted_faults(args, torch) -> int:
                 for fault, (src, _) in FLASH_BWD_FAULTS.items():
                     if src != source or ("group" in fault and case[3] == 1):
                         continue
-                    got = planted_bwd(torch, libs, fault, q, k, v, o, do)
+                    got = lib_bwd(torch, libs[fault], src, fault, q, k, v,
+                                  o, do)
                     faults.setdefault(name, {}).setdefault(fault, []).append(
                         (max(bwd_errors(torch, got, want)), case))
             del q, k, v, o, do, want, got

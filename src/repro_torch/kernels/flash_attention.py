@@ -27,8 +27,9 @@ kernel's tile is its own.
   same).  P and dS are rounded to the storage type before the products
   that take them.
 - ``flash_attention_bwd_cuda`` (``csrc/flash_attn_bwd.cu``): the same
-  gradients for fp32, bf16 and fp16, 8 <= D <= 128 with D a multiple of 8,
-  every product on fp32 FMAs.
+  gradients for fp32, bf16 and fp16, 8 <= D <= 256 with D a multiple of 8,
+  every product on the tensor cores at fp32 accuracy (3xTF32, as
+  ``flash_attn.cu``; P and dS kept in fp32 and split).
 
 ``kernel_for`` is the rule ``ops.flash_attention`` follows,
 ``bwd_kernel_for`` the rule of its backward.  Each wrapper takes CUDA
@@ -92,13 +93,15 @@ PREFILL_TOLS = {"float32": 3e-2, "bfloat16": 0.4}
 # mask off by one, a group's query row dropped from dK and dV, dq's
 # diagonal key tiles dropped) at every case of ``chip_smoke.py``'s check
 # that the kernel takes, from ``chip_smoke.py --flash-bwd-planted-faults``
-# on an H100 80GB HBM3 at 700 W: flash_attn_bwd.cu sound fp32 1.9e-5, bf16
-# 3.2e-3, fp16 4.5e-4; flash_attn_bwd_wgmma.cu sound bf16 5.5e-3, fp16
-# 6.8e-4; every fault of either 0.96 or more.
+# on an H100 80GB HBM3 at 700 W: flash_attn_bwd.cu on 3xTF32 sound fp32
+# 5.1e-5 (dq; dk and dv 3e-6: the rows that are zero in exact arithmetic,
+# held to the floor, read the tensor cores' summation), bf16 2.8e-3, fp16
+# 4.5e-4 (on fp32 FMAs 1.9e-5, 3.2e-3, 4.5e-4); flash_attn_bwd_wgmma.cu
+# sound bf16 5.7e-3, fp16 7.0e-4; every fault of either 0.92 or more.
 BWD_CHECK_TOLS = {"float32": 1e-4, "bfloat16": 3e-2, "float16": 4e-3}
 
 MAX_D = 256                 # flash_attn.cu's widest padded head (DP)
-MAX_BWD_D = 128             # flash_attn_bwd.cu's widest head
+MAX_BWD_D = 256             # flash_attn_bwd.cu's widest head
 MAX_BH = 65535              # flash_attn.cu: one grid row per (batch, head)
 WGMMA_D = (64, 128)         # the head widths flash_attn_wgmma.cu takes
 _WGMMA_MAX_TILES = 65535    # flash_attn_wgmma.cu: grid y, 128 rows a tile
@@ -291,18 +294,19 @@ def flash_attention_bwd_cuda(q: torch.Tensor, k: torch.Tensor,
                              do: torch.Tensor):
     """``flash_attn_bwd.cu``: the gradients (dq, dk, dv) of causal attention
     of contiguous CUDA tensors of one dtype, q, o, do (BH, S, D) and k, v
-    (BH / g, S, D), 8 <= D <= 128 with D % 8 == 0; new tensors of that
+    (BH / g, S, D), 8 <= D <= 256 with D % 8 == 0; new tensors of that
     dtype, dk and dv summed over the g query rows of each KV row.  Two
     kernels a launch (dq, then dk and dv), with an fp32 (BH, S) scratch of
     each row's log-sum-exp and dO . O between them."""
-    _check(q, k, v, tuple(_SUFFIX), (("o", o), ("do", do)))
-    bh, s, d = q.shape
+    d = q.shape[-1]
     if not (8 <= d <= MAX_BWD_D and d % 8 == 0):
         raise ValueError(f"head dim {d}: the backward kernel takes 8 <= D <= "
                          f"{MAX_BWD_D} with D % 8 == 0")
-    if bh > MAX_BH:
-        raise ValueError(f"BH = {bh}: the backward kernel takes at most "
-                         f"{MAX_BH}")
+    _check(q, k, v, tuple(_SUFFIX), (("o", o), ("do", do)))
+    if q.shape[0] > MAX_BH:
+        raise ValueError(f"BH = {q.shape[0]}: the backward kernel takes at "
+                         f"most {MAX_BH}")
+    _check_aligned(q, k, v, "cp.async", (("do", do),))
     return _bwd_launch("flash_attn_bwd", "flash_attention_bwd", q, k, v, o,
                        do)
 

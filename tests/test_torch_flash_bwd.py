@@ -34,7 +34,7 @@ torch.set_num_threads(2)
 jax.config.update("jax_enable_x64", True)
 
 SHAPES = [(1, 1, 1, 8), (2, 1, 37, 16), (1, 4, 77, 32), (3, 2, 64, 8),
-          (2, 3, 65, 24)]              # (BH / g, g, S, D)
+          (2, 3, 65, 24), (1, 4, 33, 160), (2, 1, 17, 256)]  # (BH / g, g, S, D)
 
 
 def _inputs(bkv, g, s, d, seed, dtype):
@@ -172,7 +172,10 @@ def test_bwd_op_on_the_cpu_is_the_plain_version():
     (torch.float16, 64, "wgmma"), (torch.float16, 128, "wgmma"),
     (torch.float32, 64, "simt"), (torch.float32, 128, "simt"),
     (torch.bfloat16, 32, "simt"), (torch.float16, 96, "simt"),
-    (torch.bfloat16, 8, "simt"), (torch.float32, 32, "simt")])
+    (torch.bfloat16, 8, "simt"), (torch.float32, 32, "simt"),
+    (torch.bfloat16, 160, "simt"), (torch.float16, 160, "simt"),
+    (torch.float32, 160, "simt"), (torch.bfloat16, 256, "simt"),
+    (torch.float32, 256, "simt")])
 def test_bwd_kernel_for_names_the_route(dtype, d, want):
     from repro_torch.kernels import flash_attention as fa
     assert fa.bwd_kernel_for(dtype, d) == want
@@ -180,7 +183,8 @@ def test_bwd_kernel_for_names_the_route(dtype, d, want):
 
 @pytest.mark.parametrize("dtype,d,want", [
     (torch.bfloat16, 64, "wgmma"), (torch.float16, 128, "wgmma"),
-    (torch.float32, 64, "simt"), (torch.bfloat16, 96, "simt")])
+    (torch.float32, 64, "simt"), (torch.bfloat16, 96, "simt"),
+    (torch.bfloat16, 160, "simt"), (torch.float32, 256, "simt")])
 def test_cuda_backend_calls_the_routed_backward(monkeypatch, dtype, d, want):
     """``ops._cuda_flash_bwd`` calls the wrapper that ``bwd_kernel_for``
     names, and only that one."""
@@ -210,6 +214,24 @@ def test_bwd_wgmma_wrapper_raises_on_what_it_does_not_take(dtype, d, match):
     before = dict(fa.launches)
     with pytest.raises(ValueError, match=match):
         fa.flash_attention_bwd_wgmma_cuda(q, k, k, q, q)
+    assert fa.launches == before
+
+
+@pytest.mark.parametrize("dtype,d", [
+    (torch.float32, 264), (torch.bfloat16, 264), (torch.float16, 264),
+    (torch.float32, 4), (torch.bfloat16, 100), (torch.float16, 161),
+    (torch.float32, 0)])
+def test_bwd_wrapper_refuses_head_widths_it_does_not_take(dtype, d):
+    """``flash_attention_bwd_cuda`` takes 8 <= D <= MAX_BWD_D = 256 with D
+    % 8 == 0 and refuses any other width before it looks at the device,
+    with nothing counted; there is no fallback to the plain version."""
+    from repro_torch.kernels import flash_attention as fa
+    assert fa.MAX_BWD_D == 256 == fa.MAX_D
+    q = torch.zeros(2, 8, d, dtype=dtype)
+    k = torch.zeros(1, 8, d, dtype=dtype)
+    before = dict(fa.launches)
+    with pytest.raises(ValueError, match="head dim"):
+        fa.flash_attention_bwd_cuda(q, k, k, q, q)
     assert fa.launches == before
 
 
@@ -254,7 +276,8 @@ def test_bwd_planted_faults_edit_their_sources():
 def test_bwd_check_cases_reach_both_routes():
     """``chip_smoke.bwd_check_cases`` holds the wgmma backward at granite's
     shape, at D = 128 and at a ragged S with g > 1 in bf16 and fp16, and
-    ``flash_attn_bwd.cu`` at every fp32 case."""
+    ``flash_attn_bwd.cu`` at every fp32 case and at pixtral's shape (D =
+    160) and at D = 256 in every dtype."""
     from repro_torch.kernels import flash_attention as fa
     smoke = _chip_smoke()
     routed = {}
@@ -269,3 +292,8 @@ def test_bwd_check_cases_reach_both_routes():
         assert smoke.BWD_MAIN + (dname,) in cases
         assert any(c[2] == 128 for c in cases)
         assert any(c[1] % 128 and c[3] > 1 for c in cases)
+    assert smoke.BWD_PIXTRAL[2] == 160
+    for dname in ("float32", "bfloat16", "float16"):
+        assert smoke.BWD_PIXTRAL + (dname,) in routed["simt"]
+        assert any(c[2] == 256 and c[3] > 1 and c[4] == dname
+                   for c in routed["simt"])

@@ -20,6 +20,7 @@ within ``flash_attention.BWD_CHECK_TOLS``.
 """
 
 import dataclasses
+import math
 
 import numpy as np
 import pytest
@@ -1076,14 +1077,15 @@ def _bwd_inputs(bh_kv, g, s, d, seed, dtype, device):
 
 
 @pytest.mark.cuda
-@pytest.mark.parametrize("s", [1, 63, 64, 65, 200, 1000])
+@pytest.mark.parametrize("s", [1, 15, 16, 17, 63, 64, 65, 129, 200, 1000])
 @pytest.mark.parametrize("g", [1, 4])
-@pytest.mark.parametrize("d", [8, 64, 96, 128])
+@pytest.mark.parametrize("d", [8, 64, 96, 128, 160, 256])
 @pytest.mark.parametrize("dtype", ["float32", "bfloat16", "float16"])
 def test_flash_attention_bwd_matches_plain(cuda, dtype, d, g, s):
     """dq, dk and dv of ``flash_attn_bwd.cu`` against the plain backward
-    across the ragged edge of its 64-row tiles, with k and v of BH or BH / 4
-    rows (dk, dv summed over the group); a repeat bit for bit."""
+    across the ragged edges of its tiles (16, 32, 64 and 128 rows, by D),
+    with k and v of BH or BH / 4 rows (dk, dv summed over the group); a
+    repeat bit for bit."""
     q, k, v, o, do = _bwd_inputs(2, g, s, d, s * d + g, torch_dtype(dtype),
                                  cuda)
     got = tflash.flash_attention_bwd_cuda(q, k, v, o, do)
@@ -1163,7 +1165,7 @@ def test_flash_attention_bwd_rejects_what_it_does_not_take(cuda):
     q, k, v, o, do = _bwd_inputs(1, 2, 64, 32, 1, torch.float32, cuda)
     with pytest.raises(ValueError, match="head dim"):
         tflash.flash_attention_bwd_cuda(*(torch.zeros(
-            (x.shape[0], 64, 136), device=cuda) for x in (q, k, v, o, do)))
+            (x.shape[0], 64, 264), device=cuda) for x in (q, k, v, o, do)))
     with pytest.raises(ValueError, match="shape"):
         tflash.flash_attention_bwd_cuda(q, k, v, o[:, :32], do)
     with pytest.raises(ValueError, match="CUDA"):
@@ -1323,6 +1325,70 @@ def test_phi3_width_bf16_prefill_on_the_card_launches_wgmma(cuda):
     scale = max(1.0, float(want.float().abs().max()))
     err = float((got.float() - want.float()).abs().max()) / scale
     assert err <= tflash.PREFILL_TOLS["bfloat16"], err
+
+
+def _train_step_tol() -> float:
+    """``chip_smoke.TRAIN_STEP_TOL``: how a step's gradients through the
+    kernels are held against the same step's through the plain versions."""
+    import importlib.util
+    from pathlib import Path
+    path = Path(__file__).resolve().parents[1] / "chip_smoke.py"
+    spec = importlib.util.spec_from_file_location("chip_smoke_tol", path)
+    mod = importlib.util.module_from_spec(spec)
+    spec.loader.exec_module(mod)
+    return mod.TRAIN_STEP_TOL
+
+
+@pytest.mark.cuda
+def test_pixtral_width_layer_trains_through_the_backward_kernel(cuda):
+    """pixtral-12b at its published widths (head width 5120 / 32 = 160),
+    one layer, bf16, with its 256 image tokens: ``loss_fn(...).backward()``
+    launches ``flash_attn_bwd.cu`` once and the wgmma backward never, and
+    the loss and every parameter's gradient are within TRAIN_STEP_TOL of
+    the same through the plain versions (``backend="ref"``) on the card:
+    max |g - g_plain| over max |g_plain|, leaf by leaf."""
+    from repro_torch.configs import get_config
+    from repro_torch.models import build
+    from repro_torch.train.tree import items
+    cfg = dataclasses.replace(get_config("pixtral-12b"), n_layers=1)
+    assert cfg.head_dim == 160 and cfg.dtype == "bfloat16"
+    assert tflash.bwd_kernel_for(torch.bfloat16, cfg.head_dim) == "simt"
+    m = build(cfg, device=cuda)
+    m.init_params(torch.Generator(device=cuda).manual_seed(0))
+    m.requires_grad_(True)
+    rng = np.random.default_rng(5)
+    s = 512
+    batch = {"tokens": torch.from_numpy(rng.integers(1, cfg.vocab, (1, s))),
+             "labels": torch.from_numpy(rng.integers(1, cfg.vocab, (1, s))),
+             "images": torch.from_numpy(rng.standard_normal(
+                 (1, cfg.n_img_tokens, cfg.d_model))).to(cfg.param_dtype)}
+    batch = {k: v.to(cuda) for k, v in batch.items()}
+    leaves = [leaf for _, leaf in items(m.params)]
+    out = {}
+    for backend in ("auto", "ref"):
+        for leaf in leaves:
+            leaf.grad = None
+        before = ops.launch_counts()
+        loss, _ = m.loss_fn(batch, backend=backend)
+        loss.backward()
+        torch.cuda.synchronize()
+        after = ops.launch_counts()
+        out[backend] = (float(loss), [leaf.grad.clone() for leaf in leaves],
+                        {k: after[k] - before[k] for k in (
+                            "flash_attention_bwd", "flash_attention_bwd_wgmma")})
+    assert out["auto"][2] == {"flash_attention_bwd": 1,
+                              "flash_attention_bwd_wgmma": 0}
+    assert out["ref"][2] == {"flash_attention_bwd": 0,
+                             "flash_attention_bwd_wgmma": 0}
+    tol = _train_step_tol()
+    lk, lp = out["auto"][0], out["ref"][0]
+    assert math.isfinite(lk) and abs(lk - lp) <= tol * abs(lp), (lk, lp)
+    for (path, _), g, w in zip(items(m.params), out["auto"][1],
+                               out["ref"][1]):
+        assert bool(torch.isfinite(g).all()), path
+        err = float((g.float() - w.float()).abs().max()) / max(
+            float(w.float().abs().max()), torch.finfo(torch.float32).tiny)
+        assert err <= tol, (".".join(path), err)
 
 
 # (arch, query heads, KV heads, head dim, s) of the causal self-attention

@@ -192,6 +192,37 @@ def test_loss_and_grads_match_reference(arch):
         assert err <= GRAD_TOL * float(np.abs(w).max()), (name, err)
 
 
+def test_pixtral_head_width_160_loss_and_grads_match_reference():
+    """pixtral-12b's smoke config narrowed to its published head width,
+    160 (d_model 320, 2 heads, 1 KV head, 2 layers, with its image
+    tokens): the loss and every gradient against ``jax.value_and_grad`` of
+    the reference's ``loss_fn``, through the plain flash backward at D =
+    160 on the CPU, at the file's tolerances."""
+    from torch_port_common import _perturbed
+    narrow = dict(d_model=320, n_heads=2, n_kv=1, n_layers=2)
+    jcfg = dataclasses.replace(jsmoke_of("pixtral-12b"), **narrow)
+    cfg = dataclasses.replace(smoke_of("pixtral-12b"), **narrow)
+    assert jcfg.head_dim == cfg.head_dim == 160
+    jm = jbuild(jcfg)
+    params = _perturbed(jm.init(jax.random.PRNGKey(1)),
+                        np.random.default_rng(2))
+    tm = model_params_from_reference(flat_params(params), cfg, device="cpu")
+    tm.requires_grad_(True)
+    batch = _batch(cfg, 2, 20, 6)
+    (want, wmet), jgrads = jax.jit(jax.value_and_grad(
+        jm.loss_fn, has_aux=True))(params, _jbatch(batch))
+    loss, metrics, grads = _grads(tm, batch)
+    _close(loss, want, LOSS_TOL)
+    for k in wmet:
+        _close(metrics[k], wmet[k], LOSS_TOL)
+    want_g = flat_params(jgrads)
+    assert sorted(grads) == sorted(want_g)
+    for name, g in grads.items():
+        w = _np(want_g[name])
+        err = float(np.abs(_np(g) - w).max())
+        assert err <= GRAD_TOL * float(np.abs(w).max()), (name, err)
+
+
 def test_remat_gives_the_same_gradients():
     """``remat="full"`` (one checkpoint a layer) against no remat, through
     the decoder and whisper's encoder and decoder: bit for bit."""
