@@ -9,7 +9,8 @@
                            --svd-parts TREE | --svd-serve | --svd-fabric |
                            --lm-families | --lm-family-depths |
                            --lm-family-planted-faults | --train |
-                           --flash-bwd-planted-faults | --bwd-times TREE]
+                           --flash-bwd-planted-faults | --bwd-times TREE |
+                           --dc-times TREE]
 
 Builds the port's CUDA kernels from ``src/repro_torch/kernels/csrc`` (one
 ``nvcc`` per source, all at once), holds each kernel against its plain
@@ -425,6 +426,16 @@ def main() -> int:
                     "turns on one card, at fp32 granite-3-2b's and bf16 "
                     "pixtral-12b's shapes, beside SDPA's backward, then "
                     "exit")
+    ap.add_argument("--dc-times", metavar="TREE", type=Path,
+                    help="only time this tree's dc.cu (the Givens scan and "
+                    "the secular roots) against the one under TREE "
+                    "(another commit's checkout) in turns on one card, at "
+                    "the top merge level of the fp64 n = 4096 dc call, "
+                    "with each kernel's time split by probes (the scan's "
+                    "phases, DC_DEFLATE_PROBES; the roots' midpoint pass, "
+                    "windowed iteration and polish passes, "
+                    "DC_SECULAR_PROBES) where a tree's source takes them, "
+                    "then exit")
     ap.add_argument("--dc-at-n16384", action="store_true",
                     help="run the whole script with stage 3 by dc also "
                     "on the fp32 n = 16384 matrix of phase 4, and the dc "
@@ -484,6 +495,8 @@ def main() -> int:
             return flash_bwd_planted_faults(args, torch)
         if args.bwd_times:
             return bwd_times(args, torch)
+        if args.dc_times:
+            return dc_times(args, torch)
         if args.svd_serve:
             from repro_torch.kernels import _build
             _build.build_all()
@@ -859,6 +872,43 @@ def dc_secular_bound(p, m, nact, roots, kh, newton_iters, dname, itemsize):
     t_bytes, t_ops = nbytes / HBM_BYTES_PER_S, flops / PEAK_FLOPS[dname]
     return (max(t_bytes, t_ops) * 1e3,
             "bytes" if t_bytes >= t_ops else "operations", nbytes, flops)
+
+
+def dc_scan_stats(np, tuning, a_in, a_out) -> dict:
+    """What the plain scan's output says of one merge level, from its
+    active flags before (``a_in``) and after (``a_out``), (P, m) arrays:
+    its merges (step i merged where column i - 1 went out deflated), the
+    longest merge run (consecutive merged steps), and the steps the
+    kernel's repair reruns on the true run's merges: each chunk of
+    ``tuning.dc_deflate_schedule`` whose previous step merged, from its
+    start to the first step that did not merge (that step included), or
+    to its end.  A step where only the speculative run merges is not in
+    the plain output, so the count is the kernel's from below."""
+    merged = a_in & ~a_out
+    p, m = merged.shape
+    longest = fixup = 0
+    for r in range(p):
+        mr = merged[r]
+        edges = np.flatnonzero(np.diff(np.concatenate(([0], mr.astype(
+            np.int8), [0]))))
+        if edges.size:
+            longest = max(longest, int((edges[1::2] - edges[::2]).max()))
+        on = np.flatnonzero(a_in[r])
+        last = int(on[-1]) if on.size else -1
+        if last < 1:
+            continue
+        c = tuning.dc_deflate_schedule(m, last)[1]
+        before = False                      # the step before a chunk merged
+        for i0 in range(1, last + 1, c):
+            i1 = min(i0 + c, last + 1)
+            if before:
+                i = i0
+                while i < i1 and mr[i - 1]:
+                    i += 1
+                fixup += i - i0 + (i < i1)
+            before = bool(mr[i1 - 2])
+    return {"merges": int(merged.sum()), "longest_merge_run": longest,
+            "fixup_steps": fixup}
 
 
 def tape_apply_calls(bc, runs):
@@ -2714,20 +2764,48 @@ def wy_planted_faults(args, torch) -> int:
 DC_PATH = ["dc_leaf_cuda", "dc_deflate_cuda", "dc_secular_cuda"]
 
 
+DC_PASSES = {"loewner_product": "_loewner_log", "fl_rows": "_fl_rows"}
+
+
 def dc_profile(torch, fn):
     """Where one stage-3 call's time goes: device ms by kernel (the three
     dc kernels and the rest, summed by name), busy ms and wall seconds,
-    from torch.profiler."""
-    from torch.profiler import ProfilerActivity, profile
+    from torch.profiler; and the device ms of the merge's two O(nact^2)
+    passes (DC_PASSES), each wrapped for the call in a profiler range."""
+    from torch.profiler import ProfilerActivity, profile, record_function
+
+    from repro_torch.core import bidiag_dc as s3dc
+    kept = {name: getattr(s3dc, name) for name in DC_PASSES.values()}
+
+    def ranged(label, real):
+        def call(*a, **kw):
+            with record_function(label):
+                return real(*a, **kw)
+        return call
+
     torch.cuda.synchronize()
-    with profile(activities=[ProfilerActivity.CPU,
-                             ProfilerActivity.CUDA]) as prof:
-        t0 = time.perf_counter()
-        fn()
-        torch.cuda.synchronize()
-        wall = time.perf_counter() - t0
+    for label, name in DC_PASSES.items():
+        setattr(s3dc, name, ranged(label, kept[name]))
+    try:
+        with profile(activities=[ProfilerActivity.CPU,
+                                 ProfilerActivity.CUDA]) as prof:
+            t0 = time.perf_counter()
+            fn()
+            torch.cuda.synchronize()
+            wall = time.perf_counter() - t0
+    finally:
+        for name, real in kept.items():
+            setattr(s3dc, name, real)
+    # a range's CPU row sums its ops' kernels (the device row would be its
+    # span on the card's timeline, gaps included)
+    passes = {label: next((ev.device_time_total / 1e3
+                           for ev in prof.key_averages() if ev.key == label
+                           and "CPU" in str(ev.device_type)), None)
+              for label in DC_PASSES}
+    # kernels and copies on the card (not the ranges' device rows)
     on_card = [ev for ev in prof.key_averages()
-               if "CUDA" in str(ev.device_type) and ev.device_time_total > 0]
+               if "CUDA" in str(ev.device_type) and ev.device_time_total > 0
+               and ev.key not in DC_PASSES]
     by = {}
     for ev in on_card:
         key = next((k for k in ("dc_leaf_kernel", "dc_deflate_kernel",
@@ -2739,7 +2817,7 @@ def dc_profile(torch, fn):
                  reverse=True)[:6]
     return {"wall_s": wall, "device_busy_ms": busy or None,
             "device_idle_share": 1 - busy / 1e3 / wall if busy else None,
-            "device_ms_by_kernel": by,
+            "device_ms_by_kernel": by, "device_ms_of_passes": passes,
             "launches_of_other_kernels": sum(
                 ev.count for ev in on_card
                 if not any(k in ev.key for k in ("dc_leaf", "dc_deflate",
@@ -2796,6 +2874,15 @@ def stage3_dc(torch, tsvd, s3, s3dc, drive, PipelineConfig, gen, mats):
         row["stage3_alone_ms"] = times
         row["stage3_dc_profile"] = dc_profile(
             torch, lambda: s3dc.bidiag_dc_singular_values(d, e))
+        # the device memory one dc call takes above what it was handed
+        # (its merges' blocks of tuning.DC_MERGE_BLOCK_BYTES temporaries)
+        torch.cuda.synchronize()
+        base = torch.cuda.memory_allocated()
+        torch.cuda.reset_peak_memory_stats()
+        s3dc.bidiag_dc_singular_values(d, e)
+        torch.cuda.synchronize()
+        row["dc_peak_gib_above_inputs"] = (
+            torch.cuda.max_memory_allocated() - base) / 2 ** 30
         oks.append(ok)
         out[f"banded_{dname}_n{n}"] = row
     nd = 1024
@@ -4479,6 +4566,284 @@ def bwd_times(args, torch) -> int:
     return 0
 
 
+DC_SOURCE = "src/repro_torch/kernels/csrc/dc.cu"
+# Probes of where the secular kernel's time goes (--dc-times): copies of a
+# tree's dc.cu that stop after the midpoint pass, that skip the polish
+# passes, and that write each root's windowed iterations until its root
+# froze and its polish passes in place of (anc, tau).  A probe applies to a
+# tree whose source holds each of its anchors once.
+DC_SECULAR_PROBES = {
+    "midpoint_only": [(
+        "  // the windowed iteration against the frozen far field\n",
+        "  if (g.newton_iters >= 0) {\n    if (lane == 0) {\n"
+        "      g.anc[out] = anc;\n      g.tau[out] = lo0 + hi0;\n    }\n"
+        "    return;\n  }\n"
+        "  // the windowed iteration against the frozen far field\n", 1)],
+    "without_polish": [(
+        "  for (int it = 0; it < g.polish_iters; ++it) {",
+        "  for (int it = 0; it < 0 * g.polish_iters; ++it) {", 1)],
+    "counts": [
+        ("  A t = t0, lo = lo0, hi = hi0;\n",
+         "  A t = t0, lo = lo0, hi = hi0;\n  int nwin = 0;\n", 1),
+        ("    mw_update(f, fscale, psip_f + nw.psip, phip_f + nw.phip, off, "
+         "gap_safe,\n",
+         "    if (!(fabs(f) <= A(8) * Eps<A>::v * fscale)) ++nwin;\n"
+         "    mw_update(f, fscale, psip_f + nw.psip, phip_f + nw.phip, off, "
+         "gap_safe,\n", 1),
+        ("  lo = lo0;\n  hi = hi0;\n",
+         "  lo = lo0;\n  hi = hi0;\n  int npol = 0;\n", 1),
+        ("    const Sums<A> s = full(anc, t);\n",
+         "    const Sums<A> s = full(anc, t);\n    ++npol;\n", 1),
+        ("    g.anc[out] = anc;\n    g.tau[out] = t;\n",
+         "    g.anc[out] = (A)nwin;\n    g.tau[out] = (A)npol;\n", 1)]}
+
+
+# Probes of where the scan's time goes (--dc-times): copies of a tree's
+# dc.cu whose scan stops after it found the last active column, after the
+# speculative chunks (phase 1), and before the copy back (phase 3); their
+# outputs are not the scan's.
+DC_DEFLATE_PROBES = {
+    "find_last_only": [(
+        "  if (last < 1) return;                 // no step can merge",
+        "  if (last >= -1) return;", 1)],
+    "phase_1_only": [(
+        "  // phase 2: the chunks whose entering carry",
+        "  if (last > 0) return;\n  // phase 2: the chunks whose entering "
+        "carry", 1)],
+    "without_copy_back": [(
+        "  // phase 3: the scratch back",
+        "  if (last > 0) return;\n  // phase 3: the scratch back", 1)]}
+
+
+def dc_top_calls(torch, seed: int):
+    """The dc kernels' calls of ``bidiag_dc_singular_values`` on the
+    bidiagonal of a banded fp64 n = 4096 bw 64 matrix (the main path's
+    first dc run, made as kernels_vs_plain makes it, from ``seed`` + 1),
+    and of them the deflation and the roots at the top merge level."""
+    from repro_torch.core import bidiag_dc as s3dc
+    from repro_torch.core import svd as tsvd
+    from repro_torch.kernels import ops
+    gen = torch.Generator(device="cuda")
+    gen.manual_seed(seed + 1)
+    cfg = fuse1_runs(torch)[0][2]
+    d, e = tsvd.bidiagonal_of(banded_matrix(torch, (), 4096, 64,
+                                            torch.float64, gen), config=cfg)
+    calls = dc_recorded(torch, ops, s3dc, d, e)[1]
+    top = {}
+    for op, a_, kw in calls:
+        if op not in top or a_[0].shape[-1] >= top[op][0][0].shape[-1]:
+            top[op] = (a_, kw)
+    return calls, top
+
+
+def lib_dc_deflate(torch, lib, new_abi: bool, cols, tol):
+    """The scan by ``dc_deflate_f64`` of a loaded dc.cu library, in place
+    on ``cols`` (d, z, fe, le, active), called with the C interface of
+    its source (``new_abi``: scratch buffers and the chunk length)."""
+    import ctypes
+
+    from repro_torch.core import tuning
+    d = cols[0]
+    p, m = d.shape
+    fn = lib.dc_deflate_f64
+    stream = torch.cuda.current_stream().cuda_stream
+    ptrs = [x.data_ptr() for x in (*cols, tol)]
+    if new_abi:
+        scratch = d.new_empty((4, p, m))
+        sact = torch.empty((p, m), dtype=torch.uint8, device=d.device)
+        fn.argtypes = [ctypes.c_void_p] * 8 + [ctypes.c_int] * 3 + [
+            ctypes.c_void_p]
+        err = fn(*ptrs, scratch.data_ptr(), sact.data_ptr(), p, m,
+                 tuning.DC_DEFLATE_CHUNK, stream)
+    else:
+        fn.argtypes = [ctypes.c_void_p] * 6 + [ctypes.c_int] * 2 + [
+            ctypes.c_void_p]
+        err = fn(*ptrs, p, m, stream)
+    check(err == 0, f"dc_deflate_f64: error {err}")
+    return cols
+
+
+def lib_dc_secular(torch, lib, args, kw):
+    """(anc, tau) by ``dc_secular_f64`` of a loaded dc.cu library, called
+    as the wrapper calls the repository's build (not counted)."""
+    import ctypes
+
+    from repro_torch.core import tuning
+    d = args[0]
+    p, m = d.shape
+    nact = kw["nact"]
+    anc, tau = d.new_empty((p, nact)), d.new_empty((p, nact))
+    fn = lib.dc_secular_f64
+    fn.argtypes = [ctypes.c_void_p] * 9 + [ctypes.c_int] * 7 + [
+        ctypes.c_void_p]
+    err = fn(*(x.data_ptr() for x in args[:7]), anc.data_ptr(),
+             tau.data_ptr(), p, m, nact, args[6].shape[-1],
+             min(tuning.DC_WINDOW_K, m), kw["newton_iters"],
+             tuning.DC_POLISH_ITERS,
+             torch.cuda.current_stream().cuda_stream)
+    check(err == 0, f"dc_secular_f64: error {err}")
+    return anc, tau
+
+
+def dc_times(args, torch) -> int:
+    """``--dc-times TREE``: this tree's dc.cu against the one under TREE,
+    both built here, on one card in turns (TREE, this, this, TREE;
+    torch.profiler's device time, and CUDA events beside it, over 20
+    scans, each on a fresh copy of its columns made before the timed
+    region, and over 10 root solves) at the top merge level of
+    the fp64 n = 4096 dc call, each held to the plain version (the scan
+    bit for bit, the roots within DC_ROOT_TOLS of the pole scale); then,
+    for each tree whose source takes DC_SECULAR_PROBES, the roots' time
+    split into the midpoint pass, the windowed iteration and the polish
+    passes (copies that stop after each, in turns with the full kernel),
+    with histograms of each active root's windowed iterations until it
+    froze and of its polish passes.  One JSON line per kernel (no ``ok``
+    line)."""
+    import ctypes
+    import tempfile
+
+    import numpy as np
+
+    from repro_torch.core import bidiag_dc as s3dc
+    from repro_torch.core import tuning
+    from repro_torch.kernels import _build
+    _build.build_all(["chase", "dc"])
+    texts = {}
+    for who, tree in (("this", ROOT), ("other", args.dc_times.resolve())):
+        src = (tree / DC_SOURCE).read_text()
+        texts[who] = src
+        for probe, edits in (DC_SECULAR_PROBES | DC_DEFLATE_PROBES).items():
+            if all(src.count(old) == times for old, _, times in edits):
+                text = src
+                for old, new, _ in edits:
+                    text = text.replace(old, new)
+                texts[f"{who}:{probe}"] = text
+    tmp = tempfile.TemporaryDirectory()
+    procs = {}
+    for key, text in texts.items():
+        cu, so = (Path(tmp.name) / f"{key.replace(':', '_')}{ext}"
+                  for ext in (".cu", ".so"))
+        cu.write_text(text)
+        procs[key] = (subprocess.Popen(
+            _build.nvcc_command(cu, so), stdout=subprocess.PIPE,
+            stderr=subprocess.STDOUT, text=True), so)
+    libs, logs = {}, {}
+    for key, (proc, so) in procs.items():
+        logs[key], _ = proc.communicate()
+        check(proc.returncode == 0, f"{key}: nvcc failed:\n{logs[key]}")
+        libs[key] = ctypes.CDLL(str(so))
+    smi = smi_name()
+    emit({"phase": "build", "builds": sorted(libs),
+          **{f"ptxas_{who}": ptxas_lines({who: logs[who]})
+             for who in ("this", "other")}})
+    _, top = dc_top_calls(torch, args.seed)
+    abi = {who: "void* scratch" in texts[who] for who in ("this", "other")}
+
+    # the scan, each call on a fresh copy of the level's columns
+    a_, kw = top["dc_deflate"]
+    want = s3dc.deflate_plain(*(x.clone() for x in a_))
+    iters = 20
+    row = {"kernel": "dc_deflate_cuda", "tree": str(args.dc_times),
+           "card": smi, "shape": list(a_[0].shape) + ["float64"],
+           "stats": dc_scan_stats(np, tuning, a_[4].cpu().numpy(),
+                                  want[4].cpu().numpy()),
+           "bitwise_vs_plain": {}, "ms": {"other": [], "this": []}}
+    for who in ("this", "other"):
+        got = lib_dc_deflate(torch, libs[who], abi[who],
+                             tuple(x.clone() for x in a_[:5]), a_[5])
+        torch.cuda.synchronize()
+        row["bitwise_vs_plain"][who] = all(
+            torch.equal(g_, w_) for g_, w_ in zip(got, want))
+    row["events_ms"] = {"other": [], "this": []}
+
+    def scan_ms(key):
+        """(profiler ms, events ms) of ``key``'s scan, 20 calls each, every
+        call on a fresh copy made here."""
+        copies = iter([tuple(x.clone() for x in a_[:5])
+                       for _ in range(2 * iters + 1)])
+
+        def scan():
+            return lib_dc_deflate(torch, libs[key], abi[key.split(":")[0]],
+                                  next(copies), a_[5])
+
+        events = gpu_ms(torch, scan, iters=iters, warmup=1)
+        prof = profiler_ms(torch, scan, "dc_deflate_kernel", iters)
+        return prof and prof[0], events
+
+    for who in ("other", "this", "this", "other"):
+        ms, events = scan_ms(who)
+        row["ms"][who].append(ms)
+        row["events_ms"][who].append(events)
+    for who in ("other", "this"):
+        probes = [pr for pr in DC_DEFLATE_PROBES if f"{who}:{pr}" in libs]
+        if probes:
+            row[f"split_{who}_ms"] = {pr: scan_ms(f"{who}:{pr}")[0]
+                                      for pr in probes}
+    row["bound"] = dict(zip(("ms", "by", "bytes", "flops"), dc_deflate_bound(
+        *a_[0].shape, "float64", 8)))
+    emit(row)
+
+    # the roots
+    a_, kw = top["dc_secular"]
+    kw = {k: v for k, v in kw.items() if k != "backend"}
+    want = s3dc.secular_plain(*a_, **kw)
+    scale = float((a_[0].abs().amax(-1) + a_[1].sum(-1)).max())
+    act = a_[3][:, :kw["nact"]]
+    roots = int(act.sum())
+    row = {"kernel": "dc_secular_cuda", "tree": str(args.dc_times),
+           "card": smi, "shape": list(a_[0].shape) + [kw["nact"], "float64"],
+           "active_roots": roots, "err_over_scale": {},
+           "tol": DC_ROOT_TOLS["float64"], "ms": {"other": [], "this": []}}
+    fns = {key: (lambda lib=lib: lib_dc_secular(torch, lib, a_, kw))
+           for key, lib in libs.items()}
+    for who in ("this", "other"):
+        got = fns[who]()
+        torch.cuda.synchronize()
+        row["err_over_scale"][who] = float(
+            ((got[0] + got[1]) - (want[0] + want[1])).abs().max()) / scale
+    row["events_ms"] = {"other": [], "this": []}
+    for who in ("other", "this", "this", "other"):
+        row["events_ms"][who].append(gpu_ms(torch, fns[who], iters=10,
+                                            warmup=1))
+        prof = profiler_ms(torch, fns[who], "dc_secular_kernel", 10)
+        row["ms"][who].append(prof and prof[0])
+    for who in ("other", "this"):
+        parts = {probe: [] for probe in ("midpoint_only", "without_polish")
+                 if f"{who}:{probe}" in fns}
+        if not parts or f"{who}:counts" not in fns:
+            row[f"split_{who}"] = "the probes do not apply to its source"
+            continue
+        full = []
+        for _ in range(2):
+            full.append(gpu_ms(torch, fns[who], iters=10, warmup=1))
+            for probe in parts:
+                parts[probe].append(gpu_ms(torch, fns[f"{who}:{probe}"],
+                                           iters=10, warmup=1))
+        mid = min(parts["midpoint_only"])
+        win = min(parts["without_polish"])
+        nwin, npol = fns[f"{who}:counts"]()
+        torch.cuda.synchronize()
+
+        def hist(x):
+            v = x[act].round().to(torch.int64).cpu()
+            return {int(k): int(c) for k, c in zip(*torch.unique(
+                v, return_counts=True))}
+
+        row[f"split_{who}"] = {
+            "full_ms": full, "midpoint_only_ms": parts["midpoint_only"],
+            "without_polish_ms": parts["without_polish"],
+            "midpoint_ms": mid, "windowed_ms": win - mid,
+            "polish_ms": min(full) - win,
+            "windowed_iterations_until_frozen": hist(nwin),
+            "polish_passes": hist(npol)}
+    row["bound"] = dict(zip(("ms", "by", "bytes", "flops"), dc_secular_bound(
+        a_[0].shape[0], a_[0].shape[1], kw["nact"], roots,
+        a_[6].shape[-1], kw["newton_iters"], "float64", 8)))
+    emit(row)
+    tmp.cleanup()
+    return 0
+
+
 def train_only(args, torch) -> int:
     """``--train``: build the kernels, run the ``train`` phase alone (no
     ``ok`` line)."""
@@ -5028,7 +5393,7 @@ def run(args, torch) -> int:
     # within DC_ROW_TOLS; the roots within DC_ROOT_TOLS of the pole scale
     dc_gen = torch.Generator(device="cuda")
     dc_gen.manual_seed(args.seed + 1)
-    dc_calls, dc_bitwise, dc_rows = {}, {}, {}
+    dc_calls, dc_bitwise, dc_rows, dc_scans = {}, {}, {}, []
     for n, dt, cfg in ((n3, f64, cfg1),) + (
             ((n4, f32, c1),) if args.dc_at_n16384 else ()):
         d_, e_ = tsvd.bidiagonal_of(banded_matrix(torch, (), n, bw3, dt,
@@ -5088,6 +5453,10 @@ def run(args, torch) -> int:
             elif op == "dc_deflate":
                 same = all(torch.equal(g_, w_) for g_, w_ in zip(got, want))
                 dc_bitwise[str(key)] = same
+                dc_scans.append({"n": n, "P": key[1], "m": key[2],
+                                 "dtype": dname, **dc_scan_stats(
+                                     np, tuning, a_[4].cpu().numpy(),
+                                     want[4].cpu().numpy())})
                 check(same, f"{kernel} at {key}: not bit for bit the plain "
                       f"scan")
                 n_cmp += 1
@@ -5140,6 +5509,7 @@ def run(args, torch) -> int:
           "fused_uv_entries_witness": witness,
           "dc_level_shapes (op, P, m, nact, dtype)": dc_shapes,
           "dc_bitwise_vs_plain": dc_bitwise,
+          "dc_scan_by_level": dc_scans,
           "dc_leaf_rows": dc_rows,
           "tape_apply_cases": len(tape_cases) + len(main_tape) * len(TOLS),
           "sturm_steps_at_main_path_shapes": STURM_CHECK_STEPS,
@@ -5420,13 +5790,15 @@ def run(args, torch) -> int:
         library=lambda: torch.linalg.eigh(dense_leaves))
     _, a_, kw = top["dc_deflate"]
     p_, m_ = a_[0].shape
-    scan = tuple(x.clone() for x in a_)
+    # the scan works in place: every timed call (2 + 20 by CUDA events, 20
+    # traced) gets a fresh copy of the level's columns, made here
+    scans = iter([tuple(x.clone() for x in a_[:5]) for _ in range(42)])
     time_kernel(
         "dc_deflate_cuda", "dc_deflate_kernel",
-        lambda: dc.dc_deflate_cuda(*scan),
+        lambda: dc.dc_deflate_cuda(*next(scans), a_[5]),
         lambda: dc_run(torch, dc, s3dc, "dc_deflate", a_, kw, plain=True),
-        20, 1, f"P={p_}, m={m_} fp64 (the top merge level)",
-        dc_deflate_bound(p_, m_, "float64", 8))
+        20, 1, f"P={p_}, m={m_} fp64 (the top merge level), each call on "
+        f"a fresh copy", dc_deflate_bound(p_, m_, "float64", 8))
     _, a_, kw = top["dc_secular"]
     p_, m_ = a_[0].shape
     nact_ = kw["nact"]
@@ -5439,7 +5811,7 @@ def run(args, torch) -> int:
         f"(the top merge level)",
         dc_secular_bound(p_, m_, nact_, roots, a_[6].shape[-1],
                          kw["newton_iters"], "float64", 8))
-    del scan, dense_leaves, top
+    del scans, dense_leaves, top
     emit({"phase": "kernel_times", "ok": True, "card": smi_line,
           "kernels": {k: {kk: (vv if kk != "bound" else
                                {"ms": vv[0], "by": vv[1], "bytes": vv[2],

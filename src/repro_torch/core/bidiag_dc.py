@@ -32,12 +32,17 @@ constants and arithmetic but two.  What differs:
 * The reference skips all-deflated blocks with ``lax.cond`` per 512-wide
   block.  Here the active poles form a contiguous prefix after the merge's
   partitions, so each level reads its largest active count once (one
-  ``.item()``) and runs every full-width pass (the secular sums, the
-  Loewner product, the f/l rows) on that prefix only, in blocks of
-  ``_SECULAR_CHUNK`` roots.  Only the plain versions wait more: the root
-  solve every 12 polish passes of a block, to stop when no root moves (the
-  kernel stops each root's warp alone), and the leaves once an index, to
-  skip the collapse fallback where no leaf needs it.
+  ``.item()``) and runs every full-width pass on that prefix only.  The
+  plain root solve takes its roots in blocks of ``_SECULAR_CHUNK``; the
+  Loewner product and the f/l rows sum over the whole prefix at once and
+  split only their target axis, into blocks as long as one (P, rows, nact)
+  temporary of ``tuning.DC_MERGE_BLOCK_BYTES`` allows (every level of an
+  fp64 n = 4096 call in one block), so a level launches a few dozen
+  kernels there and not a few per pair of blocks.  Only the plain
+  versions wait more: the root solve every 12 polish passes of a block,
+  to stop when no root moves (the kernel stops each root's warp alone),
+  and the leaves once an index, to skip the collapse fallback where no
+  leaf needs it.
 * The reference batches matrices with ``lax.map``; here the subproblems of
   all B matrices stand side by side on the pair axis of each level.  The
   arithmetic of each matrix is the same.
@@ -61,8 +66,9 @@ from repro_torch.core.bidiag_svd import (_gk_prescale, _vectors_from_sigma,
                                          default_bisect_iters, gk_offdiag)
 from repro_torch.core.householder import acc_dtype
 from repro_torch.core.tuning import (DC_FALLBACK_ITERS, DC_HEAVY_K,
-                                     DC_POLISH_ITERS, DC_WINDOW_K,
-                                     DEFAULT_DC_LEAF_N, DEFAULT_DC_N_MIN)
+                                     DC_MERGE_BLOCK_BYTES, DC_POLISH_ITERS,
+                                     DC_WINDOW_K, DEFAULT_DC_LEAF_N,
+                                     DEFAULT_DC_N_MIN)
 
 __all__ = ["DEFAULT_DC_LEAF_N", "DEFAULT_DC_N_MIN", "leaf_eigen_plain",
            "deflate_plain", "secular_plain", "leaf_start",
@@ -437,62 +443,73 @@ def secular_plain(d: torch.Tensor, w: torch.Tensor, gap: torch.Tensor,
             torch.cat([p[1] for p in parts], -1))
 
 
-def _loewner_log(d, t, anc, tau, active, nact):
-    """sum_j log((mu_j - d_i) / (d_j - d_i)) over the active roots j != i,
-    for each target i of the prefix (P, nact): log1p of t_j / (d_j - d_i)
-    where that is small, else the log of the anchored ratio."""
-    acc = d.dtype
-    tiny = torch.finfo(acc).tiny
-    out = []
-    for i0, i1 in _blocks(nact):
-        di, acti = d[:, None, i0:i1], active[:, None, i0:i1]
-        total = 0
-        for j0, j1 in _blocks(nact):
-            delta = d[:, j0:j1, None] - di
-            safe = torch.where(delta == 0, 1, delta)
-            x = t[:, j0:j1, None] / safe
-            ratio = ((anc[:, j0:j1, None] - di) + tau[:, j0:j1, None]) / safe
-            logr = torch.where(x.abs() < 0.5,
-                               torch.log1p(torch.clamp(x, min=-0.75)),
-                               torch.log(torch.clamp(ratio, min=tiny)))
-            mask = active[:, j0:j1, None] & acti & (delta != 0)
-            total = total + torch.where(mask, logr, 0).sum(1)
-        out.append(total)
-    return torch.cat(out, -1)
+def _row_blocks(p: int, nact: int, dtype):
+    """[start, stop) blocks over the target axis of an O(nact^2) pass of
+    the merge: the most rows for which one (p, rows, nact) temporary of
+    ``dtype`` fits ``DC_MERGE_BLOCK_BYTES`` (read at call time), at least
+    one."""
+    per_row = p * nact * dtype.itemsize
+    rows = max(1, min(nact, DC_MERGE_BLOCK_BYTES // max(per_row, 1)))
+    return [(s, min(s + rows, nact)) for s in range(0, nact, rows)]
 
 
-def _fl_rows(d, zhat, fe, le, anc, tau, active, nact):
-    """The parent's first and last eigenvector rows at the active roots of
-    the prefix (P, nact): sum_i x_i w_ij / ||w_j||, w_ij = zhat_i /
-    (d_i - mu_j), for x the children's f and l rows."""
+def _loewner_log(d, t, anc, tau, nact):
+    """sum_j log((mu_j - d_i) / (d_j - d_i)) over the roots j of the
+    prefix with d_j != d_i, for each target i of the prefix, (P, nact);
+    t = mu - d, anc and tau are the roots' (P, nact).  log1p of t_j / (d_j
+    - d_i) where that is small, else the log of the anchored ratio.  One
+    sum over the whole prefix of roots j; the targets i in blocks.  A root
+    j that is not active has t_j = 0 and adds log1p(0) = 0, so only equal
+    poles are masked; a target i that is not active gets a sum the caller
+    drops."""
     tiny = torch.finfo(d.dtype).tiny
-    fs, ls = [], []
-    for j0, j1 in _blocks(nact):
-        ancj, tj = anc[:, None, j0:j1], tau[:, None, j0:j1]
-        s2 = sf = sl = 0
-        for i0, i1 in _blocks(nact):
-            denom = (d[:, i0:i1, None] - ancj) - tj
-            zc = zhat[:, i0:i1, None]
-            bad = (zc == 0) | (denom == 0)
-            wv = torch.where(bad, 0, zc / torch.where(bad, 1, denom))
-            s2 = s2 + (wv * wv).sum(1)
-            sf = sf + (fe[:, i0:i1, None] * wv).sum(1)
-            sl = sl + (le[:, i0:i1, None] * wv).sum(1)
-        nrm = torch.sqrt(torch.clamp(s2, min=tiny))
-        keep = ~active[:, j0:j1]
-        fs.append(torch.where(keep, 0, sf / nrm))
-        ls.append(torch.where(keep, 0, sl / nrm))
-    return torch.cat(fs, -1), torch.cat(ls, -1)
+    dj, tj = d[:, :nact, None], t[:, :, None]
+    ancj, tauj = anc[:, :, None], tau[:, :, None]
+    out = []
+    for i0, i1 in _row_blocks(d.shape[0], nact, d.dtype):
+        di = d[:, None, i0:i1]
+        delta = dj - di
+        apart = delta != 0
+        safe = torch.where(apart, delta, 1)
+        x = tj / safe
+        ratio = ((ancj - di) + tauj) / safe
+        logr = torch.where(x.abs() < 0.5,
+                           torch.log1p(torch.clamp(x, min=-0.75)),
+                           torch.log(torch.clamp(ratio, min=tiny)))
+        out.append(torch.where(apart, logr, 0).sum(1))
+    return out[0] if len(out) == 1 else torch.cat(out, -1)
 
 
-def _take(order, *xs):
-    return tuple(x.gather(-1, order) for x in xs)
+def _fl_rows(d, zhat, rows, anc, tau, nact):
+    """The parent's first and last eigenvector rows at the roots of the
+    prefix, (P, 2, nact): sum_i x_i w_ij / ||w_j||, w_ij = zhat_i /
+    (d_i - mu_j), for x the children's f and l rows (``rows``, (2, P, m)),
+    zhat, anc and tau (P, nact).  One sum over the whole prefix of poles i;
+    the roots j in blocks.  (Elementwise products and sums, not a matrix
+    product: fp32 stays fp32 whatever TF32 setting the caller has.)  Where
+    root j is not active the value is not a row, and the caller drops
+    it."""
+    tiny = torch.finfo(d.dtype).tiny
+    di, zc = d[:, :nact, None], zhat[:, :, None]
+    zero = zc == 0
+    fi, li = rows[0, :, :nact, None], rows[1, :, :nact, None]
+    out = []
+    for j0, j1 in _row_blocks(d.shape[0], nact, d.dtype):
+        denom = (di - anc[:, None, j0:j1]) - tau[:, None, j0:j1]
+        bad = zero | (denom == 0)
+        wv = torch.where(bad, 0, zc / torch.where(bad, 1, denom))
+        nrm = torch.sqrt(torch.clamp((wv * wv).sum(1), min=tiny))
+        out.append(torch.stack([(fi * wv).sum(1), (li * wv).sum(1)], 1)
+                   / nrm[:, None, :])
+    return out[0] if len(out) == 1 else torch.cat(out, -1)
 
 
-def _partition(active, *xs):
-    """Active columns first, each group in its order (a stable sort)."""
-    part = torch.argsort((~active).to(torch.int8), dim=-1, stable=True)
-    return _take(part, *xs, active)
+def _partition(active, cols):
+    """Active columns first, each group in its order (a stable sort), of
+    the stacked columns ``cols`` (k, P, m) and of ``active`` (P, m)."""
+    part = torch.argsort(active.view(torch.uint8), dim=-1, descending=True,
+                         stable=True)
+    return cols.gather(-1, part.expand_as(cols)), active.gather(-1, part)
 
 
 def _merge_pair(d1, f1, l1, d2, f2, l2, rho_b, *, newton_iters: int,
@@ -500,71 +517,77 @@ def _merge_pair(d1, f1, l1, d2, f2, l2, rho_b, *, newton_iters: int,
     """One merge level: the children (ascending spectra and first/last
     eigenvector rows, (P, h) each) to the parent's triple (P, 2h); rho_b
     (P,) is the signed coupling.  ``need_rows=False`` (the top level)
-    skips the Loewner product and the f/l rows and returns zero rows."""
+    skips the Loewner product and the f/l rows and returns zero rows.
+    The columns (d, z, fe, le) travel stacked, (4, P, 2h), so that each
+    sort or partition moves them in one gather."""
     from repro_torch.kernels import ops
     acc = d1.dtype
     eps = torch.finfo(acc).eps
     tiny = torch.finfo(acc).tiny
+    p, h = d1.shape
     rho = rho_b.abs()[:, None]
     sgn = torch.where(rho_b < 0, -1.0, 1.0).to(acc)[:, None]
-    d = torch.cat([d1, d2], -1)
-    z = torch.cat([l1, sgn * f2], -1)
-    fe = torch.cat([f1, torch.zeros_like(f2)], -1)
-    le = torch.cat([torch.zeros_like(l1), l2], -1)
-    d, z, fe, le = _take(torch.argsort(d, dim=-1, stable=True), d, z, fe, le)
+    zero = torch.zeros_like(f2)
+    # (d, z, fe, le) = ([d1 d2], [l1 sgn*f2], [f1 0], [0 l2]), by d
+    cols = torch.stack([d1, l1, f1, zero, d2, sgn * f2, zero, l2]).view(
+        2, 4, p, h).permute(1, 2, 0, 3).reshape(4, p, 2 * h)
+    order = torch.argsort(cols[0], dim=-1, stable=True)
+    cols = cols.gather(-1, order.expand_as(cols))
+    d, z = cols[0], cols[1]
 
     norm_scale = d.abs().amax(-1, keepdim=True) + 2 * rho
     tol = torch.clamp(8 * eps * norm_scale, min=tiny * 16)
 
     # deflation 1: negligible weight; then the Givens scan of near-equal
-    # poles, and the actives made a contiguous prefix again
+    # poles, and the actives made a contiguous prefix again (the kernel
+    # scans in place, the plain version returns new columns)
     active = rho * z.abs() > tol
-    d, z, fe, le, active = _partition(active, d, z, fe, le)
-    d, z, fe, le, active = ops.dc_deflate(
-        d.contiguous(), z.contiguous(), fe.contiguous(), le.contiguous(),
-        active.contiguous(), tol[:, 0].contiguous(), backend=backend)
-    d, z, fe, le, active = _partition(active, d, z, fe, le)
+    cols, active = _partition(active, cols)
+    out = ops.dc_deflate(*cols, active, tol[:, 0], backend=backend)
+    if any(o.data_ptr() != c.data_ptr() for o, c in zip(out, cols)):
+        cols = torch.stack(out[:4])
+    cols, active = _partition(out[4], cols)
+    d, z = cols[0], cols[1]
 
-    # the secular roots of the active prefix: its length read once
+    # the secular roots of the active prefix: its length read once.
+    # d_next's last column is read nowhere (a_next is False there), so
+    # a roll stands in for a padded shift
     w = torch.where(active, rho * z * z, 0)
     sum_w = w.sum(-1, keepdim=True)
-    d_next = torch.nn.functional.pad(d[:, 1:], (0, 1))
+    d_next = torch.roll(d, -1, -1)
     a_next = torch.nn.functional.pad(active[:, 1:], (0, 1))
     gap = torch.where(a_next, d_next - d,
                       sum_w * (1 + 4 * eps) + 4 * eps * norm_scale)
     nact = int(active.sum(-1).amax()) if active.numel() else 0
-    anc, tau = d, torch.zeros_like(d)
+    # the roots mu_j = anc_j + tau_j of the prefix; mu = d elsewhere
+    mu = d.clone()
     if nact:
         hidx = torch.topk(w[:, :nact], min(DC_HEAVY_K, nact), dim=-1)[1]
-        anc_a, tau_a = ops.dc_secular(
-            d, w, gap.contiguous(), active, d_next.contiguous(),
-            a_next.contiguous(), hidx, nact=nact,
+        anc, tau = ops.dc_secular(
+            d, w, gap, active, d_next, a_next, hidx, nact=nact,
             newton_iters=newton_iters, backend=backend)
-        anc = torch.cat([anc_a, d[:, nact:]], -1)
-        tau = torch.nn.functional.pad(tau_a, (0, d.shape[-1] - nact))
-    mu = torch.where(active, anc + tau, d)
+        act = active[:, :nact]
+        torch.where(act, anc + tau, d[:, :nact], out=mu[:, :nact])
     order2 = torch.argsort(mu, dim=-1, stable=True)
     if not need_rows:
         mu = mu.gather(-1, order2)
         return mu, torch.zeros_like(mu), torch.zeros_like(mu)
-    t = torch.where(active, (anc - d) + tau, 0)
 
-    # Gu's weights from the roots, then the parent's rows
-    rho_safe = torch.where(rho > 0, rho, 1)
-    zhat = torch.zeros_like(z)
-    fj = lj = torch.zeros_like(z)
+    # Gu's weights from the roots, then the parent's rows in place of the
+    # children's at the active roots
     if nact:
-        logprod = _loewner_log(d, t, anc, tau, active, nact)
-        zhat2 = torch.where(active[:, :nact], t[:, :nact] / rho_safe
-                            * torch.exp(logprod), 0)
-        zh = torch.sqrt(zhat2)
-        zhat[:, :nact] = torch.where(z[:, :nact] < 0, -zh, zh)
-        fa, la = _fl_rows(d, zhat, fe, le, anc, tau, active, nact)
-        fj = torch.nn.functional.pad(fa, (0, d.shape[-1] - nact))
-        lj = torch.nn.functional.pad(la, (0, d.shape[-1] - nact))
-    f_par = torch.where(active, fj, fe)
-    l_par = torch.where(active, lj, le)
-    return _take(order2, mu, f_par, l_par)
+        t = torch.where(act, (anc - d[:, :nact]) + tau, 0)
+        rho_safe = torch.where(rho > 0, rho, 1)
+        logprod = _loewner_log(d, t, anc, tau, nact)
+        zhat2 = torch.where(act, t / rho_safe * torch.exp(logprod), 0)
+        # the sign of z (never 0 at an active pole; 0 rows elsewhere)
+        zhat = torch.copysign(torch.sqrt(zhat2), z[:, :nact])
+        rows = _fl_rows(d, zhat, cols[2:], anc, tau, nact)
+        torch.where(act, rows.transpose(0, 1), cols[2:, :, :nact],
+                    out=cols[2:, :, :nact])
+    cols[1].copy_(mu)
+    res = cols[1:].gather(-1, order2.expand(3, -1, -1))
+    return res[0], res[1], res[2]
 
 
 # ---------------------------------------------------------------------------
@@ -628,8 +651,8 @@ def bidiag_dc_singular_values(d: torch.Tensor, e: torch.Tensor, *,
     for lev in range(levels):
         sz = lm << lev
         npair = big // (2 * sz)
-        pos = (2 * torch.arange(npair, device=z.device) + 1) * sz - 1
-        rho_b = b[:, pos].reshape(-1)
+        # the couplings at (2k + 1) sz - 1, k < npair
+        rho_b = b[:, sz - 1::2 * sz].reshape(-1)
         lam2, f2, l2 = (x.reshape(nb * npair, 2, sz) for x in (lam, f, el))
         lam, f, el = _merge_pair(
             lam2[:, 0], f2[:, 0], l2[:, 0], lam2[:, 1], f2[:, 1], l2[:, 1],

@@ -34,7 +34,9 @@ __all__ = [
     "FUSED_THREADS", "FusedRoute", "fused_route", "fused_smem_bytes",
     "check_fused_smem_budget", "default_fuse_depth",
     "DEFAULT_DC_LEAF_N", "DEFAULT_DC_N_MIN", "DC_WINDOW_K", "DC_HEAVY_K",
-    "DC_POLISH_ITERS", "DC_FALLBACK_ITERS", "dc_leaf_smem_bytes",
+    "DC_POLISH_ITERS", "DC_FALLBACK_ITERS", "DC_DEFLATE_CHUNK",
+    "DC_DEFLATE_THREADS", "dc_deflate_schedule", "DC_MERGE_BLOCK_BYTES",
+    "dc_leaf_smem_bytes",
     "check_dc_leaf_budget", "SMS", "SMEM_PER_SM", "CHASE_THREADS",
     "default_bucket_batch", "DEFAULT_FUSED_CROSSOVER",
     "stage_plan", "STAGE3_CHOICES", "PipelineConfig",
@@ -66,9 +68,12 @@ DEFAULT_DC_LEAF_N = 32
 # autotune phase (search_stage3_crossover on the bidiagonals stage 2 makes
 # of banded bw-64 inputs; fp64 and fp32, B = 1 to n = 16384 and B = 4 to
 # 4096).  dc lost to bisection at every n, so this is the sentinel
-# 1 + max(ns) and "auto" keeps bisection.  On i.i.d. normal bidiagonals,
-# the reference's sweep input, which deflate far more, dc wins from 8192;
-# the reference's own 2048 was measured on a CPU.
+# 1 + max(ns) and "auto" keeps bisection; with the scan in chunks, one
+# division a pole and the merge's passes in blocks by bytes it still
+# loses, 1.4x at fp64 n = 4096 and 1.5x / 1.8x at fp64 / fp32 n = 16384.
+# On i.i.d. normal bidiagonals, the reference's sweep input, which deflate
+# far more, dc wins from 4096; the reference's own 2048 was measured on a
+# CPU.
 DEFAULT_DC_N_MIN = 16385
 # Index-nearest poles of each secular root's window in the windowed
 # iteration (dc.cu's kWin, the window a warp holds in registers).
@@ -95,9 +100,35 @@ DC_POLISH_ITERS = 64
 # each projected again, bring the fallback into lam_k's invariant
 # subspace; one step is not enough.
 DC_FALLBACK_ITERS = 2
+# The Givens scan's chunks (dc.cu's dc_deflate_kernel): one block a
+# subproblem, one thread a chunk of at least DC_DEFLATE_CHUNK steps, at
+# most DC_DEFLATE_THREADS threads (dc.cu's kDeflateThreads), so the
+# speculative run of a chunk is 16 steps long at the top merge level of an
+# n = 4096 bidiagonal (m = 8192) and 64 at n = 16384.
+DC_DEFLATE_CHUNK = 16
+DC_DEFLATE_THREADS = 512
+# Bytes of one (P, rows, nact) temporary of the merge's Loewner product and
+# f/l rows (core/bidiag_dc.py): each pass sums over the whole active prefix
+# at once and splits only its target axis, into blocks of as many rows as
+# this allows.  256 MiB holds the level below the top of an fp64 n = 4096
+# call (2 x 4096 x 4096 x 8 bytes) in one block; a pass makes about ten
+# such temporaries, and a dc call took 1.5 GiB above its inputs at fp64
+# n = 4096 and 2.1 GiB at fp32 n = 16384 (chip_smoke.py's stage3_dc on
+# an H100 80GB HBM3, 700 W), of the card's 80 GB.
+DC_MERGE_BLOCK_BYTES = 256 << 20
 
 _DTYPES = {"float64": torch.float64, "float32": torch.float32,
            "bfloat16": torch.bfloat16}
+
+
+def dc_deflate_schedule(m: int, last: int) -> tuple[int, int]:
+    """(threads, chunk) of ``dc_deflate_kernel`` on a subproblem of m
+    columns whose last active column is ``last``: the threads its launch
+    gives m, and the steps of each chunk (steps 1 ... last in chunks of
+    ``chunk``, the last one shorter)."""
+    want = -(-max(m - 1, 0) // DC_DEFLATE_CHUNK)
+    threads = min(DC_DEFLATE_THREADS, max(32, -(-want // 32) * 32))
+    return threads, max(DC_DEFLATE_CHUNK, -(-max(last, 0) // threads))
 
 
 def dtype_of(name) -> torch.dtype:

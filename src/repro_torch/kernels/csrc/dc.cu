@@ -32,20 +32,42 @@
 //    a leaf and all leaves at once, so the launch takes about one thread's
 //    chain.
 //  * dc_deflate_kernel replaces the Givens scan of _merge_pair
-//    (:574-605).  One thread per subproblem walks its columns in order, in
-//    place.  Bound: latency, a chain of m - 1 steps with a square root and
-//    two divisions, one thread per subproblem (at the top merge level one
-//    thread per matrix).  Bit for bit the plain version (mul_rn, add_rn).
+//    (:574-605).  Bound: latency, a chain of dependent steps with a square
+//    root and two divisions (about 0.29 us a step on the H100): one thread
+//    walking a subproblem takes 8,191 of them at the top merge level of an
+//    n = 4096 bidiagonal.  So the chain is split, one block a subproblem.
+//    Only the columns up to the last active one can merge (a merge needs
+//    both flags, and the carry's flag is always its column's input flag),
+//    so the block first finds that column, `last`, and walks steps
+//    1..last only: every later column is its own output.  If step i - 1
+//    did not merge, the carry entering step i is column i - 1 as it came
+//    in, so a step's outcome then depends on the inputs alone.  Phase 1:
+//    one thread a chunk of the steps runs its chunk on that assumption
+//    (the speculative run), writing its columns to a scratch copy and
+//    keeping its last carry and whether its last step merged.  Phase 2:
+//    warp 0 finds by ballot each chunk whose previous step truly merged,
+//    and one thread reruns it from the true carry until a step where
+//    neither run merged (from there both carry the same input column), or
+//    to its end, whose carry then passes on.  The inputs stay untouched
+//    until phase 3 copies the scratch back over columns 0..last, so a
+//    rerun reads them again; the reruns' length is that of the merge runs
+//    that cross a chunk's start.  Every step is the plain scan's rounded
+//    arithmetic (mul_rn, add_rn), so the result is bit for bit
+//    deflate_plain.  The chunks' loads and stores are scattered (one
+//    column of each chunk a step), so a block's time grows with its steps
+//    per SM: at the top level one SM walks all of them.
 //  * dc_secular_kernel replaces the root solve of _secular_roots
 //    (:297-527).  One warp per root of the active prefix (only the prefix
 //    is launched); the midpoint and polish passes split the pole sum over
 //    the lanes and reduce by shuffles, the windowed iteration keeps the 128
 //    index-nearest and 32 heaviest poles in registers (4 + 1 a lane), and a
 //    warp stops polishing when its root's residual reaches the rounding
-//    floor (the reference freezes such a root in its lockstep loop).
-//    Bound: operations, the divisions of the full passes, about
-//    2 * nact^2 per pass.  Roots agree with the plain version within
-//    rounding (the sums are taken in another order).
+//    floor (the reference freezes such a root in its lockstep loop), and
+//    leaves the windowed iteration once its root is frozen there (the
+//    iterations left would change nothing).  Bound: operations, the full
+//    passes' divisions.  Each pole costs one: q = 1 / (d_i - mu), then
+//    w_i q and w_i q^2, where w / den and r / den would cost two.  Roots agree with the plain version within rounding (the
+//    sums are taken in another order, and rounded otherwise).
 
 #include <cuda_runtime.h>
 
@@ -250,48 +272,213 @@ __global__ void dc_leaf_kernel(const A* __restrict__ a,
 // the Givens deflation scan
 // ---------------------------------------------------------------------------
 
+constexpr int kDeflateThreads = 512;   // most chunks a subproblem
+
+// one step of the scan: the carry (dc, zc, fc, lc; active ac) meets column
+// i (di, zi, fi, li; ai); emits column i - 1 into (od, oz, of, ol, oa) and
+// leaves the next carry; returns whether the two merged
 template <typename A>
-__global__ void dc_deflate_kernel(A* __restrict__ d, A* __restrict__ z,
-                                  A* __restrict__ fe, A* __restrict__ le,
-                                  unsigned char* __restrict__ act,
-                                  const A* __restrict__ tol, int P, int m) {
-  const long p = (long)blockIdx.x * blockDim.x + threadIdx.x;
-  if (p >= P) return;
+__device__ __forceinline__ bool scan_step(A t, A& dc, A& zc, A& fc, A& lc,
+                                          bool ac, A di, A zi, A fi, A li,
+                                          bool ai, A& od, A& oz, A& of,
+                                          A& ol, bool& oa) {
+  const A r = sqrt(add_rn(mul_rn(zc, zc), mul_rn(zi, zi)));
+  const bool pos = r > 0;
+  const A rs = pos ? r : A(1);
+  const A cg = pos ? zi / rs : A(1);
+  const A sg = pos ? zc / rs : A(0);
+  const A off = fabs(mul_rn(mul_rn(cg, sg), sub_rn(di, dc)));
+  const bool mrg = ac && ai && off <= t;
+  const A cc = mul_rn(cg, cg), ss = mul_rn(sg, sg);
+  od = mrg ? add_rn(mul_rn(cc, dc), mul_rn(ss, di)) : dc;
+  oz = mrg ? A(0) : zc;
+  of = mrg ? sub_rn(mul_rn(cg, fc), mul_rn(sg, fi)) : fc;
+  ol = mrg ? sub_rn(mul_rn(cg, lc), mul_rn(sg, li)) : lc;
+  oa = ac && !mrg;
+  dc = mrg ? add_rn(mul_rn(ss, dc), mul_rn(cc, di)) : di;
+  zc = mrg ? r : zi;
+  fc = mrg ? add_rn(mul_rn(sg, fc), mul_rn(cg, fi)) : fi;
+  lc = mrg ? add_rn(mul_rn(sg, lc), mul_rn(cg, li)) : li;
+  return mrg;
+}
+
+// one subproblem's columns: the inputs (in place, read until phase 3) and
+// the scratch copy its outputs go to
+template <typename A>
+struct ScanRow {
+  const A *d, *z, *f, *l;
+  const unsigned char* a;
+  A *sd, *sz, *sf, *sl;
+  unsigned char* sa;
+
+  // steps [i0, i1) from the carry, writing columns i0 - 1 ... i1 - 2 to
+  // the scratch; `mrg` is the last step's merge.  A rerun (`rerun`) stops
+  // after the first step where neither it nor the speculative run (whose
+  // columns the scratch holds) merged, and returns true: from there the two
+  // are the same.
+  __device__ bool run(A t, int i0, int i1, A& dc, A& zc, A& fc, A& lc,
+                      bool rerun, bool& mrg) const {
+    // the next column is loaded one step ahead of its use; the carry's
+    // flag is always its column's input flag
+    A di = d[i0], zi = z[i0], fi = f[i0], li = l[i0];
+    bool ai = a[i0] != 0, ac = a[i0 - 1] != 0;
+    for (int i = i0; i < i1; ++i) {
+      const A ci = di, cz = zi, cf = fi, cl = li;
+      const bool ca = ai;
+      if (i + 1 < i1) {
+        di = d[i + 1];
+        zi = z[i + 1];
+        fi = f[i + 1];
+        li = l[i + 1];
+        ai = a[i + 1] != 0;
+      }
+      const bool spec = rerun && ac && !sa[i - 1];
+      A od, oz, of, ol;
+      bool oa;
+      mrg = scan_step(t, dc, zc, fc, lc, ac, ci, cz, cf, cl, ca, od, oz, of,
+                      ol, oa);
+      sd[i - 1] = od;
+      sz[i - 1] = oz;
+      sf[i - 1] = of;
+      sl[i - 1] = ol;
+      sa[i - 1] = oa;
+      if (rerun && !mrg && !spec) return true;
+      ac = ca;
+    }
+    return false;
+  }
+
+  __device__ void put_last(int last, A dc, A zc, A fc, A lc) const {
+    sd[last] = dc;
+    sz[last] = zc;
+    sf[last] = fc;
+    sl[last] = lc;
+    sa[last] = a[last];
+  }
+};
+
+template <typename A>
+__global__ void __launch_bounds__(kDeflateThreads)
+    dc_deflate_kernel(A* __restrict__ d, A* __restrict__ z,
+                      A* __restrict__ fe, A* __restrict__ le,
+                      unsigned char* __restrict__ act,
+                      const A* __restrict__ tol, A* __restrict__ scratch,
+                      unsigned char* __restrict__ sact, int P, int m,
+                      int chunk_min) {
+  __shared__ A carry[4][kDeflateThreads];
+  __shared__ bool merged[kDeflateThreads];
+  __shared__ int wmax[kDeflateThreads / 32];
+  __shared__ int last_s;
+  const long p = blockIdx.x;
+  const int tid = threadIdx.x, nthr = blockDim.x;
   A* dp = d + p * m;
   A* zp = z + p * m;
   A* fp = fe + p * m;
   A* lp = le + p * m;
   unsigned char* ap = act + p * m;
-  const A t = tol[p];
-  A dc = dp[0], zc = zp[0], fc = fp[0], lc = lp[0];
-  bool ac = ap[0] != 0;
-  for (int i = 1; i < m; ++i) {
-    const A di = dp[i], zi = zp[i], fi = fp[i], li = lp[i];
-    const bool ai = ap[i] != 0;
-    const A r = sqrt(add_rn(mul_rn(zc, zc), mul_rn(zi, zi)));
-    const bool pos = r > 0;
-    const A rs = pos ? r : A(1);
-    const A cg = pos ? zi / rs : A(1);
-    const A sg = pos ? zc / rs : A(0);
-    const A off = fabs(mul_rn(mul_rn(cg, sg), sub_rn(di, dc)));
-    const bool mrg = ac && ai && off <= t;
-    const A cc = mul_rn(cg, cg), ss = mul_rn(sg, sg);
-    dp[i - 1] = mrg ? add_rn(mul_rn(cc, dc), mul_rn(ss, di)) : dc;
-    zp[i - 1] = mrg ? A(0) : zc;
-    fp[i - 1] = mrg ? sub_rn(mul_rn(cg, fc), mul_rn(sg, fi)) : fc;
-    lp[i - 1] = mrg ? sub_rn(mul_rn(cg, lc), mul_rn(sg, li)) : lc;
-    ap[i - 1] = ac && !mrg;
-    dc = mrg ? add_rn(mul_rn(ss, dc), mul_rn(cc, di)) : di;
-    zc = mrg ? r : zi;
-    fc = mrg ? add_rn(mul_rn(sg, fc), mul_rn(cg, fi)) : fi;
-    lc = mrg ? add_rn(mul_rn(sg, lc), mul_rn(cg, li)) : li;
-    ac = ai;
+  const long pm = (long)P * m;
+  const ScanRow<A> row{dp, zp, fp, lp, ap,
+                       scratch + p * m, scratch + pm + p * m,
+                       scratch + 2 * pm + p * m, scratch + 3 * pm + p * m,
+                       sact + p * m};
+
+  // the last active column
+  int last = -1;
+  for (int i = tid; i < m; i += nthr)
+    if (ap[i]) last = i;
+  last = __reduce_max_sync(0xffffffffu, last);
+  if ((tid & 31) == 0) wmax[tid >> 5] = last;
+  __syncthreads();
+  if (tid == 0) {
+    int v = -1;
+    for (int w = 0; w < (nthr + 31) / 32; ++w) v = max(v, wmax[w]);
+    last_s = v;
   }
-  dp[m - 1] = dc;
-  zp[m - 1] = zc;
-  fp[m - 1] = fc;
-  lp[m - 1] = lc;
-  ap[m - 1] = ac;
+  __syncthreads();
+  last = last_s;
+  if (last < 1) return;                 // no step can merge
+
+  // the prefix's lines into L2, where the chunks' scattered loads meet them
+  {
+    constexpr int kLine = 128 / sizeof(A);
+    for (int i = tid * kLine; i <= last; i += nthr * kLine) {
+      asm volatile("prefetch.global.L2 [%0];" ::"l"(dp + i));
+      asm volatile("prefetch.global.L2 [%0];" ::"l"(zp + i));
+      asm volatile("prefetch.global.L2 [%0];" ::"l"(fp + i));
+      asm volatile("prefetch.global.L2 [%0];" ::"l"(lp + i));
+    }
+  }
+
+  // phase 1: chunk k runs steps [1 + k c, 1 + (k + 1) c) from column k c
+  const A t = tol[p];
+  const int c = max(chunk_min, (last + nthr - 1) / nthr);
+  const int nchunk = (last + c - 1) / c;
+  if (tid < nchunk) {
+    const int i0 = 1 + tid * c, i1 = min(i0 + c, last + 1);
+    A dc = dp[i0 - 1], zc = zp[i0 - 1], fc = fp[i0 - 1], lc = lp[i0 - 1];
+    bool mrg = false;
+    row.run(t, i0, i1, dc, zc, fc, lc, false, mrg);
+    carry[0][tid] = dc;
+    carry[1][tid] = zc;
+    carry[2][tid] = fc;
+    carry[3][tid] = lc;
+    merged[tid] = mrg;
+    if (i1 == last + 1) row.put_last(last, dc, zc, fc, lc);
+  }
+  __syncthreads();
+
+  // phase 2: the chunks whose entering carry was not the speculated one.
+  // Warp 0 finds by ballot the next chunk q whose speculative run is true
+  // (`from` on) and ended in a merge; lane 0 reruns chunk q + 1 from q's
+  // carry, and the next ones while a rerun ends merged without meeting
+  // the speculative run.
+  if (tid < 32) {
+    const int lane = tid;
+    int from = 0;
+    for (;;) {
+      int q = -1;
+      for (int base = from; base < nchunk - 1; base += 32) {
+        const int k = base + lane;
+        const unsigned bits =
+            __ballot_sync(0xffffffffu, k < nchunk - 1 && merged[k]);
+        if (bits) {
+          q = base + __ffs(bits) - 1;
+          break;
+        }
+      }
+      if (q < 0) break;
+      int next = 0;
+      if (lane == 0) {
+        A dc = carry[0][q], zc = carry[1][q], fc = carry[2][q],
+          lc = carry[3][q];
+        for (int k = q + 1;; ++k) {
+          const int i0 = 1 + k * c, i1 = min(i0 + c, last + 1);
+          bool mrg = false;
+          if (row.run(t, i0, i1, dc, zc, fc, lc, true, mrg)) {
+            next = k;              // from the meeting on, chunk k is its
+            break;                 // speculative run, merged[k] its end
+          }
+          // the runs never met: the rerun's carry is the true one
+          if (i1 == last + 1) row.put_last(last, dc, zc, fc, lc);
+          if (!mrg || k + 1 == nchunk) {
+            next = k + 1;          // chunk k + 1 started as speculated
+            break;
+          }
+        }
+      }
+      from = __shfl_sync(0xffffffffu, next, 0);
+    }
+  }
+  __syncthreads();
+
+  // phase 3: the scratch back over columns 0 .. last
+  for (int i = tid; i <= last; i += nthr) {
+    dp[i] = row.sd[i];
+    zp[i] = row.sz[i];
+    fp[i] = row.sf[i];
+    lp[i] = row.sl[i];
+    ap[i] = row.sa[i];
+  }
 }
 
 // ---------------------------------------------------------------------------
@@ -399,9 +586,9 @@ __global__ void __launch_bounds__(128) dc_secular_kernel(SecArgs<A> g) {
     for (int i = lane; i < g.nact; i += 32) {
       const A wi = wp[i];
       if (wi == 0) continue;
-      const A den = (dp[i] - anc) - t;
-      const A r = wi / den;
-      s.add(r, r / den, i <= j);
+      const A q = A(1) / ((dp[i] - anc) - t);
+      const A r = wi * q;
+      s.add(r, r * q, i <= j);
     }
     s.reduce();
     return s;
@@ -436,14 +623,14 @@ __global__ void __launch_bounds__(128) dc_secular_kernel(SecArgs<A> g) {
 #pragma unroll
     for (int q = 0; q < kSlots; ++q) {
       if (ww[q] == 0) continue;
-      const A den = (dw[q] - origin) - t;
-      const A r = ww[q] / den;
-      s.add(r, r / den, lw[q]);
+      const A inv = A(1) / ((dw[q] - origin) - t);
+      const A r = ww[q] * inv;
+      s.add(r, r * inv, lw[q]);
     }
     if (wh != 0) {
-      const A den = (dh - origin) - t;
-      const A r = wh / den;
-      s.add(r, r / den, lh);
+      const A inv = A(1) / ((dh - origin) - t);
+      const A r = wh * inv;
+      s.add(r, r * inv, lh);
     }
     s.reduce();
     return s;
@@ -473,6 +660,9 @@ __global__ void __launch_bounds__(128) dc_secular_kernel(SecArgs<A> g) {
     const A phi_m = phi_f + phip_f * s + nw.phi;
     const A f = A(1) + psi_m + phi_m;
     const A fscale = A(1) + fabs(phi_m) + fabs(psi_m);
+    // frozen at the rounding floor: every later iteration would find the
+    // same sums and leave t as it is (mw_update), so stop
+    if (fabs(f) <= A(8) * Eps<A>::v * fscale) break;
     mw_update(f, fscale, psip_f + nw.psip, phip_f + nw.phip, off, gap_safe,
               t, lo, hi);
   }
@@ -514,13 +704,17 @@ int leaf(const void* a, const void* b, const void* lo0, const void* hi0,
 
 template <typename A>
 int deflate(void* d, void* z, void* fe, void* le, void* act, const void* tol,
-            int P, int m, void* stream) {
-  if (P < 0 || m < 1) return (int)cudaErrorInvalidValue;
+            void* scratch, void* sact, int P, int m, int chunk_min,
+            void* stream) {
+  if (P < 0 || m < 1 || chunk_min < 1) return (int)cudaErrorInvalidValue;
   if (P == 0) return 0;
-  const int threads = 128;
-  dc_deflate_kernel<A><<<(P + threads - 1) / threads, threads, 0,
-                         (cudaStream_t)stream>>>(
-      (A*)d, (A*)z, (A*)fe, (A*)le, (unsigned char*)act, (const A*)tol, P, m);
+  // enough threads for chunks of chunk_min steps, at most kDeflateThreads
+  const int want = ((m - 1 + chunk_min - 1) / chunk_min + 31) / 32 * 32;
+  const int threads = want < 32 ? 32
+                      : (want > kDeflateThreads ? kDeflateThreads : want);
+  dc_deflate_kernel<A><<<P, threads, 0, (cudaStream_t)stream>>>(
+      (A*)d, (A*)z, (A*)fe, (A*)le, (unsigned char*)act, (const A*)tol,
+      (A*)scratch, (unsigned char*)sact, P, m, chunk_min);
   return (int)cudaGetLastError();
 }
 
@@ -551,7 +745,9 @@ int secular(const void* d, const void* w, const void* gap, const void* act,
 //
 // dc_leaf: a (P, lm), b (P, lm-1), lo0, hi0, ctol (P,), x0 (lm, lm) -> lam,
 //   f, l (P, lm); smem = tuning.dc_leaf_smem_bytes.
-// dc_deflate: d, z, fe, le (P, m) and act (P, m) bool, in place; tol (P,).
+// dc_deflate: d, z, fe, le (P, m) and act (P, m) bool, in place; tol (P,);
+//   scratch (4, P, m) and sact (P, m) bytes; chunk_min = steps a chunk at
+//   the least (tuning.DC_DEFLATE_CHUNK).
 // dc_secular: d, w, gap, dnext (P, m), act, anext (P, m) bool, hidx (P, kh)
 //   int64 -> anc, tau (P, nact).
 extern "C" {
@@ -577,13 +773,17 @@ int dc_leaf_f32(const void* a, const void* b, const void* lo0,
 }
 
 int dc_deflate_f64(void* d, void* z, void* fe, void* le, void* act,
-                   const void* tol, int P, int m, void* stream) {
-  return deflate<double>(d, z, fe, le, act, tol, P, m, stream);
+                   const void* tol, void* scratch, void* sact, int P, int m,
+                   int chunk_min, void* stream) {
+  return deflate<double>(d, z, fe, le, act, tol, scratch, sact, P, m,
+                       chunk_min, stream);
 }
 
 int dc_deflate_f32(void* d, void* z, void* fe, void* le, void* act,
-                   const void* tol, int P, int m, void* stream) {
-  return deflate<float>(d, z, fe, le, act, tol, P, m, stream);
+                   const void* tol, void* scratch, void* sact, int P, int m,
+                   int chunk_min, void* stream) {
+  return deflate<float>(d, z, fe, le, act, tol, scratch, sact, P, m,
+                       chunk_min, stream);
 }
 
 int dc_secular_f64(const void* d, const void* w, const void* gap,

@@ -30,7 +30,7 @@ _SUFFIX = {torch.float64: ("f64", ctypes.c_double),
            torch.float32: ("f32", ctypes.c_float)}
 _P, _I = ctypes.c_void_p, ctypes.c_int
 _ARGS = {"leaf": lambda real: [_P] * 9 + [_I] * 5 + [real, real, _I, _P],
-         "deflate": lambda real: [_P] * 6 + [_I] * 2 + [_P],
+         "deflate": lambda real: [_P] * 8 + [_I] * 3 + [_P],
          "secular": lambda real: [_P] * 9 + [_I] * 7 + [_P]}
 _FNS: dict = {}
 
@@ -103,7 +103,10 @@ def dc_deflate_cuda(d: torch.Tensor, z: torch.Tensor, fe: torch.Tensor,
                     tol: torch.Tensor):
     """The Givens deflation scan of P subproblems, in place on d, z, fe, le
     (P, m) and the bool ``active`` (P, m), tol (P,); returns them, bit for
-    bit ``bidiag_dc.deflate_plain``."""
+    bit ``bidiag_dc.deflate_plain``.  One block a subproblem, its steps in
+    chunks run side by side and repaired where a merge run crosses a
+    chunk's start (``tuning.dc_deflate_schedule``); the outputs go through
+    a scratch copy allocated here."""
     name = "dc_deflate_cuda"
     _check(name, d, d=d, z=z, fe=fe, le=le, active=active, tol=tol)
     p, m = d.shape
@@ -113,9 +116,12 @@ def dc_deflate_cuda(d: torch.Tensor, z: torch.Tensor, fe: torch.Tensor,
         raise ValueError(f"{name}: d, z, fe, le (P, m) of one dtype, active "
                          f"(P, m) bool and tol (P,)")
     if p and m:
+        scratch = d.new_empty((4, p, m))
+        sact = torch.empty((p, m), dtype=torch.uint8, device=d.device)
         _call(name, "deflate", d.dtype, d.device, d.data_ptr(), z.data_ptr(),
               fe.data_ptr(), le.data_ptr(), active.data_ptr(),
-              tol.data_ptr(), p, m)
+              tol.data_ptr(), scratch.data_ptr(), sact.data_ptr(), p, m,
+              tuning.DC_DEFLATE_CHUNK)
     return d, z, fe, le, active
 
 

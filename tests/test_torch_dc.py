@@ -20,7 +20,7 @@ import numpy as np
 import pytest
 import torch
 from hypothesis import given, settings, strategies as st
-from torch_port_common import check_svd
+from torch_port_common import check_svd, deflation_runs
 
 from repro.core import bidiag_dc as jdc
 from repro.core.tuning import PipelineConfig as JConfig
@@ -28,6 +28,7 @@ from repro_torch import convert
 from repro_torch.core import bidiag_dc as tdc
 from repro_torch.core import bidiag_svd as ts3
 from repro_torch.core import svd as tsvd
+from repro_torch.core import tuning
 from repro_torch.core.tuning import PipelineConfig
 
 torch.set_num_threads(2)
@@ -120,14 +121,19 @@ def test_secular_roots_match_reference():
                                atol=1e-13 * scale)
 
 
-def test_merge_pair_matches_reference():
+def _merge_inputs():
     rng = np.random.default_rng(2)
     p, h = 4, 64
     d1, d2 = (np.sort(rng.standard_normal((p, h)), -1) for _ in range(2))
     f1, l1, f2, l2 = (rng.standard_normal((p, h)) / np.sqrt(h)
                       for _ in range(4))
     rho_b = rng.standard_normal(p)
-    args = (d1, f1, l1, d2, f2, l2, rho_b)
+    return d1, f1, l1, d2, f2, l2, rho_b
+
+
+def test_merge_pair_matches_reference():
+    args = _merge_inputs()
+    d1, _, _, d2, _, _, rho_b = args
     want = jax.jit(functools.partial(jdc._merge_pair, newton_iters=30))(
         *args)
     got = tdc._merge_pair(*(torch.from_numpy(x) for x in args),
@@ -139,6 +145,151 @@ def test_merge_pair_matches_reference():
     for g, w_ in zip(got[1:], want[1:]):
         np.testing.assert_allclose(g.numpy(), np.asarray(w_), rtol=0,
                                    atol=1e-11)
+
+
+def test_merge_passes_split_by_the_byte_budget(monkeypatch):
+    """A byte budget of five rows splits the Loewner product and the f/l
+    rows into blocks of their target axis: the parent's triple stays
+    within rounding of the one-block pass and of the reference's
+    _merge_pair (test_merge_pair_matches_reference's tolerances)."""
+    args = _merge_inputs()
+    targs = [torch.from_numpy(x) for x in args]
+    one = tdc._merge_pair(*targs, newton_iters=30, backend="ref")
+    blocks = []
+    real = tdc._row_blocks
+
+    def spy(p, nact, dtype):
+        out = real(p, nact, dtype)
+        blocks.append(len(out))
+        return out
+
+    monkeypatch.setattr(tdc, "DC_MERGE_BLOCK_BYTES", 4 * 128 * 8 * 5)
+    monkeypatch.setattr(tdc, "_row_blocks", spy)
+    split = tdc._merge_pair(*targs, newton_iters=30, backend="ref")
+    assert len(blocks) == 2 and min(blocks) >= 10, blocks
+    assert torch.equal(split[0], one[0])
+    for g, w_ in zip(split[1:], one[1:]):
+        np.testing.assert_allclose(g.numpy(), w_.numpy(), rtol=0,
+                                   atol=1e-13)
+    want = jax.jit(functools.partial(jdc._merge_pair, newton_iters=30))(
+        *args)
+    d1, _, _, d2, _, _, rho_b = args
+    scale = np.abs(np.concatenate([d1, d2], -1)).max() + 2 * np.abs(
+        rho_b).max()
+    np.testing.assert_allclose(split[0].numpy(), np.asarray(want[0]),
+                               rtol=0, atol=1e-13 * scale)
+    for g, w_ in zip(split[1:], want[1:]):
+        np.testing.assert_allclose(g.numpy(), np.asarray(w_), rtol=0,
+                                   atol=1e-11)
+
+
+@pytest.mark.parametrize("m,last,want", [
+    (8192, 8191, (512, 16)),        # the top level of fp64 n = 4096
+    (32768, 32767, (512, 64)),      # the top level of fp32 n = 16384
+    (8192, 6000, (512, 16)), (128, 127, (32, 16)), (64, 20, (32, 16)),
+    (2, 1, (32, 16)), (1, -1, (32, 16))])
+def test_deflate_schedule(m, last, want):
+    assert tuning.dc_deflate_schedule(m, last) == want
+
+
+def deflate_schedule_model(d, z, fe, le, active, tol, chunk):
+    """``dc_deflate_kernel``'s schedule in plain torch, one row at a time:
+    the steps 1 ... last (the last active column) in chunks of ``chunk``,
+    each run from its first column as it came in (the speculative run),
+    then the chunk boundaries in order, each chunk whose previous step
+    merged run again from the true carry until a step where neither run
+    merged.  Returns the outputs of ``deflate_plain`` and the steps run
+    again."""
+    outs = [x.clone() for x in (d, z, fe, le, active)]
+    fixup = 0
+    for p in range(d.shape[0]):
+        flags = [bool(x) for x in active[p]]
+        last = max((i for i, a in enumerate(flags) if a), default=-1)
+        if last < 1:
+            continue
+        t = tol[p:p + 1]
+        src = [x[p] for x in (d, z, fe, le)]
+        scr = [x[p] for x in outs]          # the scratch, then the output
+
+        def column(i):
+            return tuple(x[i:i + 1] for x in src)
+
+        def run(i0, i1, carry, rerun):
+            dc, zc, fc, lc = carry
+            mrg, steps = False, 0
+            for i in range(i0, i1):
+                di, zi, fi, li = column(i)
+                ac, ai = flags[i - 1], flags[i]
+                spec = rerun and ac and not bool(scr[4][i - 1])
+                r = torch.sqrt(zc * zc + zi * zi)
+                pos = r > 0
+                rs = torch.where(pos, r, 1)
+                cg = torch.where(pos, zi / rs, 1)
+                sg = torch.where(pos, zc / rs, 0)
+                off = (cg * sg * (di - dc)).abs()
+                mrg = ac and ai and bool(off <= t)
+                cc, ss = cg * cg, sg * sg
+                steps += 1
+                if mrg:
+                    emit = (cc * dc + ss * di, torch.zeros_like(zc),
+                            cg * fc - sg * fi, cg * lc - sg * li)
+                    dc, zc, fc, lc = (ss * dc + cc * di, r,
+                                      sg * fc + cg * fi, sg * lc + cg * li)
+                else:
+                    emit = (dc, zc, fc, lc)
+                    dc, zc, fc, lc = di, zi, fi, li
+                for k in range(4):
+                    scr[k][i - 1] = emit[k][0]
+                scr[4][i - 1] = ac and not mrg
+                if rerun and not mrg and not spec:
+                    return (dc, zc, fc, lc), mrg, True, steps
+            return (dc, zc, fc, lc), mrg, False, steps
+
+        def put_last(carry):
+            for k in range(4):
+                scr[k][last] = carry[k][0]
+            scr[4][last] = flags[last]
+
+        bounds = [(i0, min(i0 + chunk, last + 1))
+                  for i0 in range(1, last + 1, chunk)]
+        spec = []
+        for i0, i1 in bounds:
+            carry, mrg, _, _ = run(i0, i1, column(i0 - 1), False)
+            spec.append((carry, mrg))
+            if i1 == last + 1:
+                put_last(carry)
+        carry, mrg = spec[0]
+        for k in range(1, len(bounds)):
+            if mrg:
+                carry, mrg, met, steps = run(*bounds[k], carry, True)
+                fixup += steps
+                if not met:
+                    if bounds[k][1] == last + 1:
+                        put_last(carry)
+                    continue
+            carry, mrg = spec[k]
+    return tuple(outs), fixup
+
+
+@pytest.mark.parametrize("dtype", [torch.float64, torch.float32],
+                         ids=["float64", "float32"])
+@pytest.mark.parametrize("chunk", [1, 3, 32])
+def test_deflate_schedule_model_is_bitwise_plain(chunk, dtype):
+    """The kernel's chunk-and-repair schedule gives the plain scan's
+    columns bit for bit, with merge runs across chunk boundaries (so the
+    repair runs) and a deflated suffix left as it came in."""
+    m = 8 * chunk + 40 if chunk > 1 else 60
+    args = deflation_runs(3, m, chunk, chunk, dtype)
+    want = tdc.deflate_plain(*args)
+    got, fixup = deflate_schedule_model(*args, chunk=chunk)
+    for g, w_ in zip(got, want):
+        assert torch.equal(g, w_)
+    assert fixup > 0
+    merged = args[4] & ~want[4]
+    assert int(merged.sum()) > 2 * chunk
+    tail = m - m // 8
+    for x, y in zip(args, want):
+        assert torch.equal(x[:2, tail:], y[:2, tail:])
 
 
 # ---------------------------------------------------------------------------

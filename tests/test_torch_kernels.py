@@ -25,8 +25,8 @@ import math
 import numpy as np
 import pytest
 import torch
-from torch_port_common import (DTYPES, close, cuda, torch_dtype,  # noqa: F401
-                               windows, wy_tol)
+from torch_port_common import (DTYPES, close, cuda,  # noqa: F401
+                               deflation_runs, torch_dtype, windows, wy_tol)
 
 from repro_torch.core import bidiag_dc as tdc
 from repro_torch.core import bidiag_svd as s3
@@ -737,6 +737,28 @@ def test_dc_deflate_cuda_is_bitwise_plain(cuda, p, m, dtype):
     assert int((~want[4] & args[4]).sum()) > 0 or m < 3   # it did merge
 
 
+@pytest.mark.cuda
+@pytest.mark.parametrize("dtype", ["float64", "float32"])
+@pytest.mark.parametrize("p,m", [(1, 8192), (2, 4096), (128, 64)])
+def test_dc_deflate_cuda_is_bitwise_plain_across_chunks(cuda, p, m, dtype):
+    """Bit for bit the plain scan at level shapes of an fp64 n = 4096
+    call (the top level, the one below, the first), on columns whose merge
+    runs cross the kernel's chunk starts (``tuning.dc_deflate_schedule``),
+    one of them longer than two chunks, one where only the speculative run
+    merges, and a deflated suffix that comes back as it went in."""
+    tail = m - m // 8
+    chunk = tuning.dc_deflate_schedule(m, tail - 1)[1]
+    args = deflation_runs(p, m, chunk, p + m, torch_dtype(dtype), cuda)
+    want = tdc.deflate_plain(*args)
+    got = tdc_kern.dc_deflate_cuda(*(x.clone() for x in args[:5]), args[5])
+    torch.cuda.synchronize()
+    for g, w in zip(got, want):
+        assert torch.equal(g, w)
+    assert int((args[4] & ~want[4]).sum()) > 2 * chunk
+    for x, w in zip(args[:5], want):
+        assert torch.equal(x[:, tail:], w[:, tail:])
+
+
 def _dc_secular_inputs(p, m, nact, seed, dtype, device):
     """A merge's secular equation as _merge_pair hands it over: poles
     ascending, weights on the active prefix (of nact[i] poles) only."""
@@ -762,7 +784,8 @@ def _dc_secular_inputs(p, m, nact, seed, dtype, device):
 @pytest.mark.cuda
 @pytest.mark.parametrize("dtype", ["float64", "float32"])
 @pytest.mark.parametrize("m,nact", [(4, [4, 1]), (160, [160, 97, 40]),
-                                    (1024, [700]), (128, [0, 128])])
+                                    (1024, [700]), (128, [0, 128]),
+                                    (8192, [6700])])
 def test_dc_secular_cuda_matches_plain(cuda, m, nact, dtype):
     args, k, scale = _dc_secular_inputs(len(nact), m, nact, m,
                                         torch_dtype(dtype), cuda)

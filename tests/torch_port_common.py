@@ -32,6 +32,41 @@ def cuda():
     return torch.device("cuda")
 
 
+def deflation_runs(p, m, chunk, seed, dtype, device="cpu"):
+    """P rows of a merge's columns for the Givens scan, built around steps
+    of ``chunk`` (the kernel's chunk starts 1 + k * chunk): near-equal
+    poles in runs across chunk starts, one run longer than two chunks, the
+    columns past 7/8 of m deflated; at the last chunk start b before them,
+    step b - 1 merges a light column into a heavy carry, so a run from
+    column b - 1 as it came in merges at b where the true one (from the
+    heavy carry, 1e-5 away) does not; the third row's flags are not a
+    prefix.  (d, z, fe, le, active, tol) as tensors of ``dtype``."""
+    rng = np.random.default_rng(seed)
+    d = np.sort(rng.standard_normal((p, m)), -1)
+    tail = m - m // 8
+    starts = [b for b in range(1 + chunk, tail - 1, chunk) if b >= 3]
+    runs = [(b - 2, b + 2) for b in starts[:-1][::max(2, 8 // chunk)]]
+    runs.append((m // 8 + 1, m // 8 + 2 * chunk + 4))
+    runs.append((m - 6, m - 2))
+    for s, e in runs:
+        e = min(e, m)
+        d[:, s:e] = d[:, s:s + 1] + 1e-13 * np.arange(e - s)
+    d = np.sort(d, -1)
+    z = rng.standard_normal((p, m)) * 10.0 ** rng.integers(-3, 1, (p, m))
+    if starts:
+        b = starts[-1]
+        d[:, b - 3:b] = d[:, b - 3:b - 2] + 1e-13 * np.arange(3)
+        d[:, b] = d[:, b - 3] + 1e-5
+        z[:, b - 3:b + 1] = [1.0, 1.0, 1e-9, 1.0]
+    act = np.repeat(np.arange(m)[None, :] < tail, p, 0)
+    if p > 2:
+        act[2] &= rng.random(m) < 0.9
+    to = lambda x: torch.from_numpy(x).to(device, dtype)  # noqa: E731
+    return (to(d), to(z), to(rng.standard_normal((p, m))),
+            to(rng.standard_normal((p, m))),
+            torch.from_numpy(act).to(device), to(np.full(p, 1e-6)))
+
+
 def pair(x: np.ndarray, dtype: str):
     """The same values as a jax array and a torch tensor of ``dtype``:
     rounded once, by jax, so both sides start bit-equal."""
