@@ -427,15 +427,18 @@ def main() -> int:
                     "pixtral-12b's shapes, beside SDPA's backward, then "
                     "exit")
     ap.add_argument("--dc-times", metavar="TREE", type=Path,
-                    help="only time this tree's dc.cu (the Givens scan and "
-                    "the secular roots) against the one under TREE "
-                    "(another commit's checkout) in turns on one card, at "
-                    "the top merge level of the fp64 n = 4096 dc call, "
-                    "with each kernel's time split by probes (the scan's "
-                    "phases, DC_DEFLATE_PROBES; the roots' midpoint pass, "
-                    "windowed iteration and polish passes, "
-                    "DC_SECULAR_PROBES) where a tree's source takes them, "
-                    "then exit")
+                    help="only time this tree's dc.cu (the Givens scan, "
+                    "the secular roots and the leaves) against the one "
+                    "under TREE (another commit's checkout) in turns on one "
+                    "card, at the top merge level and the leaves of the "
+                    "fp64 n = 4096 dc call (and the leaves of the fp32 n "
+                    "= 16384 one with --dc-at-n16384), with each kernel's "
+                    "time split by probes (the scan's phases, "
+                    "DC_DEFLATE_PROBES; the roots' midpoint pass, windowed "
+                    "iteration and polish passes, DC_SECULAR_PROBES; the "
+                    "leaves' bisection, inverse iteration and fallback, "
+                    "DC_LEAF_PROBES) where a tree's source takes them; "
+                    "then stage 3 by dc at dc_leaf_n 32 and 64; then exit")
     ap.add_argument("--dc-at-n16384", action="store_true",
                     help="run the whole script with stage 3 by dc also "
                     "on the fp32 n = 16384 matrix of phase 4, and the dc "
@@ -833,15 +836,47 @@ def dc_call_shape(op, args, kw) -> tuple:
         "torch."))
 
 
-def dc_leaf_bound(p, lm, iters, inv_iters, dname, itemsize):
+def dc_leaf_pairs(lam, ctol) -> int:
+    """(j, k) pairs of the leaves' Gram-Schmidt windows: j < k and lam_k -
+    lam_j < ctol, from the eigenvalues (P, lm) and cluster widths (P,)."""
+    lm = lam.shape[-1]
+    diff = lam[:, :, None] - lam[:, None, :]            # lam_k - lam_j
+    below = lam.new_ones((lm, lm)).tril(-1) > 0         # j < k
+    return int(((diff < ctol[:, None, None]) & below).sum())
+
+
+def dc_leaf_nodes(s3dc, torch, a, b, lo0, hi0, iters) -> int:
+    """Distinct nodes of the bisection trees that the leaves' lm indices
+    visit in ``iters`` levels (the plain bisection of leaf_eigen_plain,
+    from the recorded leaf call's a (P, lm), b, lo0, hi0): indices that
+    share a bracket share its midpoint's count, and a level's brackets
+    rise with the index, so a leaf's nodes at a level are 1 + the places
+    where the bracket changes from index k - 1 to k."""
+    p, lm = a.shape
+    ks = torch.arange(lm, device=a.device)
+    lo = lo0[:, None].expand(p, lm).clone()
+    hi = hi0[:, None].expand(p, lm).clone()
+    nodes = 0
+    for _ in range(iters):
+        nodes += p + int(((lo[:, 1:] != lo[:, :-1])
+                          | (hi[:, 1:] != hi[:, :-1])).sum())
+        mid = 0.5 * (lo + hi)
+        ge = s3dc._tridiag_count(a, b, mid) >= ks + 1
+        lo, hi = torch.where(ge, lo, mid), torch.where(ge, mid, hi)
+    return nodes
+
+
+def dc_leaf_bound(p, lm, nodes, inv_iters, pairs, dname, itemsize):
     """Leaves: a, b, brackets and start vectors read once, lam, f, l written
-    once; per leaf and index: ``iters`` counts of lm steps (subtract,
-    multiply, divide, subtract: 4), ``inv_iters`` solves (8 per row) and
-    norms (3 per row), and the Gram-Schmidt's two projections (4 per
-    earlier vector and row); a division counted as one."""
+    once; the bisection's counts of lm steps (subtract, multiply, divide,
+    subtract: 4) at the ``nodes`` distinct brackets these leaves' indices
+    visit (``dc_leaf_nodes``); per leaf and index ``inv_iters`` solves (8
+    per row) and norms (3 per row); and the Gram-Schmidt's two projections
+    (4 per row) for each of the ``pairs`` (j, k) within a window that these
+    leaves have (``dc_leaf_pairs``); a division counted as one."""
     nbytes = (p * (2 * lm - 1 + 3) + lm * lm + 3 * p * lm) * itemsize
-    flops = p * (lm * (iters * lm * 4 + inv_iters * lm * 11)
-                 + 2 * lm * lm * (lm - 1))
+    flops = (nodes * lm * 4 + p * lm * inv_iters * lm * 11
+             + 4 * lm * pairs)
     t_bytes, t_ops = nbytes / HBM_BYTES_PER_S, flops / PEAK_FLOPS[dname]
     return (max(t_bytes, t_ops) * 1e3,
             "bytes" if t_bytes >= t_ops else "operations", nbytes, flops)
@@ -4615,25 +4650,170 @@ DC_DEFLATE_PROBES = {
         "  if (last > 0) return;\n  // phase 3: the scratch back", 1)]}
 
 
-def dc_top_calls(torch, seed: int):
+# Probes of where the leaf kernel's time goes (--dc-times): copies of a
+# tree's dc.cu whose leaf kernel stops after the bisection (lam written)
+# or after the inverse iteration (lam, f, l written), whose Gram-Schmidt
+# never takes the collapse fallback, and whose f row is 1 where a vector
+# collapsed (0 elsewhere).  Each probe lists its edits for the first
+# design (one thread an index, every round of the Gram-Schmidt block-wide)
+# and for the one of the cluster runs; a source takes the first list whose
+# anchors it holds.
+DC_LEAF_PROBES = {
+    "bisection_only": [
+        [("  sl[k] = lk;\n",
+          "  sl[k] = lk;\n  if (bisect_iters >= 0) {\n"
+          "    lam[p * lm + k] = lk;\n    return;\n  }\n", 1)],
+        [("  // inverse iteration, one thread a vector",
+          "  if (bisect_iters >= 0) {\n    if (t < lm) lam[p * lm + t] = "
+          "sl[t];\n    return;\n  }\n"
+          "  // inverse iteration, one thread a vector", 1)]],
+    "through_inverse_iteration": [
+        [("  // same-cluster Gram-Schmidt in k order",
+          "  if (inv_iters >= 0) {\n    lam[p * lm + k] = lk;\n"
+          "    f[p * lm + k] = V[k];\n"
+          "    l[p * lm + k] = V[(lm - 1) * ld + k];\n    return;\n  }\n"
+          "  // same-cluster Gram-Schmidt in k order", 1)],
+        [("  // the Gram-Schmidt by cluster runs:",
+          "  if (inv_iters >= 0) {\n    if (t < lm) {\n"
+          "      lam[p * lm + t] = sl[t];\n      f[p * lm + t] = V[t];\n"
+          "      l[p * lm + t] = V[(lm - 1) * ld + t];\n    }\n"
+          "    return;\n  }\n  // the Gram-Schmidt by cluster runs:", 1)]],
+    "without_fallback": [
+        [("if (n1 > A(0.01)) {",
+          "if (n1 > A(0.01) || fallback_iters >= 0) {", 1)],
+        [("if (!(n1 > A(0.01))) {",
+          "if (!(n1 > A(0.01)) && fallback_iters < 0) {", 1)]],
+    "collapses": [
+        [("  const A ct = ctol[p];\n",
+          "  const A ct = ctol[p];\n  bool coll = false;\n", 1),
+         ("    if (n1 > A(0.01)) {",
+          "    if (k == kk && !(n1 > A(0.01))) coll = true;\n"
+          "    if (n1 > A(0.01)) {", 1),
+         ("  f[p * lm + k] = V[k];", "  f[p * lm + k] = coll;", 1)],
+        [("      // collapsed: e_kk off the window",
+          "      if ((threadIdx.x & 31) == 0) C[(lm - 1) * lm + kk] = A(1);\n"
+          "      // collapsed: e_kk off the window", 1),
+         ("    f[p * lm + t] = V[t];",
+          "    f[p * lm + t] = C[(lm - 1) * lm + t] == A(1);", 1)]],
+    # f: the SM clock's cycles from the Gram-Schmidt's start to the end,
+    # l: the bisection's cycles (clock64), per thread of each leaf
+    "cycles": [
+        [("  // the bisection (csrc/sturm_device.cuh's schedule, this leaf's "
+          "count):\n",
+          "  const long long t_b = clock64();\n  // the bisection "
+          "(csrc/sturm_device.cuh's schedule, this leaf's count):\n", 1),
+         ("  const A ct = ctol[p];\n  // inverse iteration",
+          "  const long long t_i = clock64();\n  const A ct = ctol[p];\n"
+          "  // inverse iteration", 1),
+         ("  // the Gram-Schmidt by cluster runs:",
+          "  const long long t_g = clock64();\n"
+          "  // the Gram-Schmidt by cluster runs:", 1),
+         ("    f[p * lm + t] = V[t];\n"
+          "    l[p * lm + t] = V[(lm - 1) * ld + t];",
+          "    f[p * lm + t] = (A)(clock64() - t_g);\n"
+          "    l[p * lm + t] = (A)(t_i - t_b);", 1)]]}
+
+
+def dc_top_calls(torch, seed: int, with_n16384: bool = False):
     """The dc kernels' calls of ``bidiag_dc_singular_values`` on the
     bidiagonal of a banded fp64 n = 4096 bw 64 matrix (the main path's
     first dc run, made as kernels_vs_plain makes it, from ``seed`` + 1),
-    and of them the deflation and the roots at the top merge level."""
+    and of them the deflation and the roots at the top merge level; the
+    leaf calls by n (with ``with_n16384`` also of the fp32 n = 16384
+    matrix that kernels_vs_plain makes next); and that fp64 bidiagonal."""
     from repro_torch.core import bidiag_dc as s3dc
     from repro_torch.core import svd as tsvd
     from repro_torch.kernels import ops
     gen = torch.Generator(device="cuda")
     gen.manual_seed(seed + 1)
-    cfg = fuse1_runs(torch)[0][2]
-    d, e = tsvd.bidiagonal_of(banded_matrix(torch, (), 4096, 64,
-                                            torch.float64, gen), config=cfg)
-    calls = dc_recorded(torch, ops, s3dc, d, e)[1]
+    runs = fuse1_runs(torch)
+    leaves, bidiag = {}, None
+    for n, dt, cfg in ((4096, torch.float64, runs[0][2]),) + (
+            ((16384, torch.float32, runs[2][2]),) if with_n16384 else ()):
+        d, e = tsvd.bidiagonal_of(banded_matrix(torch, (), n, 64, dt, gen),
+                                  config=cfg)
+        found = dc_recorded(torch, ops, s3dc, d, e)[1]
+        leaves[n] = [(a_, kw) for op, a_, kw in found if op == "dc_leaf"]
+        if bidiag is None:
+            calls, bidiag = found, (d, e)
     top = {}
     for op, a_, kw in calls:
         if op not in top or a_[0].shape[-1] >= top[op][0][0].shape[-1]:
             top[op] = (a_, kw)
-    return calls, top
+    return calls, top, leaves, bidiag
+
+
+def lib_dc_leaf(torch, lib, new_abi: bool, args, kw, s_levels=None,
+                name="dc_leaf"):
+    """A call of ``dc_leaf_f64`` / ``_f32`` of a loaded dc.cu library on a
+    recorded leaf call's arguments, with the C interface of its source
+    (``new_abi``: a scratch of the factors and the schedule (d, s) of
+    ``dc.leaf_schedule``), as the wrapper calls the repository's build
+    (not counted); its scratch is zeros (the ``collapses`` probe reads
+    them); ``s_levels`` in place of the schedule's s; ``name`` the library
+    in a failure's message.  Returns a function that launches it and
+    returns (lam, f, l)."""
+    import ctypes
+
+    from repro_torch.core import tuning
+    from repro_torch.kernels import dc
+    a = args[0]
+    p, lm = a.shape
+    f64 = a.dtype == torch.float64
+    real = ctypes.c_double if f64 else ctypes.c_float
+    fn = lib.dc_leaf_f64 if f64 else lib.dc_leaf_f32
+    fi = torch.finfo(a.dtype)
+    vp, ci = ctypes.c_void_p, ctypes.c_int
+    outs = [a.new_empty((p, lm)) for _ in range(3)]
+    ptrs = [x.data_ptr() for x in (*args[:6], *outs)]
+    iters = (kw["bisect_iters"], kw["inv_iters"], tuning.DC_FALLBACK_ITERS)
+    if new_abi:
+        scratch = a.new_zeros((2, p, lm, lm))
+        d, s = dc.leaf_schedule(p, lm, kw["bisect_iters"])
+        s = s if s_levels is None else s_levels
+        fn.argtypes = [vp] * 10 + [ci] * 7 + [real, real, ci, vp]
+        head = ptrs + [scratch.data_ptr(), p, lm, d, s]
+        smem = tuning.dc_leaf_smem_bytes(lm // 2, a.dtype)
+    else:
+        fn.argtypes = [vp] * 9 + [ci] * 5 + [real, real, ci, vp]
+        head = ptrs + [p, lm]
+        smem = (2 * lm * (lm + 1) + 5 * lm) * a.element_size()
+
+    def call():
+        err = fn(*head, *iters, fi.tiny * 4, fi.tiny, smem,
+                 torch.cuda.current_stream().cuda_stream)
+        check(err == 0, f"{name}: dc_leaf error {err} (d={head[-2]}, "
+              f"s={head[-1]})" if new_abi else f"{name}: dc_leaf error {err}")
+        return outs
+    return call
+
+
+def dc_leaf_stats(torch, lam, ctol) -> dict:
+    """What the Gram-Schmidt of a batch of leaves has to do, from their
+    eigenvalues (P, lm) and cluster widths (P,): rounds with a non-empty
+    window (index k with lam_k - lam_{k-1} < ctol: the first design runs
+    all lm - 1 rounds, the run design only these), per leaf at most and in
+    all, the leaves that have one, and the longest cluster run."""
+    close = (lam[:, 1:] - lam[:, :-1]) < ctol[:, None]
+    per_leaf = close.sum(-1)
+    longest, run = torch.zeros_like(per_leaf), torch.zeros_like(per_leaf)
+    for j in range(close.shape[1]):
+        run = torch.where(close[:, j], run + 1, 0)
+        longest = torch.maximum(longest, run)
+    return {"rounds_with_a_window_max": int(per_leaf.max()),
+            "rounds_with_a_window_total": int(per_leaf.sum()),
+            "leaves_with_a_run": int((per_leaf > 0).sum()),
+            "longest_run": int(longest.max()) + 1}
+
+
+def dc_interfaces(text: str) -> dict:
+    """Which C interface each --dc-times kernel of a dc.cu source has: True
+    where its entry takes a device scratch (``dc_deflate_f64``: with the
+    chunk length, from PR 27; ``dc_leaf_f64``: with the schedule (d, s),
+    from PR 28), False for the first design's."""
+    import re
+    return {op: bool(re.search(rf"int dc_{op}_f64\([^)]*scratch", text))
+            for op in ("deflate", "leaf")}
 
 
 def lib_dc_deflate(torch, lib, new_abi: bool, cols, tol):
@@ -4697,9 +4877,11 @@ def dc_times(args, torch) -> int:
     split into the midpoint pass, the windowed iteration and the polish
     passes (copies that stop after each, in turns with the full kernel),
     with histograms of each active root's windowed iterations until it
-    froze and of its polish passes.  One JSON line per kernel (no ``ok``
-    line)."""
+    froze and of its polish passes; then the leaf kernel of each tree
+    (dc_leaf_times); then stage 3 by dc at dc_leaf_n 32 and 64 (this
+    tree).  One JSON line per kernel (no ``ok`` line)."""
     import ctypes
+    import re
     import tempfile
 
     import numpy as np
@@ -4707,13 +4889,23 @@ def dc_times(args, torch) -> int:
     from repro_torch.core import bidiag_dc as s3dc
     from repro_torch.core import tuning
     from repro_torch.kernels import _build
-    _build.build_all(["chase", "dc"])
+    _build.build_all(["chase", "dc", "sturm"])
     texts = {}
     for who, tree in (("this", ROOT), ("other", args.dc_times.resolve())):
-        src = (tree / DC_SOURCE).read_text()
+        # the headers of the tree's csrc/ inlined, so a copy builds anywhere
+        csrc = (tree / DC_SOURCE).parent
+        src = re.sub(r'#include "(\w+\.cuh)"',
+                     lambda m, c=csrc: (c / m.group(1)).read_text(),
+                     (tree / DC_SOURCE).read_text())
         texts[who] = src
-        for probe, edits in (DC_SECULAR_PROBES | DC_DEFLATE_PROBES).items():
-            if all(src.count(old) == times for old, _, times in edits):
+        probes = {name: edits for name, edits in
+                  (DC_SECULAR_PROBES | DC_DEFLATE_PROBES).items()}
+        for name, choices in DC_LEAF_PROBES.items():
+            probes[name] = next((e for e in choices if all(
+                src.count(old) == times for old, _, times in e)), [])
+        for probe, edits in probes.items():
+            if edits and all(src.count(old) == times
+                             for old, _, times in edits):
                 text = src
                 for old, new, _ in edits:
                     text = text.replace(old, new)
@@ -4736,8 +4928,9 @@ def dc_times(args, torch) -> int:
     emit({"phase": "build", "builds": sorted(libs),
           **{f"ptxas_{who}": ptxas_lines({who: logs[who]})
              for who in ("this", "other")}})
-    _, top = dc_top_calls(torch, args.seed)
-    abi = {who: "void* scratch" in texts[who] for who in ("this", "other")}
+    _, top, leaf_calls, bidiag = dc_top_calls(torch, args.seed,
+                                              args.dc_at_n16384)
+    abi = {who: dc_interfaces(texts[who]) for who in ("this", "other")}
 
     # the scan, each call on a fresh copy of the level's columns
     a_, kw = top["dc_deflate"]
@@ -4749,7 +4942,7 @@ def dc_times(args, torch) -> int:
                                   want[4].cpu().numpy()),
            "bitwise_vs_plain": {}, "ms": {"other": [], "this": []}}
     for who in ("this", "other"):
-        got = lib_dc_deflate(torch, libs[who], abi[who],
+        got = lib_dc_deflate(torch, libs[who], abi[who]["deflate"],
                              tuple(x.clone() for x in a_[:5]), a_[5])
         torch.cuda.synchronize()
         row["bitwise_vs_plain"][who] = all(
@@ -4763,7 +4956,8 @@ def dc_times(args, torch) -> int:
                        for _ in range(2 * iters + 1)])
 
         def scan():
-            return lib_dc_deflate(torch, libs[key], abi[key.split(":")[0]],
+            return lib_dc_deflate(torch, libs[key],
+                                  abi[key.split(":")[0]]["deflate"],
                                   next(copies), a_[5])
 
         events = gpu_ms(torch, scan, iters=iters, warmup=1)
@@ -4840,8 +5034,151 @@ def dc_times(args, torch) -> int:
         a_[0].shape[0], a_[0].shape[1], kw["nact"], roots,
         a_[6].shape[-1], kw["newton_iters"], "float64", 8)))
     emit(row)
+    dc_leaf_times(args, torch, libs, {who: abi[who]["leaf"] for who in abi},
+                  leaf_calls, smi)
+    dc_leaf_widths(torch, bidiag, smi)
     tmp.cleanup()
     return 0
+
+
+def dc_leaf_times(args, torch, libs, abi, leaf_calls, smi) -> None:
+    """The leaf kernel of each tree (``--dc-times``) at the recorded leaf
+    calls of the fp64 n = 4096 dc call (P = 128, lm = 64) and, with
+    ``--dc-at-n16384``, of the fp32 n = 16384 one (P = 512, lm = 64):
+    eigenvalues bit for bit the plain version's, rows of the leaves with no
+    cluster within DC_ROW_TOLS, each tree's collapsed vectors (its
+    ``collapses`` probe), what the Gram-Schmidt has to do
+    (``dc_leaf_stats``), device ms in turns (TREE, this, this, TREE;
+    torch.profiler over 20 launches, CUDA events beside), and each tree's
+    time split by the DC_LEAF_PROBES its source takes; ``abi``: each tree's
+    leaf interface (``dc_interfaces``).  One JSON line a size."""
+    from repro_torch.core import bidiag_dc as s3dc
+    from repro_torch.core import tuning
+    from repro_torch.kernels import dc
+
+    def leaf_ms(fn):
+        prof = profiler_ms(torch, fn, "dc_leaf_kernel", 20)
+        return prof[0] if prof else gpu_ms(torch, fn, iters=20, warmup=2)
+
+    for n, calls in leaf_calls.items():
+        for a_, kw in calls:
+            kw = {k: v for k, v in kw.items() if k != "backend"}
+            p, lm = a_[0].shape
+            dname = str(a_[0].dtype).removeprefix("torch.")
+            want = s3dc.leaf_eigen_plain(*a_, **kw)
+            lam, ctol = want[0], a_[4]
+            sep = (lam[:, 1:] - lam[:, :-1]).amin(-1) >= ctol
+            fns = {key: lib_dc_leaf(torch, lib, abi[key.split(":")[0]], a_,
+                                    kw, name=key)
+                   for key, lib in libs.items()
+                   if ":" not in key or key.split(":")[1] in DC_LEAF_PROBES}
+            row = {"kernel": "dc_leaf_cuda", "tree": str(args.dc_times),
+                   "card": smi, "n": n, "shape": [p, lm, dname],
+                   "bisect_iters": kw["bisect_iters"],
+                   "schedule_this": (dc.leaf_schedule(
+                       p, lm, kw["bisect_iters"]) if abi["this"] else None),
+                   **dc_leaf_stats(torch, lam, ctol),
+                   "separated_leaves": int(sep.sum()), "bitwise_lam": {},
+                   "max_row_err_separated": {}, "row_tol": DC_ROW_TOLS[dname],
+                   "collapses": {}, "ms": {"other": [], "this": []},
+                   "events_ms": {"other": [], "this": []}}
+            for who in ("this", "other"):
+                got = fns[who]()
+                torch.cuda.synchronize()
+                row["bitwise_lam"][who] = torch.equal(got[0], want[0])
+                row["max_row_err_separated"][who] = max(
+                    float((g_ - w_).abs()[sep].max()) if bool(sep.any())
+                    else 0.0 for g_, w_ in zip(got[1:], want[1:]))
+                if f"{who}:collapses" in fns:
+                    flags = fns[f"{who}:collapses"]()[1]
+                    row["collapses"][who] = int((flags == 1).sum())
+            for who in ("other", "this", "this", "other"):
+                row["events_ms"][who].append(gpu_ms(torch, fns[who],
+                                                    iters=20, warmup=2))
+                prof = profiler_ms(torch, fns[who], "dc_leaf_kernel", 20)
+                row["ms"][who].append(prof and prof[0])
+            if abi["this"]:
+                # this tree's kernel at every s its block allows, beside
+                # the schedule's choice (lam bit for bit at each)
+                row["s_sweep_this_ms"], row["s_sweep_bitwise"] = {}, {}
+                for s_ in (0, 2, 3, 4, 5):
+                    if lm << s_ > tuning.DC_LEAF_THREADS:
+                        continue
+                    fn_ = lib_dc_leaf(torch, libs["this"], True, a_, kw,
+                                      s_levels=s_, name=f"this, s={s_}")
+                    row["s_sweep_bitwise"][s_] = torch.equal(fn_()[0],
+                                                             want[0])
+                    row["s_sweep_this_ms"][s_] = leaf_ms(fn_)
+            if "this:cycles" in fns:
+                # the SM clock's cycles of the leaf with the most rounds
+                cyc_gs, cyc_bis = (x.max(-1).values for x in
+                                   fns["this:cycles"]()[1:])
+                rounds = (lam[:, 1:] - lam[:, :-1] < ctol[:, None]).sum(-1)
+                worst = int(rounds.argmax())
+                row["cycles_this"] = {
+                    "leaf_most_rounds": worst,
+                    "rounds": int(rounds[worst]),
+                    "gram_schmidt": float(cyc_gs[worst]),
+                    "gram_schmidt_max": float(cyc_gs.max()),
+                    "bisection_max": float(cyc_bis.max())}
+            for who in ("other", "this"):
+                parts = [pr for pr in DC_LEAF_PROBES
+                         if pr not in ("collapses", "cycles")
+                         and f"{who}:{pr}" in fns]
+                row[f"split_{who}_ms"] = {
+                    pr: leaf_ms(fns[f"{who}:{pr}"]) for pr in parts} or (
+                    "the probes do not apply to its source")
+            nodes = dc_leaf_nodes(s3dc, torch, *a_[:4], kw["bisect_iters"])
+            row["bound"] = dict(zip(
+                ("ms", "by", "bytes", "flops"),
+                dc_leaf_bound(p, lm, nodes, kw["inv_iters"],
+                              dc_leaf_pairs(lam, ctol), dname,
+                              a_[0].element_size())))
+            row["bound"]["distinct_brackets"] = nodes
+            emit(row)
+            del want, fns
+
+
+def dc_leaf_widths(torch, bidiag, smi) -> None:
+    """Stage 3 by dc on the fp64 n = 4096 bidiagonal (``--dc-times``) at
+    dc_leaf_n 32 and 64 on this tree's kernels: sigma against bisection
+    (the tolerance of stage3_dc, 1e-12 sigma_max), the merge levels, each
+    dc kernel's launches in one call, and ms (CUDA events, 3 calls after a
+    warm-up, in turns 32, 64, 64, 32); a width the leaf block's budget
+    refuses reads as refused.  One JSON line."""
+    from repro_torch.core import bidiag_dc as s3dc
+    from repro_torch.core import bidiag_svd as s3
+    from repro_torch.core import tuning
+    from repro_torch.kernels import ops
+    d, e = bidiag
+    n = d.shape[-1]
+    want = s3.bidiag_singular_values(d, e)
+    smax = float(want.max())
+    row = {"phase": "dc_leaf_widths", "card": smi, "n": n,
+           "dtype": str(d.dtype).removeprefix("torch."), "sigma_max": smax,
+           "tol_vs_bisect": 1e-12 * smax, "widths": {}}
+    taken = []
+    for ln in (32, 64):
+        try:
+            smem = tuning.check_dc_leaf_budget(ln, d.dtype)
+        except ValueError as exc:
+            row["widths"][ln] = {"refused": str(exc)}
+            continue
+        ops.reset_launch_counts()
+        sig = s3dc.bidiag_dc_singular_values(d, e, leaf_n=ln)
+        torch.cuda.synchronize()
+        row["widths"][ln] = {
+            "leaf_smem_bytes": smem,
+            "merge_levels": max(0, math.ceil(math.log2(n / ln))),
+            "launches": {k: v for k, v in ops.launch_counts().items()
+                         if k.startswith("dc_") and v},
+            "vs_bisect_max_abs": float((sig - want).abs().max()), "ms": []}
+        taken.append(ln)
+    for ln in taken + taken[::-1]:
+        row["widths"][ln]["ms"].append(gpu_ms(
+            torch, lambda ln=ln: s3dc.bidiag_dc_singular_values(
+                d, e, leaf_n=ln), iters=3, warmup=1))
+    emit(row)
 
 
 def train_only(args, torch) -> int:
@@ -5779,14 +6116,19 @@ def run(args, torch) -> int:
     p_, lm_ = a_[0].shape
     dense_leaves = (torch.diag_embed(a_[0]) + torch.diag_embed(a_[1], 1)
                     + torch.diag_embed(a_[1], -1))
+    # the Gram-Schmidt's pairs that these leaves need, from the kernel's
+    # eigenvalues (bit for bit the plain version's, kernels_vs_plain)
+    pairs = dc_leaf_pairs(dc_run(torch, dc, s3dc, "dc_leaf", a_, kw)[0],
+                          a_[4])
+    nodes = dc_leaf_nodes(s3dc, torch, *a_[:4], kw["bisect_iters"])
     time_kernel(
         "dc_leaf_cuda", "dc_leaf_kernel",
         lambda: dc_run(torch, dc, s3dc, "dc_leaf", a_, kw),
         lambda: dc_run(torch, dc, s3dc, "dc_leaf", a_, kw, plain=True), 20,
         1, f"P={p_} leaves of lm={lm_} fp64, {kw['bisect_iters']} bisection "
-        f"steps, {kw['inv_iters']} inverse iterations",
-        dc_leaf_bound(p_, lm_, kw["bisect_iters"], kw["inv_iters"],
-                      "float64", 8),
+        f"steps ({nodes} distinct brackets), {kw['inv_iters']} inverse "
+        f"iterations, {pairs} pairs in Gram-Schmidt windows",
+        dc_leaf_bound(p_, lm_, nodes, kw["inv_iters"], pairs, "float64", 8),
         library=lambda: torch.linalg.eigh(dense_leaves))
     _, a_, kw = top["dc_deflate"]
     p_, m_ = a_[0].shape

@@ -36,7 +36,7 @@ __all__ = [
     "DEFAULT_DC_LEAF_N", "DEFAULT_DC_N_MIN", "DC_WINDOW_K", "DC_HEAVY_K",
     "DC_POLISH_ITERS", "DC_FALLBACK_ITERS", "DC_DEFLATE_CHUNK",
     "DC_DEFLATE_THREADS", "dc_deflate_schedule", "DC_MERGE_BLOCK_BYTES",
-    "dc_leaf_smem_bytes",
+    "DC_LEAF_THREADS", "dc_leaf_smem_bytes",
     "check_dc_leaf_budget", "SMS", "SMEM_PER_SM", "CHASE_THREADS",
     "default_bucket_batch", "DEFAULT_FUSED_CROSSOVER",
     "stage_plan", "STAGE3_CHOICES", "PipelineConfig",
@@ -107,6 +107,12 @@ DC_FALLBACK_ITERS = 2
 # n = 4096 bidiagonal (m = 8192) and 64 at n = 16384.
 DC_DEFLATE_CHUNK = 16
 DC_DEFLATE_THREADS = 512
+# Most threads of a leaf block (dc.cu's kLeafThreads): the leaf's lm
+# indices bisect over 2^s lanes each, lm 2^s <= this (dc.leaf_schedule).
+# 512 leave a thread 128 registers for the Gram-Schmidt's rounds: at 1024
+# (64 registers, spills) the kernel read 0.494 ms against 0.427 at fp64 n =
+# 4096 on an H100 80GB HBM3 (700 W; chip_smoke.py --dc-times).
+DC_LEAF_THREADS = 512
 # Bytes of one (P, rows, nact) temporary of the merge's Loewner product and
 # f/l rows (core/bidiag_dc.py): each pass sums over the whole active prefix
 # at once and splits only its target axis, into blocks of as many rows as
@@ -418,24 +424,28 @@ def default_fuse_depth(b_in: int, tw: int, dtype=torch.float32, *,
 def dc_leaf_smem_bytes(leaf_n: int, dtype=torch.float64) -> int:
     """Shared memory of one block of the divide-and-conquer leaf kernel
     (``dc.cu``, one block per leaf of ``lm = 2*leaf_n`` rows), in bytes: the
-    leaf's diagonal and off-diagonal, its eigenvalues and two words per row
-    of scratch (5 lm words), and two lm x (lm + 1) arrays, the eigenvectors
-    (column k is thread k's) and the elimination multipliers of their
-    inverse iteration, in the accumulation type."""
+    eigenvectors, an lm x (lm + 1) array (column k is vector k); four words
+    a row, the leaf's diagonal, off-diagonal and its squares and its
+    eigenvalues; and the pivot guard, in the accumulation type; then one
+    int32 a row, the counts of the bisection tree's top.  The factors of
+    the inverse iteration live in a device-memory scratch
+    (``kernels/dc.py``), not here."""
     lm = 2 * int(leaf_n)
-    return (2 * lm * (lm + 1) + 5 * lm) * _itemsize(acc_dtype(dtype_of(dtype)))
+    return ((lm * (lm + 1) + 4 * lm + 1) * _itemsize(acc_dtype(dtype_of(
+        dtype))) + 4 * lm)
 
 
 def check_dc_leaf_budget(leaf_n: int, dtype=torch.float64) -> int:
     """Raise when a leaf block of ``leaf_n`` would not fit Hopper's shared
-    memory, or would need more than 1024 threads; return its bytes."""
+    memory (fp64: dc_leaf_n <= 83; fp32: <= 119); return its bytes.  Its
+    lm = 2 leaf_n vectors, one thread each, stay within
+    ``DC_LEAF_THREADS`` wherever the memory fits."""
     need = dc_leaf_smem_bytes(leaf_n, dtype)
-    if need > SMEM_PER_BLOCK or 2 * int(leaf_n) > 1024:
+    if need > SMEM_PER_BLOCK:
         raise ValueError(
             f"dc leaf kernel for dc_leaf_n={leaf_n}, dtype={dtype_name(dtype)}"
-            f" needs {need} B of shared memory and {2 * int(leaf_n)} threads "
-            f"per block; the H100 gives {SMEM_PER_BLOCK} B and 1024 threads. "
-            f"Use a smaller dc_leaf_n.")
+            f" needs {need} B of shared memory per block; the H100 gives "
+            f"{SMEM_PER_BLOCK} B. Use a smaller dc_leaf_n.")
     return need
 
 

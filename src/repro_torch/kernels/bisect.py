@@ -57,15 +57,17 @@ def _fn(dtype: torch.dtype, lib=None):
     return f
 
 
-def schedule(b: int, n: int, max_iter: int) -> tuple[int, int]:
+def schedule(b: int, n: int, max_iter: int,
+             max_s: int = 5) -> tuple[int, int]:
     """(d, s) of the kernels for B = ``b`` matrices of size n: the levels
     of the tree counted once per matrix, d = min(floor(log2 n), max_iter),
     and the levels a group of 2^s lanes counts at once after them, s in [0,
-    5].  A round of s levels takes one chain of counts while the SMs hold
-    fewer than ``_WARPS_AT_THROUGHPUT`` warps each, and proportionally
-    longer above; s minimises rounds times that factor (the smaller s on a
-    tie).  s = 1 never wins: it counts one node per round, as s = 0 does,
-    on twice the lanes."""
+    ``max_s``] (at most 5).  A round of s levels takes one chain of counts
+    while the SMs hold fewer than ``_WARPS_AT_THROUGHPUT`` warps each, and
+    proportionally longer above; s minimises rounds times that factor (the
+    smaller s on a tie).  s = 1 never wins: it counts one node per round,
+    as s = 0 does, on twice the lanes.  ``csrc/dc.cu``'s leaves take the
+    same schedule, for P leaves of lm rows (``dc.leaf_schedule``)."""
     d = min(n.bit_length() - 1, max_iter)
     rest = max_iter - d
 
@@ -74,7 +76,7 @@ def schedule(b: int, n: int, max_iter: int) -> tuple[int, int]:
         warps = b * n * 2 ** s / 32 / _SMS
         return rounds * max(1.0, warps / _WARPS_AT_THROUGHPUT)
 
-    return d, min(range(6), key=lambda s: (cost(s), s))
+    return d, min(range(min(max_s, 5) + 1), key=lambda s: (cost(s), s))
 
 
 def sturm_bisect_cuda(z: torch.Tensor, bound: torch.Tensor, *, n: int,

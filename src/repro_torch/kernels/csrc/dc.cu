@@ -17,20 +17,35 @@
 //
 //  * dc_leaf_kernel replaces _leaf_eigen (bidiag_dc.py:171) with
 //    _tridiag_count (:114) and _tridiag_solve_diag (:134).  One block per
-//    leaf, one thread per eigenvalue index k (lm = 2 * leaf_n threads), the
-//    leaf's diagonals in shared memory.  Thread k bisects index k with the
-//    reference's midpoints (eigenvalues bit for bit the plain version's),
-//    then runs the inverse iteration of vector k, which lives in column k
-//    of an lm x (lm + 1) array in shared memory beside its elimination
-//    multipliers; the same-cluster Gram-Schmidt runs in k order, with
-//    block-wide dot products, and a vector that collapses there (inverse
-//    iteration gave it an earlier one's direction) is replaced by e_k
-//    projected and taken through fallback_iters steps of inverse iteration
-//    at its eigenvalue, one thread solving.  Bound: latency.  A count is a
-//    chain of lm dependent steps with an IEEE division, and each thread
-//    runs bisect_iters of them in a row; the design runs all lm indices of
-//    a leaf and all leaves at once, so the launch takes about one thread's
-//    chain.
+//    leaf of lm = 2 * leaf_n rows; the leaf's diagonals, eigenvalues and
+//    vectors (an lm x (lm + 1) array, column k vector k) in shared memory,
+//    the factors of each vector's shift (multipliers and reciprocal
+//    pivots) in a (2, P, lm, lm) scratch in device memory (thread k's
+//    column coalesced across a warp; it stays in L2).  Bound: latency.  A
+//    count is a chain of lm dependent steps with an IEEE division.  A
+//    first design gave each index one thread and bisect_iters counts in a
+//    row, and ran every round of the Gram-Schmidt block-wide whether or
+//    not it had work.  This one:
+//      - bisects on csrc/sturm_device.cuh's schedule with the leaf's
+//        count: the 2^d - 1 nodes of the tree's top under [lo0, hi0]
+//        counted once per leaf, one thread a node, then each index walks
+//        them and goes on s levels a round over a group of 2^s lanes
+//        (dc.leaf_schedule picks (d, s), lm 2^s <= 512 threads).  Every
+//        midpoint is the sequential bisection's, so the eigenvalues are
+//        bit for bit the plain version's;
+//      - runs the inverse iteration one thread a vector, T - lam_k I
+//        factored once (one reciprocal a pivot) for every step, and for
+//        the fallback's;
+//      - runs the same-cluster Gram-Schmidt by cluster runs: vector k's
+//        window (earlier eigenvalues within ctol) lies inside its run
+//        (consecutive gaps below ctol), so a vector whose window is empty
+//        is only normalised, by its own thread, and each run of two or
+//        more goes to one warp, which takes only its rounds, in k order,
+//        with no block barrier (leaf_round), and solves a collapsed
+//        vector's fallback itself (leaf_apply_warp).  The pipeline's
+//        leaves hold one run of up to 63 (the tail of tiny singular
+//        values), whose rounds cannot overlap: the whole block over each
+//        round, three barriers a round, read slower on the H100.
 //  * dc_deflate_kernel replaces the Givens scan of _merge_pair
 //    (:574-605).  Bound: latency, a chain of dependent steps with a square
 //    root and two divisions (about 0.29 us a step on the H100): one thread
@@ -73,6 +88,8 @@
 
 #include <cfloat>
 
+#include "sturm_device.cuh"
+
 namespace {
 
 template <typename A> struct Eps;
@@ -104,168 +121,374 @@ __device__ __forceinline__ A guard(A p, A tiny) {
   return fabs(p) < tiny ? (p < 0 ? -tiny : tiny) : p;
 }
 
+template <typename A>
+__device__ __forceinline__ A warp_sum(A v) {
+#pragma unroll
+  for (int o = 16; o > 0; o >>= 1) v += __shfl_xor_sync(0xffffffffu, v, o);
+  return v;
+}
+
 // ---------------------------------------------------------------------------
 // leaves
 // ---------------------------------------------------------------------------
 
+// most threads of a leaf block, the cap of tuning.DC_LEAF_THREADS (which
+// says why), by which dc.leaf_schedule picks s; the entry only checks it
+constexpr int kLeafThreads = 512;
+// most rows of a vector a lane holds in the Gram-Schmidt, so lm <= 32
+// times this (shared memory caps lm at 166 fp64, 238 fp32)
 template <typename A>
-__global__ void dc_leaf_kernel(const A* __restrict__ a,
-                               const A* __restrict__ b,
-                               const A* __restrict__ lo0,
-                               const A* __restrict__ hi0,
-                               const A* __restrict__ ctol,
-                               const A* __restrict__ x0, A* __restrict__ lam,
-                               A* __restrict__ f, A* __restrict__ l, int lm,
-                               int bisect_iters, int inv_iters,
-                               int fallback_iters, A tiny4, A tiny) {
-  extern __shared__ __align__(16) unsigned char smem_raw[];
-  A* sa = reinterpret_cast<A*>(smem_raw);  // diagonal
-  A* sb = sa + lm;                          // off-diagonal (last entry 0)
-  A* sl = sb + lm;                          // eigenvalues
-  A* sx = sl + lm;                          // scratch: dots, then w1
-  A* sy = sx + lm;                          // scratch: dots, then w2
-  A* V = sy + lm;                           // V[i * ld + k]: vector k
-  const int ld = lm + 1;
-  A* C = V + lm * ld;                       // multipliers, same layout
-  const long p = blockIdx.x;
-  const int k = threadIdx.x;
-  sa[k] = a[p * lm + k];
-  sb[k] = k < lm - 1 ? b[p * (lm - 1) + k] : A(0);
-  __syncthreads();
+constexpr int kLeafRows = sizeof(A) == 8 ? 6 : 8;
 
-  // bisection of index k (1-based k + 1) on [lo0, hi0]
-  A lo = lo0[p], hi = hi0[p];
-  for (int it = 0; it < bisect_iters; ++it) {
-    const A mid = A(0.5) * (lo + hi);
-    A q = sa[0] - mid;
-    int cnt = q < 0;
-    for (int i = 1; i < lm; ++i) {
-      q = guard(q, tiny4);
-      q = (sa[i] - mid) - (sb[i - 1] * sb[i - 1]) / q;
-      cnt += q < 0;
-    }
-    if (cnt >= k + 1) hi = mid; else lo = mid;
+// negative pivots of T - mid I, T of diagonal sa and squared off-diagonal
+// sbb (lm rows): the plain version's _tridiag_count, pivots guarded at
+// tiny4; a division a step, no FMA to contract
+template <typename A>
+__device__ __forceinline__ int leaf_count(const A* sa, const A* sbb, int lm,
+                                          A mid, A tiny4) {
+  A q = sa[0] - mid;
+  int cnt = q < A(0);
+#pragma unroll 8
+  for (int i = 1; i < lm; ++i) {
+    q = guard(q, tiny4);
+    q = (sa[i] - mid) - sbb[i - 1] / q;
+    cnt += q < A(0);
   }
-  const A lk = A(0.5) * (lo + hi);
-  sl[k] = lk;
+  return cnt;
+}
 
-  // inverse iteration of vector k, pivots guarded at eps * max(|a|,|b|,1)
-  A amax = 1;
-  for (int i = 0; i < lm; ++i)
-    amax = fmax(amax, fmax(fabs(sa[i]), fabs(sb[i])));
-  const A tg = Eps<A>::v * amax;
-  for (int i = 0; i < lm; ++i) V[i * ld + k] = x0[k * lm + i];
-  for (int r = 0; r < inv_iters; ++r) {
-    A piv = guard(sa[0] - lk, tg);
-    A y = V[k] / piv;
-    V[k] = y;
-    for (int i = 1; i < lm; ++i) {
-      const A bi = sb[i - 1];
-      const A c = bi / piv;
-      piv = guard((sa[i] - lk) - bi * c, tg);
-      y = (V[i * ld + k] - bi * y) / piv;
-      V[i * ld + k] = y;
-      C[(i - 1) * ld + k] = c;
-    }
-    A x = V[(lm - 1) * ld + k];
-    for (int i = lm - 2; i >= 0; --i) {
-      x = V[i * ld + k] - C[i * ld + k] * x;
-      V[i * ld + k] = x;
-    }
-    A s = 0;
-    for (int i = 0; i < lm; ++i) s += V[i * ld + k] * V[i * ld + k];
-    const A nrm = fmax(sqrt(s), tiny);
-    for (int i = 0; i < lm; ++i) V[i * ld + k] /= nrm;
+// the factors of T - shift I in Thomas elimination, pivots guarded at tg:
+// the multipliers c[i * ldc] = b_i / piv_i (i < lm - 1) and the
+// reciprocal pivots r[i * ldc] (one reciprocal a pivot, not two divisions)
+template <typename A>
+__device__ __forceinline__ void leaf_factor(A* c, A* r, int ldc, const A* sa,
+                                            const A* sb, int lm, A shift,
+                                            A tg) {
+  A rp = A(1) / guard(sa[0] - shift, tg);
+  r[0] = rp;
+  for (int i = 1; i < lm; ++i) {
+    const A bi = sb[i - 1];
+    const A ci = bi * rp;
+    rp = A(1) / guard((sa[i] - shift) - bi * ci, tg);
+    c[(i - 1) * ldc] = ci;
+    r[i * ldc] = rp;
   }
-  __syncthreads();
+}
 
-  // same-cluster Gram-Schmidt in k order: thread j forms the masked dots
-  // with vector kk, then thread i its entry of w1 = v_kk - sum_j
-  // dot_j v_j and of w2 = e_kk - sum_j v_j[kk] v_j
-  const A ct = ctol[p];
-  for (int kk = 1; kk < lm; ++kk) {
-    const int j = k;
-    const bool mask = j < kk && sl[kk] - sl[j] < ct;
-    A dot = 0;
-    if (mask)
-      for (int i = 0; i < lm; ++i) dot += V[i * ld + j] * V[i * ld + kk];
-    sx[j] = dot;
-    sy[j] = mask ? V[kk * ld + j] : A(0);
-    __syncthreads();
-    const int i = k;
-    A p1 = 0, p2 = 0;
-    for (int jj = 0; jj < kk; ++jj) {
-      const A vij = V[i * ld + jj];
-      p1 += sx[jj] * vij;
-      p2 += sy[jj] * vij;
+// x = (T - shift I)^-1 x in place on a column x[i * ldx] of lm rows, from
+// leaf_factor's factors (stride ldc).  The entries and factors of
+// kLeafChunk rows are loaded before the chunk's steps and stored after
+// them, so no load waits on the chain (nor on a store it might alias).
+constexpr int kLeafChunk = 8;
+
+template <typename A>
+__device__ __forceinline__ void leaf_apply(A* x, int ldx, const A* c,
+                                           const A* r, int ldc, const A* sb,
+                                           int lm) {
+  A y = 0;
+  for (int i0 = 0; i0 < lm; i0 += kLeafChunk) {
+    A xx[kLeafChunk], rr[kLeafChunk], bb[kLeafChunk];
+#pragma unroll
+    for (int u = 0; u < kLeafChunk; ++u) {
+      const int i = i0 + u;
+      xx[u] = i < lm ? x[i * ldx] : A(0);
+      rr[u] = i < lm ? r[i * ldc] : A(0);
+      bb[u] = i > 0 && i < lm ? sb[i - 1] : A(0);
     }
-    const A w1 = V[i * ld + kk] - p1;
-    const A w2 = A(i == kk) - p2;
-    __syncthreads();
-    sx[i] = w1;
-    sy[i] = w2;
-    __syncthreads();
-    A n1 = 0, n2 = 0;
-    for (int ii = 0; ii < lm; ++ii) {
-      n1 += sx[ii] * sx[ii];
-      n2 += sy[ii] * sy[ii];
+#pragma unroll
+    for (int u = 0; u < kLeafChunk; ++u)
+      if (i0 + u < lm) {
+        y = (xx[u] - bb[u] * y) * rr[u];   // bb = 0 at row 0
+        xx[u] = y;
+      }
+#pragma unroll
+    for (int u = 0; u < kLeafChunk; ++u)
+      if (i0 + u < lm) x[(i0 + u) * ldx] = xx[u];
+  }
+  for (int i1 = lm - 1; i1 > 0; i1 -= kLeafChunk) {  // rows i1 - 1 down
+    A xx[kLeafChunk], cc[kLeafChunk];
+#pragma unroll
+    for (int u = 0; u < kLeafChunk; ++u) {
+      const int i = i1 - 1 - u;
+      xx[u] = i >= 0 ? x[i * ldx] : A(0);
+      cc[u] = i >= 0 ? c[i * ldc] : A(0);
     }
-    n1 = sqrt(n1);
-    n2 = sqrt(n2);
-    if (n1 > A(0.01)) {  // every thread summed n1 alike: a uniform branch
-      V[i * ld + kk] = w1 / fmax(n1, tiny);
-    } else {
-      // the collapse fallback: e_kk projected (w2), then fallback_iters
-      // steps of inverse iteration at lam_kk, each projected again and
-      // normalised; thread 0 solves, sx holds its multipliers, then the
-      // masked dots
-      A w = w2 / fmax(n2, tiny);
-      for (int r = 0; r < fallback_iters; ++r) {
-        __syncthreads();
-        sy[i] = w;
-        __syncthreads();
-        if (k == 0) {
-          const A lkk = sl[kk];
-          A piv = guard(sa[0] - lkk, tg);
-          A y = sy[0] / piv;
-          sy[0] = y;
-          for (int ii = 1; ii < lm; ++ii) {
-            const A bi = sb[ii - 1];
-            const A c = bi / piv;
-            piv = guard((sa[ii] - lkk) - bi * c, tg);
-            y = (sy[ii] - bi * y) / piv;
-            sy[ii] = y;
-            sx[ii - 1] = c;
-          }
-          A x = sy[lm - 1];
-          for (int ii = lm - 2; ii >= 0; --ii) {
-            x = sy[ii] - sx[ii] * x;
-            sy[ii] = x;
+#pragma unroll
+    for (int u = 0; u < kLeafChunk; ++u) {
+      y = xx[u] - cc[u] * y;
+      xx[u] = y;
+    }
+#pragma unroll
+    for (int u = 0; u < kLeafChunk; ++u)
+      if (i1 - 1 - u >= 0) x[(i1 - 1 - u) * ldx] = xx[u];
+  }
+}
+
+// One warp's round of the Gram-Schmidt for vector k of a run: w (the
+// lane's rows lane + 32 u) = src - sum over j in [jw, k) of (V_j . src)
+// V_j, src column k of V as it stands, or where `unit`, e_k (whose dots
+// are row k of V); returns ||w|| on every lane.  Lane jj forms the dots of
+// columns jw + jj + 32 u over all the rows (two partial sums each), then
+// each lane takes its rows' terms, the dots passed by shuffles: no
+// reduction a column, and no barrier, since a warp holds a whole run.
+template <typename A, int ROWS>
+__device__ __forceinline__ A leaf_round(A (&w)[ROWS], const A* V, int ld,
+                                        int lm, int jw, int k, bool unit,
+                                        int lane) {
+  const int nwin = k - jw, nd = (nwin + 31) >> 5;
+  A dots[ROWS], odd[ROWS];
+  const A* col[ROWS];
+#pragma unroll
+  for (int u = 0; u < ROWS; ++u) {
+    col[u] = V + jw + min(lane + 32 * u, nwin - 1);
+    dots[u] = unit && u < nd ? col[u][k * ld] : A(0);
+    odd[u] = 0;
+  }
+  if (!unit) {
+    int i = 0;
+#pragma unroll 4
+    for (; i + 2 <= lm; i += 2) {
+      const A v0 = V[i * ld + k], v1 = V[(i + 1) * ld + k];
+#pragma unroll
+      for (int u = 0; u < ROWS; ++u)
+        if (u < nd) {
+          dots[u] += col[u][i * ld] * v0;
+          odd[u] += col[u][(i + 1) * ld] * v1;
+        }
+    }
+    if (i < lm) {
+      const A v0 = V[i * ld + k];
+#pragma unroll
+      for (int u = 0; u < ROWS; ++u)
+        if (u < nd) dots[u] += col[u][i * ld] * v0;
+    }
+#pragma unroll
+    for (int u = 0; u < ROWS; ++u) dots[u] += odd[u];
+  }
+  A w2[ROWS];
+#pragma unroll
+  for (int u = 0; u < ROWS; ++u) {
+    const int i = lane + 32 * u;
+    w[u] = i < lm ? (unit ? A(i == k) : V[i * ld + k]) : A(0);
+    w2[u] = 0;
+  }
+#pragma unroll
+  for (int u2 = 0; u2 < ROWS; ++u2) {
+    if (32 * u2 < nwin) {
+      const int cnt = min(32, nwin - 32 * u2);
+      const A* c2 = V + jw + 32 * u2;
+      int jl = 0;
+#pragma unroll 4
+      for (; jl + 2 <= cnt; jl += 2) {
+        const A d0 = __shfl_sync(0xffffffffu, dots[u2], jl);
+        const A d1 = __shfl_sync(0xffffffffu, dots[u2], jl + 1);
+#pragma unroll
+        for (int u = 0; u < ROWS; ++u) {
+          const int i = lane + 32 * u;
+          if (i < lm) {
+            w[u] -= d0 * c2[i * ld + jl];
+            w2[u] -= d1 * c2[i * ld + jl + 1];
           }
         }
-        __syncthreads();
-        A dj = 0;
-        if (mask)
-          for (int ii = 0; ii < lm; ++ii) dj += V[ii * ld + j] * sy[ii];
-        sx[j] = dj;
-        __syncthreads();
-        A pw = 0;
-        for (int jj = 0; jj < kk; ++jj) pw += sx[jj] * V[i * ld + jj];
-        w = sy[i] - pw;
-        __syncthreads();
-        sy[i] = w;
-        __syncthreads();
-        A nw = 0;
-        for (int ii = 0; ii < lm; ++ii) nw += sy[ii] * sy[ii];
-        w = w / fmax(sqrt(nw), tiny);
       }
-      V[i * ld + kk] = w;
+      if (jl < cnt) {
+        const A d0 = __shfl_sync(0xffffffffu, dots[u2], jl);
+#pragma unroll
+        for (int u = 0; u < ROWS; ++u) {
+          const int i = lane + 32 * u;
+          if (i < lm) w[u] -= d0 * c2[i * ld + jl];
+        }
+      }
     }
-    __syncthreads();
   }
-  lam[p * lm + k] = lk;
-  f[p * lm + k] = V[k];
-  l[p * lm + k] = V[(lm - 1) * ld + k];
+  A nn = 0;
+#pragma unroll
+  for (int u = 0; u < ROWS; ++u) {
+    w[u] += w2[u];
+    nn += w[u] * w[u];
+  }
+  return sqrt(warp_sum(nn));
+}
+
+// x = (T - shift I)^-1 x for a vector a warp holds (the lane's rows
+// lane + 32 u), from leaf_factor's factors c, r in device memory: every
+// lane runs the same chain, each step's entry and factors passed by
+// shuffles from the lane that holds them, which keeps the result.  The
+// chain writes to yv in the forward pass and to x in the back pass, so no
+// shuffle waits on it.
+template <typename A, int ROWS>
+__device__ __forceinline__ void leaf_apply_warp(A (&x)[ROWS], const A* c,
+                                                const A* r, int ldc,
+                                                const A* sb, int lm,
+                                                int lane) {
+  A rr[ROWS], cc[ROWS], yv[ROWS];
+#pragma unroll
+  for (int u = 0; u < ROWS; ++u) {
+    const int i = lane + 32 * u;
+    rr[u] = i < lm ? r[i * ldc] : A(0);
+    cc[u] = i < lm - 1 ? c[i * ldc] : A(0);
+    yv[u] = 0;
+  }
+  A y = 0;
+#pragma unroll
+  for (int u = 0; u < ROWS; ++u) {
+    const int cnt = min(32, lm - 32 * u);
+#pragma unroll 8
+    for (int il = 0; il < cnt; ++il) {
+      const int i = 32 * u + il;
+      const A xi = __shfl_sync(0xffffffffu, x[u], il);
+      const A ri = __shfl_sync(0xffffffffu, rr[u], il);
+      y = (i > 0 ? xi - sb[i - 1] * y : xi) * ri;
+      if (lane == il) yv[u] = y;
+    }
+  }
+  // back: x_i = y_i - c_i x_{i+1} from i = lm - 2 down (x_{lm-1} = y)
+#pragma unroll
+  for (int u = ROWS - 1; u >= 0; --u) {
+    const int cnt = min(32, lm - 1 - 32 * u);
+    x[u] = yv[u];
+#pragma unroll 8
+    for (int il = cnt - 1; il >= 0; --il) {
+      const A yi = __shfl_sync(0xffffffffu, yv[u], il);
+      const A ci = __shfl_sync(0xffffffffu, cc[u], il);
+      y = yi - ci * y;
+      if (lane == il) x[u] = y;
+    }
+  }
+}
+
+template <typename A, int ROWS>
+__global__ void __launch_bounds__(kLeafThreads)
+    dc_leaf_kernel(const A* __restrict__ a, const A* __restrict__ b,
+                   const A* __restrict__ lo0, const A* __restrict__ hi0,
+                   const A* __restrict__ ctol, const A* __restrict__ x0,
+                   A* __restrict__ lam, A* __restrict__ f, A* __restrict__ l,
+                   A* __restrict__ scratch, int lm, int d, int s,
+                   int bisect_iters, int inv_iters, int fallback_iters,
+                   A tiny4, A tiny) {
+  extern __shared__ __align__(16) unsigned char smem_raw[];
+  const int ld = lm + 1;
+  A* V = reinterpret_cast<A*>(smem_raw);  // V[i * ld + k]: vector k
+  A* sa = V + lm * ld;                     // diagonal
+  A* sb = sa + lm;                         // off-diagonal (last entry 0)
+  A* sbb = sb + lm;                        // its squares
+  A* sl = sbb + lm;                        // eigenvalues
+  A* sg = sl + lm;                         // [0]: inverse iteration's guard
+  int* cb = reinterpret_cast<int*>(sg + 1);  // counts of the tree's top
+  const long p = blockIdx.x;
+  const int t = threadIdx.x, nthr = blockDim.x;
+  const int lane = t & 31, warp = t >> 5;
+  // the factors of vector k's shift: C[i * lm + k], R[i * lm + k]
+  A* C = scratch + p * lm * lm;
+  A* R = scratch + ((long)gridDim.x + p) * lm * lm;
+  for (int i = t; i < lm; i += nthr) {
+    sa[i] = a[p * lm + i];
+    const A bi = i < lm - 1 ? b[p * (lm - 1) + i] : A(0);
+    sb[i] = bi;
+    sbb[i] = bi * bi;
+  }
+  __syncthreads();
+  if (warp == 0) {  // the pivot guard: eps * max(|a|, |b|, 1)
+    A m = 1;
+    for (int i = lane; i < lm; i += 32)
+      m = fmax(m, fmax(fabs(sa[i]), fabs(sb[i])));
+#pragma unroll
+    for (int o = 16; o > 0; o >>= 1)
+      m = fmax(m, __shfl_xor_sync(0xffffffffu, m, o));
+    if (lane == 0) *sg = Eps<A>::v * m;
+  }
+  // the bisection (csrc/sturm_device.cuh's schedule, this leaf's count):
+  // the 2^d - 1 nodes of the tree's top, one thread a node, then index k
+  // = t >> s walks them and goes on s levels a round over its 2^s lanes;
+  // every midpoint is the sequential bisection's, so lam is bit for bit
+  const A lo_0 = lo0[p], hi_0 = hi0[p];
+  if (t < (1 << d) - 1) {
+    A lo = lo_0, hi = hi_0;
+    descend(t + 1, lo, hi);
+    cb[t + 1] = leaf_count(sa, sbb, lm, A(0.5) * (lo + hi), tiny4);
+  }
+  __syncthreads();
+  {
+    const int g = t >> s, gl = t & ((1 << s) - 1);
+    const int k1 = min(g, lm - 1) + 1;       // lanes past lm << s shadow
+    A lo = lo_0, hi = hi_0;                  //   the last index
+    walk_top(cb, 0, k1, d, lo, hi);
+    bisect_rounds_by(
+        [&](A mid) { return leaf_count(sa, sbb, lm, mid, tiny4); }, 0, k1,
+        gl, s, d, bisect_iters, lo, hi);
+    if (g < lm && gl == 0) sl[g] = A(0.5) * (lo + hi);
+  }
+  __syncthreads();
+  const A ct = ctol[p];
+  // inverse iteration, one thread a vector: T - lam_k I factored once
+  if (t < lm) {
+    const int k = t;
+    const A lk = sl[k];
+    for (int i = 0; i < lm; ++i) V[i * ld + k] = x0[k * lm + i];
+    if (inv_iters > 0 || fallback_iters > 0)
+      leaf_factor(C + k, R + k, lm, sa, sb, lm, lk, *sg);
+    // a vector with no earlier eigenvalue within ct is also normalised
+    // once more, where the Gram-Schmidt would only normalise it
+    const int norms = inv_iters + (k > 0 && !(lk - sl[k - 1] < ct));
+    for (int r = 0; r < norms; ++r) {
+      if (r < inv_iters) leaf_apply(V + k, ld, C + k, R + k, lm, sb, lm);
+      A ss = 0;
+      for (int i = 0; i < lm; ++i) ss += V[i * ld + k] * V[i * ld + k];
+      const A inv = A(1) / fmax(sqrt(ss), tiny);
+      for (int i = 0; i < lm; ++i) V[i * ld + k] *= inv;
+    }
+  }
+  __syncthreads();
+  // the Gram-Schmidt by cluster runs: a run (consecutive gaps below ct)
+  // never reads another, since every window lies inside its run; run r of
+  // two or more goes to warp r mod the warps, which takes it in k order
+  // (leaf_round), and solves a collapsed vector's fallback itself
+  // (leaf_apply_warp)
+  {
+    const int nwarps = nthr >> 5;
+    int runs = 0;
+    for (int r0 = 0; r0 < lm;) {
+      int r1 = r0 + 1;
+      while (r1 < lm && sl[r1] - sl[r1 - 1] < ct) ++r1;
+      if (r1 - r0 > 1 && runs++ % nwarps == warp) {
+        int jw = r0;          // the window's start only moves right with kk
+        for (int kk = r0 + 1; kk < r1; ++kk) {
+          while (!(sl[kk] - sl[jw] < ct)) ++jw;
+          A w[ROWS];
+          A n1 = leaf_round(w, V, ld, lm, jw, kk, false, lane);
+          if (!(n1 > A(0.01))) {
+            // collapsed: e_kk off the window, then fallback_iters steps of
+            // inverse iteration at lam_kk with vector kk's factors, each
+            // projected again and normalised
+            n1 = leaf_round(w, V, ld, lm, jw, kk, true, lane);
+            for (int it = 0; it < fallback_iters; ++it) {
+              const A inv = A(1) / fmax(n1, tiny);
+#pragma unroll
+              for (int u = 0; u < ROWS; ++u) w[u] *= inv;
+              leaf_apply_warp(w, C + kk, R + kk, lm, sb, lm, lane);
+#pragma unroll
+              for (int u = 0; u < ROWS; ++u)
+                if (lane + 32 * u < lm) V[(lane + 32 * u) * ld + kk] = w[u];
+              __syncwarp();
+              n1 = leaf_round(w, V, ld, lm, jw, kk, false, lane);
+            }
+          }
+          const A inv = A(1) / fmax(n1, tiny);
+#pragma unroll
+          for (int u = 0; u < ROWS; ++u)
+            if (lane + 32 * u < lm) V[(lane + 32 * u) * ld + kk] = w[u] * inv;
+          __syncwarp();
+        }
+      }
+      r0 = r1;
+    }
+  }
+  __syncthreads();
+  if (t < lm) {
+    lam[p * lm + t] = sl[t];
+    f[p * lm + t] = V[t];
+    l[p * lm + t] = V[(lm - 1) * ld + t];
+  }
 }
 
 // ---------------------------------------------------------------------------
@@ -503,13 +726,6 @@ struct SecArgs {
 };
 
 template <typename A>
-__device__ __forceinline__ A warp_sum(A v) {
-#pragma unroll
-  for (int o = 16; o > 0; o >>= 1) v += __shfl_xor_sync(0xffffffffu, v, o);
-  return v;
-}
-
-template <typename A>
 struct Sums {
   A psi, phi, psip, phip;
   __device__ __forceinline__ void reduce() {
@@ -685,21 +901,42 @@ __global__ void __launch_bounds__(128) dc_secular_kernel(SecArgs<A> g) {
   }
 }
 
+template <typename A, int ROWS>
+int leaf_launch(const void* a, const void* b, const void* lo0,
+                const void* hi0, const void* ctol, const void* x0, void* lam,
+                void* f, void* l, void* scratch, int P, int lm, int d, int s,
+                int bisect_iters, int inv_iters, int fallback_iters, A tiny4,
+                A tiny, int smem, void* stream) {
+  cudaError_t err = cudaFuncSetAttribute(
+      dc_leaf_kernel<A, ROWS>, cudaFuncAttributeMaxDynamicSharedMemorySize,
+      smem);
+  if (err != cudaSuccess) return (int)err;
+  const int threads = ((lm << s) + 31) / 32 * 32;
+  dc_leaf_kernel<A, ROWS><<<P, threads, smem, (cudaStream_t)stream>>>(
+      (const A*)a, (const A*)b, (const A*)lo0, (const A*)hi0,
+      (const A*)ctol, (const A*)x0, (A*)lam, (A*)f, (A*)l, (A*)scratch, lm,
+      d, s, bisect_iters, inv_iters, fallback_iters, tiny4, tiny);
+  return (int)cudaGetLastError();
+}
+
+// the rows a lane holds in the Gram-Schmidt: 2 to lm = 64, 4 to 128
 template <typename A>
 int leaf(const void* a, const void* b, const void* lo0, const void* hi0,
-         const void* ctol, const void* x0, void* lam, void* f, void* l, int P,
-         int lm, int bisect_iters, int inv_iters, int fallback_iters,
-         A tiny4, A tiny, int smem, void* stream) {
-  if (P < 0 || lm < 2 || lm > 1024) return (int)cudaErrorInvalidValue;
+         const void* ctol, const void* x0, void* lam, void* f, void* l,
+         void* scratch, int P, int lm, int d, int s, int bisect_iters,
+         int inv_iters, int fallback_iters, A tiny4, A tiny, int smem,
+         void* stream) {
+  if (P < 0 || lm < 2 || lm > 32 * kLeafRows<A> || s < 0 || s > 5 ||
+      (lm << s) > kLeafThreads || d < 0 || d > bisect_iters ||
+      (1 << d) > lm || inv_iters < 0 || fallback_iters < 0)
+    return (int)cudaErrorInvalidValue;
   if (P == 0) return 0;
-  cudaError_t err = cudaFuncSetAttribute(
-      dc_leaf_kernel<A>, cudaFuncAttributeMaxDynamicSharedMemorySize, smem);
-  if (err != cudaSuccess) return (int)err;
-  dc_leaf_kernel<A><<<P, lm, smem, (cudaStream_t)stream>>>(
-      (const A*)a, (const A*)b, (const A*)lo0, (const A*)hi0,
-      (const A*)ctol, (const A*)x0, (A*)lam, (A*)f, (A*)l, lm, bisect_iters,
-      inv_iters, fallback_iters, tiny4, tiny);
-  return (int)cudaGetLastError();
+  const auto go = lm <= 64    ? leaf_launch<A, 2>
+                  : lm <= 128 ? leaf_launch<A, 4>
+                              : leaf_launch<A, kLeafRows<A>>;
+  return go(a, b, lo0, hi0, ctol, x0, lam, f, l, scratch, P, lm, d, s,
+            bisect_iters, inv_iters, fallback_iters, tiny4, tiny, smem,
+            stream);
 }
 
 template <typename A>
@@ -744,7 +981,9 @@ int secular(const void* d, const void* w, const void* gap, const void* act,
 // launches on `stream` and returns 0 or the CUDA error.
 //
 // dc_leaf: a (P, lm), b (P, lm-1), lo0, hi0, ctol (P,), x0 (lm, lm) -> lam,
-//   f, l (P, lm); smem = tuning.dc_leaf_smem_bytes.
+//   f, l (P, lm); scratch (2, P, lm, lm) of the factors; (d, s) the
+//   bisection's schedule (dc.leaf_schedule: 2^d <= lm, lm 2^s <= 512);
+//   smem = tuning.dc_leaf_smem_bytes.
 // dc_deflate: d, z, fe, le (P, m) and act (P, m) bool, in place; tol (P,);
 //   scratch (4, P, m) and sact (P, m) bytes; chunk_min = steps a chunk at
 //   the least (tuning.DC_DEFLATE_CHUNK).
@@ -754,22 +993,22 @@ extern "C" {
 
 int dc_leaf_f64(const void* a, const void* b, const void* lo0,
                 const void* hi0, const void* ctol, const void* x0, void* lam,
-                void* f, void* l, int P, int lm, int bisect_iters,
-                int inv_iters, int fallback_iters, double tiny4, double tiny,
-                int smem, void* stream) {
-  return leaf<double>(a, b, lo0, hi0, ctol, x0, lam, f, l, P, lm,
-                      bisect_iters, inv_iters, fallback_iters, tiny4, tiny,
-                      smem, stream);
+                void* f, void* l, void* scratch, int P, int lm, int d, int s,
+                int bisect_iters, int inv_iters, int fallback_iters,
+                double tiny4, double tiny, int smem, void* stream) {
+  return leaf<double>(a, b, lo0, hi0, ctol, x0, lam, f, l, scratch, P, lm,
+                      d, s, bisect_iters, inv_iters, fallback_iters, tiny4,
+                      tiny, smem, stream);
 }
 
 int dc_leaf_f32(const void* a, const void* b, const void* lo0,
                 const void* hi0, const void* ctol, const void* x0, void* lam,
-                void* f, void* l, int P, int lm, int bisect_iters,
-                int inv_iters, int fallback_iters, float tiny4, float tiny,
-                int smem, void* stream) {
-  return leaf<float>(a, b, lo0, hi0, ctol, x0, lam, f, l, P, lm,
-                     bisect_iters, inv_iters, fallback_iters, tiny4, tiny,
-                     smem, stream);
+                void* f, void* l, void* scratch, int P, int lm, int d, int s,
+                int bisect_iters, int inv_iters, int fallback_iters,
+                float tiny4, float tiny, int smem, void* stream) {
+  return leaf<float>(a, b, lo0, hi0, ctol, x0, lam, f, l, scratch, P, lm,
+                     d, s, bisect_iters, inv_iters, fallback_iters, tiny4,
+                     tiny, smem, stream);
 }
 
 int dc_deflate_f64(void* d, void* z, void* fe, void* le, void* act,

@@ -1,5 +1,7 @@
 // Device code of the Sturm bisection, shared by csrc/sturm.cu (the staged
-// stage 3) and csrc/fused_small.cu (phase 3 of the one-launch small-n tier).
+// stage 3) and csrc/fused_small.cu (phase 3 of the one-launch small-n tier);
+// csrc/dc.cu's leaves take its schedule (descend, walk_top,
+// bisect_rounds_by) with their own count.
 //
 // The bisection of sigma_k (k-th smallest, 1-indexed) on [0, bound] over the
 // prescaled Golub-Kahan off-diagonal z (2n-1 entries): a level counts the
@@ -77,14 +79,15 @@ __device__ __forceinline__ void walk_top(const int* cb, int n, int k, int d,
   }
 }
 
-// levels done .. max_iter - 1 of sigma_k's bisection, s levels a round (one
-// where s = 0) over the 2^s lanes `lane` of an aligned group; every lane of
-// the warp calls it, with the same s, done and max_iter
-template <typename A>
-__device__ __forceinline__ void bisect_rounds(const A* __restrict__ zb, int n,
-                                              int k, int lane, int s,
-                                              int done, int max_iter, A tiny,
-                                              A& lo, A& hi) {
+// levels done .. max_iter - 1 of the bisection of index k, s levels a
+// round (one where s = 0) over the 2^s lanes `lane` of an aligned group:
+// count(mid) is the count at a midpoint, and the walk goes left where
+// count(mid) - n >= k.  Every lane of the warp calls it, with the same s,
+// done and max_iter.  csrc/dc.cu's leaves count with their own recurrence.
+template <typename A, typename Count>
+__device__ __forceinline__ void bisect_rounds_by(Count count, int n, int k,
+                                                 int lane, int s, int done,
+                                                 int max_iter, A& lo, A& hi) {
   const int S = 1 << s;
   while (done < max_iter) {
     const int lev = min(s > 0 ? s : 1, max_iter - done);
@@ -92,7 +95,7 @@ __device__ __forceinline__ void bisect_rounds(const A* __restrict__ zb, int n,
     if (lane < (1 << lev) - 1) {
       A l2 = lo, h2 = hi;
       descend(lane + 1, l2, h2);
-      c = sturm_count(zb, 2 * n, A(0.5) * (l2 + h2), tiny);
+      c = count(A(0.5) * (l2 + h2));
     }
     int jj = 1;
     for (int l = 0; l < lev; ++l) {
@@ -103,4 +106,15 @@ __device__ __forceinline__ void bisect_rounds(const A* __restrict__ zb, int n,
     }
     done += lev;
   }
+}
+
+// levels done .. max_iter - 1 of sigma_k's bisection over zb
+template <typename A>
+__device__ __forceinline__ void bisect_rounds(const A* __restrict__ zb, int n,
+                                              int k, int lane, int s,
+                                              int done, int max_iter, A tiny,
+                                              A& lo, A& hi) {
+  bisect_rounds_by(
+      [=](A mid) { return sturm_count(zb, 2 * n, mid, tiny); }, n, k, lane,
+      s, done, max_iter, lo, hi);
 }

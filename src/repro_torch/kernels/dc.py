@@ -11,6 +11,10 @@ within rounding.
 They take CUDA tensors only: each launches its kernel or raises, and counts
 the launch in ``launches``.  The plain versions are chosen for CPU tensors
 by ``kernels/ops.py``, not here.
+
+The leaves bisect on the Sturm kernels' schedule (``leaf_schedule``: the
+tree's top counted once per leaf, then s levels a round over groups of
+2^s lanes), so their eigenvalues keep the plain version's midpoints.
 """
 
 from __future__ import annotations
@@ -20,16 +24,17 @@ import ctypes
 import torch
 
 from repro_torch.core import tuning
-from repro_torch.kernels import _build
+from repro_torch.kernels import _build, bisect
 
-__all__ = ["dc_leaf_cuda", "dc_deflate_cuda", "dc_secular_cuda", "launches"]
+__all__ = ["dc_leaf_cuda", "dc_deflate_cuda", "dc_secular_cuda",
+           "leaf_schedule", "launches"]
 
 launches = {"dc_leaf_cuda": 0, "dc_deflate_cuda": 0, "dc_secular_cuda": 0}
 
 _SUFFIX = {torch.float64: ("f64", ctypes.c_double),
            torch.float32: ("f32", ctypes.c_float)}
 _P, _I = ctypes.c_void_p, ctypes.c_int
-_ARGS = {"leaf": lambda real: [_P] * 9 + [_I] * 5 + [real, real, _I, _P],
+_ARGS = {"leaf": lambda real: [_P] * 10 + [_I] * 7 + [real, real, _I, _P],
          "deflate": lambda real: [_P] * 8 + [_I] * 3 + [_P],
          "secular": lambda real: [_P] * 9 + [_I] * 7 + [_P]}
 _FNS: dict = {}
@@ -69,11 +74,24 @@ def _call(name: str, kind: str, dtype: torch.dtype, device, *args) -> None:
     _build.count_launch(launches, name)
 
 
+def leaf_schedule(p: int, lm: int, bisect_iters: int) -> tuple[int, int]:
+    """(d, s) of the leaf kernel's bisection for P leaves of lm rows: the
+    Sturm kernels' ``bisect.schedule`` for P problems of lm indices, s
+    capped so that a block's lm 2^s threads stay within
+    ``tuning.DC_LEAF_THREADS``."""
+    cap = max(0, (tuning.DC_LEAF_THREADS // lm).bit_length() - 1)
+    return bisect.schedule(p, lm, bisect_iters, max_s=cap)
+
+
 def dc_leaf_cuda(a: torch.Tensor, b: torch.Tensor, lo0: torch.Tensor,
                  hi0: torch.Tensor, ctol: torch.Tensor, x0: torch.Tensor, *,
                  bisect_iters: int, inv_iters: int):
-    """(lam, f, l), each (P, lm), of P leaves: one block a leaf, one thread
-    an eigenvalue (``bidiag_dc.leaf_eigen_plain``)."""
+    """(lam, f, l), each (P, lm), of P leaves: one block a leaf; the
+    bisection over the block's lm 2^s threads (``leaf_schedule``), then one
+    thread a vector, then the Gram-Schmidt one warp a cluster run
+    (``bidiag_dc.leaf_eigen_plain``).  The factors of each vector's shift
+    (multipliers and reciprocal pivots) go to a (2, P, lm, lm) scratch
+    allocated here."""
     name = "dc_leaf_cuda"
     _check(name, a, a=a, b=b, lo0=lo0, hi0=hi0, ctol=ctol, x0=x0)
     p, lm = a.shape
@@ -90,11 +108,13 @@ def dc_leaf_cuda(a: torch.Tensor, b: torch.Tensor, lo0: torch.Tensor,
     lam, f, l = (a.new_empty((p, lm)) for _ in range(3))
     if p:
         fi = torch.finfo(a.dtype)
+        scratch = a.new_empty((2, p, lm, lm))
+        d, s = leaf_schedule(p, lm, bisect_iters)
         _call(name, "leaf", a.dtype, a.device, a.data_ptr(), b.data_ptr(),
               lo0.data_ptr(), hi0.data_ptr(), ctol.data_ptr(),
-              x0.data_ptr(), lam.data_ptr(), f.data_ptr(), l.data_ptr(), p,
-              lm, bisect_iters, inv_iters, tuning.DC_FALLBACK_ITERS,
-              fi.tiny * 4, fi.tiny, smem)
+              x0.data_ptr(), lam.data_ptr(), f.data_ptr(), l.data_ptr(),
+              scratch.data_ptr(), p, lm, d, s, bisect_iters, inv_iters,
+              tuning.DC_FALLBACK_ITERS, fi.tiny * 4, fi.tiny, smem)
     return lam, f, l
 
 

@@ -26,6 +26,8 @@ import numpy as np
 import pytest
 import torch
 from torch_port_common import DTYPES, close, pair, to_np
+from torch_port_common import bisect_descend as _descend
+from torch_port_common import bisect_walk as _walk
 
 from repro.core import bulge_chasing as jbc
 from repro_torch.core import band as tband
@@ -248,34 +250,6 @@ def test_cycle_band_op_on_cpu_is_the_plain_version():
 # ---------------------------------------------------------------------------
 # The Sturm kernels' schedule
 # ---------------------------------------------------------------------------
-
-def _descend(j, lo, hi):
-    """The brackets of nodes j (heap order, >= 1) under [lo, hi]: the
-    halvings of each node's path, top bit first, as ``descend`` in
-    ``csrc/sturm.cu`` makes them."""
-    depth = torch.floor(torch.log2(j.double())).long()
-    for i in range(int(depth.max()) if j.numel() else 0):
-        pos = depth - 1 - i
-        on = pos >= 0
-        bit = (j >> pos.clamp(min=0)) & 1
-        mid = 0.5 * (lo + hi)
-        lo = torch.where(on & (bit == 1), mid, lo)
-        hi = torch.where(on & (bit == 0), mid, hi)
-    return lo, hi
-
-
-def _walk(lo, hi, counts_of, levels, n, k):
-    """Down ``levels`` levels of a counted tree from [lo, hi], each k by its
-    own path: node jj's count is ``counts_of(jj)``."""
-    jj = torch.ones_like(k).expand_as(lo).clone()
-    for _ in range(levels):
-        mid = 0.5 * (lo + hi)
-        left = counts_of(jj) - n >= k
-        hi = torch.where(left, mid, hi)
-        lo = torch.where(left, lo, mid)
-        jj = 2 * jj + (~left).long()
-    return lo, hi
-
 
 def sturm_schedule_model(z, bound, *, n, max_iter, d, s):
     """The kernels' bisection in plain torch: the 2^d - 1 nodes of the

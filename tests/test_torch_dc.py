@@ -20,7 +20,8 @@ import numpy as np
 import pytest
 import torch
 from hypothesis import given, settings, strategies as st
-from torch_port_common import check_svd, deflation_runs
+from torch_port_common import (bisect_descend, bisect_walk, check_svd,
+                               deflation_runs, gram_schmidt_by_runs_model)
 
 from repro.core import bidiag_dc as jdc
 from repro.core.tuning import PipelineConfig as JConfig
@@ -30,6 +31,7 @@ from repro_torch.core import bidiag_svd as ts3
 from repro_torch.core import svd as tsvd
 from repro_torch.core import tuning
 from repro_torch.core.tuning import PipelineConfig
+from repro_torch.kernels import dc as tdc_kern
 
 torch.set_num_threads(2)
 
@@ -293,6 +295,181 @@ def test_deflate_schedule_model_is_bitwise_plain(chunk, dtype):
 
 
 # ---------------------------------------------------------------------------
+# the leaf kernel's schedule and its Gram-Schmidt by cluster runs
+# ---------------------------------------------------------------------------
+
+# the leaf kernel against its plain version (tests/test_torch_kernels.py):
+# rows and cluster sums within 10 times these
+DC_TOLS = {torch.float64: 1e-13, torch.float32: 1e-5}
+
+
+def leaf_schedule_model(a, b, lo0, hi0, *, iters, d, s):
+    """``dc_leaf_kernel``'s bisection in plain torch: the 2^d - 1 nodes of
+    the tree's top under each leaf's [lo0, hi0] counted once with the
+    leaf's recurrence (``_tridiag_count``), each index k walked down them,
+    then rounds of s levels (1 where s = 0) whose 2^s - 1 nodes under k's
+    bracket are counted at once and walked; index k goes left where the
+    count is at least k + 1."""
+    p, lm = a.shape
+    k1 = torch.arange(1, lm + 1)
+    nodes = torch.arange(1, 2 ** d)
+    tlo, thi = bisect_descend(nodes, lo0[:, None].expand(p, nodes.numel()),
+                              hi0[:, None].expand(p, nodes.numel()))
+    top = tdc._tridiag_count(a, b, 0.5 * (tlo + thi))
+    lo, hi = bisect_walk(lo0[:, None].expand(p, lm), hi0[:, None].expand(
+        p, lm), lambda jj: top.gather(1, jj - 1), d, 0, k1)
+    done = d
+    while done < iters:
+        lev = min(max(s, 1), iters - done)
+        sub = torch.arange(1, 2 ** lev)
+        m = sub.numel()
+        slo, shi = bisect_descend(sub, lo[..., None].expand(p, lm, m),
+                                  hi[..., None].expand(p, lm, m))
+        cnt = tdc._tridiag_count(a, b, (0.5 * (slo + shi)).reshape(
+            p, lm * m)).reshape(p, lm, m)
+        lo, hi = bisect_walk(lo, hi, lambda jj: cnt.gather(
+            2, (jj - 1)[..., None])[..., 0], lev, 0, k1)
+        done += lev
+    return 0.5 * (lo + hi)
+
+
+def _leaves(lm, dtype, seed):
+    """Four leaves of lm rows: random; split (a zero coupling in the
+    middle); clustered (a run of eigenvalues 1e-9 apart); degenerate (two
+    uncoupled copies of one block, so every eigenvalue is double).
+    Returns a, b and each leaf's bracket and cluster width."""
+    rng = np.random.default_rng(seed)
+    a = rng.standard_normal((4, lm))
+    b = rng.standard_normal((4, lm - 1))
+    b[1, lm // 2 - 1] = 0.0
+    c0, c1 = lm // 4, max(lm // 2, lm // 4 + 2)
+    a[2, c0:c1] = 1.0 + 1e-9 * np.arange(c1 - c0)
+    b[2, c0 - 1:c1] = 1e-9
+    h = lm // 2
+    a[3, h:] = a[3, :h]
+    b[3, h:] = b[3, :h - 1]
+    b[3, h - 1] = 0.0
+    a, b = (torch.from_numpy(x).to(dtype) for x in (a, b))
+    return (a, b) + tdc._leaf_bracket(a, b)
+
+
+@pytest.mark.parametrize("dtype", [torch.float64, torch.float32],
+                         ids=["float64", "float32"])
+@pytest.mark.parametrize("lm,s", [
+    (lm, s) for lm in (4, 16, 64, 128) for s in (0, 2, 3, 4, 5)
+    if lm << s <= tuning.DC_LEAF_THREADS])
+def test_leaf_schedule_model_is_bitwise_plain(lm, s, dtype):
+    """The tree's top counted once per leaf, then s levels a round: the
+    plain bisection's midpoints, so its eigenvalues bit for bit, at every
+    s the block's threads allow, on split, clustered and degenerate
+    leaves."""
+    a, b, lo0, hi0, ctol = _leaves(lm, dtype, lm + s)
+    iters = tdc.default_bisect_iters(dtype)
+    d = tdc_kern.leaf_schedule(4, lm, iters)[0]
+    assert d == min(lm.bit_length() - 1, iters)
+    got = leaf_schedule_model(a, b, lo0, hi0, iters=iters, d=d, s=s)
+    want = tdc.leaf_eigen_plain(a, b, lo0, hi0, ctol,
+                                tdc.leaf_start(lm, dtype, "cpu"),
+                                bisect_iters=iters, inv_iters=0)[0]
+    assert torch.equal(got, want)
+    # the degenerate leaf's eigenvalues come in pairs, bit for bit
+    assert torch.equal(want[3, ::2], want[3, 1::2])
+
+
+@pytest.mark.parametrize("iters", [1, 3, 6])
+def test_leaf_schedule_model_short_runs(iters):
+    """Fewer bisection steps than the tree's top is deep (d = iters) and
+    than one round of s levels still give the plain version's bits."""
+    a, b, lo0, hi0, ctol = _leaves(16, torch.float64, iters)
+    d = tdc_kern.leaf_schedule(4, 16, iters)[0]
+    want = tdc.leaf_eigen_plain(a, b, lo0, hi0, ctol,
+                                tdc.leaf_start(16, a.dtype, "cpu"),
+                                bisect_iters=iters, inv_iters=0)[0]
+    for s in (0, 2, 5):
+        assert torch.equal(leaf_schedule_model(
+            a, b, lo0, hi0, iters=iters, d=d, s=s), want)
+
+
+@pytest.mark.parametrize("p,lm,iters,want", [
+    (128, 64, 60, (6, 3)),     # fp64 n = 4096, dc_leaf_n 32: 512 threads
+    (512, 64, 40, (6, 2)),     # fp32 n = 16384: 256 threads, one wave
+    (64, 128, 60, (7, 2)),     # fp64 n = 4096, dc_leaf_n 64: 512 threads
+    (128, 128, 60, (7, 2)),
+    (512, 128, 40, (7, 0)),
+    (3, 4, 60, (2, 5)),
+    (1, 128, 60, (7, 2))])     # s capped: 5 uncapped, lm 2^s <= 512
+def test_leaf_schedule_choice(p, lm, iters, want):
+    """(d, s) of the leaf kernel: the Sturm kernels' schedule for P leaves
+    of lm indices, s capped so that a block's lm 2^s threads stay within
+    DC_LEAF_THREADS."""
+    got = tdc_kern.leaf_schedule(p, lm, iters)
+    assert got == want
+    assert lm << got[1] <= tuning.DC_LEAF_THREADS
+
+
+def _cluster_sums(lam, f, l, ctol):
+    """(3, P, lm): per cluster run of each leaf, the sums of f^2, f*l and
+    l^2 over it, which no rotation inside the run changes."""
+    start = torch.ones_like(lam, dtype=torch.bool)
+    start[:, 1:] = ~(lam[:, 1:] - lam[:, :-1] < ctol[:, None])
+    cid = (torch.cumsum(start.to(torch.int64), -1) - 1).expand(3, -1, -1)
+    return torch.zeros((3,) + tuple(lam.shape), dtype=lam.dtype).scatter_add_(
+        -1, cid, torch.stack((f * f, f * l, l * l)))
+
+
+@pytest.mark.parametrize("dtype", [torch.float64, torch.float32],
+                         ids=["float64", "float32"])
+def test_gram_schmidt_by_runs_model_matches_plain(dtype):
+    """The kernel's inverse iteration and Gram-Schmidt by runs against
+    ``leaf_eigen_plain`` at its own eigenvalues: the rows of a leaf with no
+    cluster within DC_TOLS, every run's cluster sums within the same, on a
+    leaf with several separate runs and on one whose start vectors repeat
+    in two runs of a double eigenvalue, so that the fallback fires in both
+    runs at once (and nowhere else); every run's vectors orthonormal."""
+    lm = 16
+    rng = np.random.default_rng(5)
+    a = rng.standard_normal((3, lm))
+    b = rng.standard_normal((3, lm - 1))
+    # leaf 1: runs of three, two and two eigenvalues `gap` apart, which
+    # the type resolves
+    gap = 1e-9 if dtype == torch.float64 else 1e-4
+    for c0, c1, v in ((1, 4, 2.5), (7, 9, -1.5), (12, 14, 4.0)):
+        a[1, c0:c1] = v + gap * np.arange(c1 - c0)
+        b[1, c0 - 1:c1] = gap
+    # leaf 2: two uncoupled copies of a block with eigenvalues ~1 apart
+    a[2, :8] = a[2, 8:] = np.arange(8.0)
+    b[2, :7] = b[2, 8:] = 0.3
+    b[2, 7] = 0.0
+    a, b = (torch.from_numpy(x).to(dtype) for x in (a, b))
+    lo0, hi0, ctol = tdc._leaf_bracket(a, b)
+    iters = tdc.default_bisect_iters(dtype)
+    x0 = tdc.leaf_start(lm, dtype, "cpu")
+    lam = tdc.leaf_eigen_plain(a, b, lo0, hi0, ctol, x0, bisect_iters=iters,
+                               inv_iters=0)[0]
+    assert torch.equal(lam[2, ::2], lam[2, 1::2])       # eight runs of two
+    close = lam[:, 1:] - lam[:, :-1] < ctol[:, None]
+    starts = close & ~torch.nn.functional.pad(close, (1, 0))[:, :-1]
+    assert starts.sum(-1).tolist() == [0, 3, 8]
+    x0 = x0.clone()
+    x0[3], x0[11] = x0[2], x0[10]       # repeated in two runs of leaf 2
+    want = tdc.leaf_eigen_plain(a, b, lo0, hi0, ctol, x0, bisect_iters=iters,
+                                inv_iters=2)
+    f, l, vec, collapses = gram_schmidt_by_runs_model(a, b, lam, ctol, x0,
+                                                      inv_iters=2)
+    assert collapses == [0, 0, 2]
+    tol = DC_TOLS[dtype] * 10
+    for got_, want_ in ((f, want[1]), (l, want[2])):
+        torch.testing.assert_close(got_[0], want_[0], rtol=0, atol=tol)
+    sums = [_cluster_sums(lam, *x, ctol) for x in ((f, l), want[1:])]
+    torch.testing.assert_close(sums[0], sums[1], rtol=0, atol=tol)
+    gram = vec @ vec.transpose(-1, -2)
+    eye = torch.eye(lm, dtype=dtype).expand_as(gram)
+    same_run = (lam[:, :, None] - lam[:, None, :]).abs() < ctol[:, None, None]
+    err = (gram - eye)[same_run].abs().max()
+    assert float(err) <= (1e-12 if dtype == torch.float64 else 1e-5)
+
+
+# ---------------------------------------------------------------------------
 # sigma against the reference: the reference test's inputs
 # ---------------------------------------------------------------------------
 
@@ -477,12 +654,23 @@ def test_stage3_auto_resolution():
 
 
 def test_leaf_budget_raises_for_a_cuda_config():
-    with pytest.raises(ValueError, match="dc_leaf_n"):
-        PipelineConfig.resolve(bw=4, stage3="dc", dc_leaf_n=64,
-                               dtype=torch.float64, device="cuda")
+    # the leaf block holds the vectors only (the factors of the inverse
+    # iteration live in device memory): dc_leaf_n 64 fits at fp64, and
+    # the last widths that fit are 83 fp64 and 119 fp32
+    for leaf_n, dtype in ((64, torch.float64), (83, torch.float64),
+                          (119, torch.float32)):
+        cfg = PipelineConfig.resolve(bw=4, stage3="dc", dc_leaf_n=leaf_n,
+                                     dtype=dtype, device="cuda")
+        assert cfg.dc_leaf_n == leaf_n
+        assert tuning.dc_leaf_smem_bytes(leaf_n, dtype) <= \
+            tuning.SMEM_PER_BLOCK
+    for leaf_n, dtype in ((84, torch.float64), (120, torch.float32)):
+        with pytest.raises(ValueError, match="dc_leaf_n"):
+            PipelineConfig.resolve(bw=4, stage3="dc", dc_leaf_n=leaf_n,
+                                   dtype=dtype, device="cuda")
     # the CPU runs the plain version, which has no such budget
-    assert PipelineConfig.resolve(bw=4, stage3="dc", dc_leaf_n=64,
-                                  device="cpu").dc_leaf_n == 64
+    assert PipelineConfig.resolve(bw=4, stage3="dc", dc_leaf_n=200,
+                                  device="cpu").dc_leaf_n == 200
 
 
 def test_convert_carries_the_stage3_fields():

@@ -26,7 +26,8 @@ import numpy as np
 import pytest
 import torch
 from torch_port_common import (DTYPES, close, cuda,  # noqa: F401
-                               deflation_runs, torch_dtype, windows, wy_tol)
+                               deflation_runs, gram_schmidt_by_runs_model,
+                               torch_dtype, windows, wy_tol)
 
 from repro_torch.core import bidiag_dc as tdc
 from repro_torch.core import bidiag_svd as s3
@@ -649,7 +650,7 @@ def _dc_leaves(p, lm, seed, dtype, device):
 
 @pytest.mark.cuda
 @pytest.mark.parametrize("dtype", ["float64", "float32"])
-@pytest.mark.parametrize("leaf_n,p", [(32, 40), (16, 7), (2, 3)])
+@pytest.mark.parametrize("leaf_n,p", [(32, 40), (16, 7), (2, 3), (64, 9)])
 def test_dc_leaf_cuda_matches_plain(cuda, leaf_n, p, dtype):
     """Eigenvalues bit for bit (the plain version's midpoints), the first
     and last eigenvector rows of the separated leaves within DC_TOLS, and
@@ -672,7 +673,7 @@ def test_dc_leaf_cuda_matches_plain(cuda, leaf_n, p, dtype):
 
 @pytest.mark.cuda
 @pytest.mark.parametrize("dtype", ["float64", "float32"])
-@pytest.mark.parametrize("leaf_n", [32, 16, 2])
+@pytest.mark.parametrize("leaf_n", [32, 16, 2, 64])
 def test_dc_leaf_cuda_degenerate_cluster_matches_plain(cuda, leaf_n, dtype):
     """Leaves with an exactly repeated eigenvalue (rows lm/4 ... lm/2 at
     0.5, uncoupled): the vectors of the cluster must span the eigenspace,
@@ -694,6 +695,45 @@ def test_dc_leaf_cuda_degenerate_cluster_matches_plain(cuda, leaf_n, dtype):
     want = tdc.leaf_eigen_plain(*args, **kw)
     torch.cuda.synchronize()
     assert torch.equal(got[0], want[0])
+    sums = [_dc_cluster_sums(*x, args[4]) for x in (got, want)]
+    close(sums[0], sums[1], DC_TOLS[dtype] * 10)
+
+
+@pytest.mark.cuda
+@pytest.mark.parametrize("dtype", ["float64", "float32"])
+@pytest.mark.parametrize("leaf_n", [4, 32, 64])
+def test_dc_leaf_cuda_fallback_in_two_runs_matches_plain(cuda, leaf_n,
+                                                         dtype):
+    """Leaves of two uncoupled copies of one block (every eigenvalue
+    double: lm / 2 runs of two), with the start vector of each run's
+    second index a copy of its first's in the first and third runs, so
+    that inverse iteration gives both vectors of those runs one direction
+    and the collapse fallback fires in two runs at once (on two warps; the
+    kernel's CPU model, ``gram_schmidt_by_runs_model``, counts them on
+    these inputs): eigenvalues bit for bit, and each run's sums of f^2,
+    f*l and l^2 within DC_TOLS of the plain version's."""
+    lm = 2 * leaf_n
+    rng = np.random.default_rng(lm + 1)
+    a = rng.standard_normal((2, lm))
+    b = rng.standard_normal((2, lm - 1))
+    a[:, :leaf_n] = a[:, leaf_n:] = np.arange(leaf_n) * 1.0
+    b[:, :leaf_n - 1] = b[:, leaf_n:] = 0.3
+    b[:, leaf_n - 1] = 0.0
+    a, b = (torch.from_numpy(x).to(cuda, torch_dtype(dtype))
+            for x in (a, b))
+    x0 = tdc.leaf_start(lm, a.dtype, cuda)
+    x0[1], x0[5 % lm] = x0[0], x0[4 % lm]
+    args = (a, b) + tdc._leaf_bracket(a, b) + (x0,)
+    kw = dict(bisect_iters=s3.default_bisect_iters(a.dtype), inv_iters=2)
+    got = tdc_kern.dc_leaf_cuda(*args, **kw)
+    want = tdc.leaf_eigen_plain(*args, **kw)
+    torch.cuda.synchronize()
+    assert torch.equal(got[0], want[0])
+    assert torch.equal(want[0][:, ::2], want[0][:, 1::2])
+    collapses = gram_schmidt_by_runs_model(
+        *(x.cpu() for x in (a, b, want[0], args[4], x0)),
+        inv_iters=kw["inv_iters"])[3]
+    assert collapses == [2, 2]
     sums = [_dc_cluster_sums(*x, args[4]) for x in (got, want)]
     close(sums[0], sums[1], DC_TOLS[dtype] * 10)
 
@@ -813,6 +853,27 @@ def test_dc_on_a_pipeline_bidiagonal_matches_bisection(cuda, n, b):
     want = s3.bidiag_singular_values(d, e)
     got = tdc.bidiag_dc_singular_values(d, e)
     err = float(((got - want).abs().amax(-1) / want.abs().amax(-1)).max())
+    assert err <= 1e-12, err
+
+
+@pytest.mark.cuda
+def test_dc_at_leaf_n_64_on_a_pipeline_bidiagonal_matches_bisection(cuda):
+    """dc_leaf_n = 64 resolves on a CUDA config at fp64 (the leaf block
+    holds the vectors only), and dc's sigma of a banded fp64 n = 2048 bw 64
+    input through that config agrees with bisection's at
+    test_dc_on_a_pipeline_bidiagonal_matches_bisection's tolerance."""
+    from repro_torch.autotune import measure
+    a = measure.banded_input(2048, 64, batch=1, dtype=torch.float64,
+                             device="cuda").reshape(2048, 2048)
+    cfg = PipelineConfig.resolve(bw=64, n=2048, stage3="dc", dc_leaf_n=64,
+                                 dtype=torch.float64, device="cuda")
+    assert (cfg.stage3, cfg.dc_leaf_n) == ("dc", 64)
+    ops.reset_launch_counts()
+    got = tsvd.banded_singular_values(a, config=cfg)
+    assert ops.launch_counts()["dc_leaf_cuda"] == 1
+    want = tsvd.banded_singular_values(a, config=dataclasses.replace(
+        cfg, stage3="bisect"))
+    err = float((got - want).abs().max() / want.abs().max())
     assert err <= 1e-12, err
 
 

@@ -9,6 +9,9 @@ import numpy as np
 import pytest
 import torch
 
+from repro_torch.core import bidiag_dc as tdc
+from repro_torch.core.tuning import DC_FALLBACK_ITERS
+
 # the reference's kernel-test tolerances (tests/test_kernels.py), times scale
 DTYPES = [("float32", 3e-5), ("float64", 1e-12), ("bfloat16", 8e-2)]
 
@@ -65,6 +68,35 @@ def deflation_runs(p, m, chunk, seed, dtype, device="cpu"):
     return (to(d), to(z), to(rng.standard_normal((p, m))),
             to(rng.standard_normal((p, m))),
             torch.from_numpy(act).to(device), to(np.full(p, 1e-6)))
+
+
+def bisect_descend(j, lo, hi):
+    """The brackets of nodes j (heap order, >= 1) under [lo, hi]: the
+    halvings of each node's path, top bit first, as ``descend`` in
+    ``csrc/sturm_device.cuh`` makes them (the Sturm kernels' and the dc
+    leaves' bisection schedule)."""
+    depth = torch.floor(torch.log2(j.double())).long()
+    for i in range(int(depth.max()) if j.numel() else 0):
+        pos = depth - 1 - i
+        on = pos >= 0
+        bit = (j >> pos.clamp(min=0)) & 1
+        mid = 0.5 * (lo + hi)
+        lo = torch.where(on & (bit == 1), mid, lo)
+        hi = torch.where(on & (bit == 0), mid, hi)
+    return lo, hi
+
+
+def bisect_walk(lo, hi, counts_of, levels, n, k):
+    """Down ``levels`` levels of a counted tree from [lo, hi], each k by its
+    own path: node jj's count is ``counts_of(jj)``."""
+    jj = torch.ones_like(k).expand_as(lo).clone()
+    for _ in range(levels):
+        mid = 0.5 * (lo + hi)
+        left = counts_of(jj) - n >= k
+        hi = torch.where(left, mid, hi)
+        lo = torch.where(left, lo, mid)
+        jj = 2 * jj + (~left).long()
+    return lo, hi
 
 
 def pair(x: np.ndarray, dtype: str):
@@ -180,3 +212,91 @@ def lm_models(arch: str):
     tm = model_params_from_reference(flat_params(params), smoke_of(arch),
                                      device="cpu")
     return jm, params, tm
+
+
+def leaf_factor(a, b, lam, tg):
+    """The leaf kernel's factors of T - lam I for every (leaf, index):
+    multipliers (lm - 1, P, K) and reciprocal pivots (lm, P, K), pivots
+    guarded at tg (P, 1)."""
+    lm = a.shape[-1]
+    cs = a.new_empty((lm - 1,) + lam.shape)
+    rs = a.new_empty((lm,) + lam.shape)
+    r = 1 / tdc._guard(a[:, :1] - lam, tg)
+    rs[0] = r
+    for i in range(1, lm):
+        bi = b[:, i - 1, None]
+        c = bi * r
+        r = 1 / tdc._guard((a[:, i, None] - lam) - bi * c, tg)
+        cs[i - 1], rs[i] = c, r
+    return cs, rs
+
+
+def leaf_apply(cs, rs, b, x):
+    """x (P, K, lm) = (T - lam I)^-1 x from ``leaf_factor``'s factors."""
+    lm = x.shape[-1]
+    ys = [x[..., 0] * rs[0]]
+    for i in range(1, lm):
+        ys.append((x[..., i] - b[:, i - 1, None] * ys[-1]) * rs[i])
+    out = [ys[-1]]
+    for i in range(lm - 2, -1, -1):
+        out.append(ys[i] - cs[i] * out[-1])
+    return torch.stack(out[::-1], -1)
+
+
+def gram_schmidt_by_runs_model(a, b, lam, ctol, x0, *, inv_iters):
+    """``dc_leaf_kernel`` after its bisection, in plain torch: inverse
+    iteration with T - lam_k I factored once (reciprocal pivots); a vector
+    with no earlier eigenvalue within ctol normalised once more; then each
+    cluster run (consecutive gaps below ctol) in k order, vector k less its
+    projections on its window (the earlier vectors of the run within ctol
+    of lam_k, classical Gram-Schmidt), and where that leaves less than
+    0.01, e_k projected and taken through DC_FALLBACK_ITERS steps of
+    inverse iteration with vector k's factors, each projected again and
+    normalised.  Returns f, l (P, lm), the vectors (P, lm, lm), row k
+    vector k, and the collapses per leaf."""
+    p, lm = a.shape
+    tiny = torch.finfo(a.dtype).tiny
+    eps = torch.finfo(a.dtype).eps
+    tg = (eps * torch.maximum(a.abs().amax(-1), b.abs().amax(-1)).clamp(
+        min=1))[:, None]
+    cs, rs = leaf_factor(a, b, lam, tg)
+
+    def unit(w):
+        return w * (1 / torch.linalg.vector_norm(
+            w, dim=-1, keepdim=True).clamp(min=tiny))
+
+    vec = x0.expand(p, lm, lm).clone()
+    for _ in range(inv_iters):
+        vec = unit(leaf_apply(cs, rs, b, vec))
+    alone = torch.zeros((p, lm), dtype=torch.bool)
+    alone[:, 1:] = ~(lam[:, 1:] - lam[:, :-1] < ctol[:, None])
+    vec = torch.where(alone[..., None], unit(vec), vec)
+    collapses = [0] * p
+    for q in range(p):
+        lq, ct = lam[q], ctol[q]
+        r0 = 0
+        while r0 < lm:
+            r1 = r0 + 1
+            while r1 < lm and bool(lq[r1] - lq[r1 - 1] < ct):
+                r1 += 1
+            for k in range(r0 + 1, r1):
+                jw = k
+                while jw > r0 and bool(lq[k] - lq[jw - 1] < ct):
+                    jw -= 1
+                win = vec[q, jw:k].clone()
+
+                def clean(v, win=win):
+                    return v - (win @ v) @ win
+
+                w = clean(vec[q, k])
+                if not bool(torch.linalg.vector_norm(w) > 0.01):
+                    collapses[q] += 1
+                    w = clean(torch.eye(lm, dtype=a.dtype)[k])
+                    for _ in range(DC_FALLBACK_ITERS):
+                        y = leaf_apply(cs[:, q:q + 1, k:k + 1],
+                                        rs[:, q:q + 1, k:k + 1], b[q:q + 1],
+                                        unit(w)[None, None])
+                        w = clean(y[0, 0])
+                vec[q, k] = unit(w)
+            r0 = r1
+    return vec[:, :, 0], vec[:, :, -1], vec, collapses
