@@ -10,7 +10,7 @@
                            --lm-families | --lm-family-depths |
                            --lm-family-planted-faults | --train |
                            --flash-bwd-planted-faults | --bwd-times TREE |
-                           --dc-times TREE]
+                           --dc-times TREE | --train-parallel]
 
 Builds the port's CUDA kernels from ``src/repro_torch/kernels/csrc`` (one
 ``nvcc`` per source, all at once), holds each kernel against its plain
@@ -73,7 +73,15 @@ three AdamW steps through ``repro_torch.launch.train`` (batch 8 x 4096,
 two microbatches, the spectral monitor every step), pixtral-12b at its
 published widths with its depth cut to two layers for three Trainer steps
 (its 256 image tokens, head width 160 through ``flash_attn_bwd.cu``), and
-runs the restart drill on the card.  Every phase prints
+runs the restart drill on the card.  The ``train_parallel`` phase trains
+granite-3-2b data-parallel over two processes of this script that share
+cuda:0 over gloo (``launch.mesh.ProcessMesh``, ``Trainer(mesh=...)``):
+two fp32 ZeRO-1 steps of two layers, each held against the one-process
+Trainer step from the same state, one PowerSGD step held against
+``compress_and_sync``'s arithmetic in one process, then four layers in
+bf16 timed for three steps of each (seconds a step, tokens/s, peak GiB,
+bytes through the collectives, launches of each rank, the ranks'
+parameters bit for bit).  Every phase prints
 one JSON line; the line before the last two is the ``kernels``
 summary, then the card's name and power limit as ``nvidia-smi`` gives them,
 then ``{"ok": true, "device": ...}``.
@@ -453,6 +461,23 @@ def main() -> int:
                     help="only time the fused kernel's values mode at the "
                     "main shapes in the repository's build and in copies "
                     "without parts of it (FUSED_PROBES), then exit")
+    ap.add_argument("--train-parallel", action="store_true",
+                    help="only build the flash kernels and run the "
+                    "train_parallel phase (two ranks on cuda:0 over gloo: "
+                    "granite-3-2b's ZeRO-1 and PowerSGD steps held against "
+                    "one process, then timed in bf16), then exit")
+    ap.add_argument("--tp-split-witness", action="store_true",
+                    help="only build the flash kernels and read, at the "
+                    "train_parallel phase's fp32 config, how far the "
+                    "gradient of the whole batch in one microbatch is from "
+                    "that of a microbatch a rank, through the kernels and "
+                    "the plain versions at fp32 and the plain versions at "
+                    "fp64 (the report behind the phase's one-process "
+                    "baseline), then exit")
+    ap.add_argument("--train-parallel-rank", type=int, default=None,
+                    help=argparse.SUPPRESS)
+    ap.add_argument("--tp-port", type=int, default=0, help=argparse.SUPPRESS)
+    ap.add_argument("--tp-out", default="", help=argparse.SUPPRESS)
     args = ap.parse_args()
 
     import torch
@@ -466,6 +491,17 @@ def main() -> int:
         return 1
     sys.path.insert(0, str(tree / "src"))
     try:
+        if args.train_parallel_rank is not None:
+            return train_parallel_rank(args, torch)
+        if args.train_parallel or args.tp_split_witness:
+            from repro_torch.kernels import _build
+            _build.build_all(["flash_attn", "flash_attn_wgmma",
+                              "flash_attn_bwd", "flash_attn_bwd_wgmma"])
+            if args.tp_split_witness:
+                tp_split_witness(torch, args.seed, smi_name())
+            if args.train_parallel:
+                train_parallel_phase(args, torch, smi_name())
+            return 0
         if args.lm_planted_faults:
             return lm_planted_faults(args, torch)
         if args.flash_planted_faults:
@@ -4527,6 +4563,520 @@ def pixtral_steps(args, torch, drive, smi_line: str) -> None:
     torch.cuda.empty_cache()
 
 
+# ---------------------------------------------------------------------------
+# data-parallel training (the ``train_parallel`` phase, ``--train-parallel``):
+# two ranks on cuda:0 over gloo, each a process of this script
+# (``--train-parallel-rank``)
+# ---------------------------------------------------------------------------
+
+TP_ARCH, TP_WORLD = "granite-3-2b", 2
+# (a) fp32: layers, global batch, sequence; two ZeRO-1 steps, each held
+# against the one-process Trainer step from the same state, then one
+# compressed step held against compress_and_sync's arithmetic in one
+# process
+TP_CHECK = (2, 2, 2048)
+# (b) bf16 at published widths: layers (two ranks with fp32 m, v and
+# PowerSGD's error feedback at all 40 layers need more than 80 GB), global
+# batch, sequence, steps of each mode
+TP_TIMED = (4, 4, 4096, 3)
+TP_RANK = 8                          # PowerSGD rank of both parts
+# the CPU tests' tolerances (tests/test_torch_train.py): loss and grad_norm
+# within TP_LOSS_TOL of max(1, |want|), m and v within TP_GRAD_TOL of each
+# leaf's largest entry, the parameters within TP_STEP_TOL * lr where |m| is
+# at least 1e-2 of the leaf's largest (AdamW's first step moves an entry
+# by about lr * sign(g), so an entry whose gradient sits at its rounding
+# may move the two ways) and within 2 * lr everywhere; compress_and_sync
+# against its arithmetic in one process within TP_COMP_TOL of each leaf's
+# largest entry
+TP_LOSS_TOL, TP_GRAD_TOL, TP_STEP_TOL, TP_COMP_TOL = 1e-5, 3e-3, 2e-2, 1e-5
+TP_TIMEOUT_S = 300
+
+
+def _tp_sync(torch, device) -> None:
+    if device.type == "cuda":
+        torch.cuda.synchronize(device)
+
+
+def _tp_leaf_err(torch, got, want) -> float:
+    """max |got - want| / max |want| (0 where want is 0)."""
+    scale = float(want.abs().max())
+    return float((got.double() - want.double()).abs().max()) / scale \
+        if scale else float(got.abs().max())
+
+
+def tp_replicas_equal(torch, mesh, params) -> bool:
+    """Every rank's parameters are rank 0's, bit for bit (rank 0's
+    broadcast into a scratch tensor, leaf by leaf); True on every rank."""
+    from repro_torch.parallel import collectives as coll
+    from repro_torch.train.tree import items
+    same = True
+    for _, p in items(params):
+        theirs = coll.broadcast(p.detach().clone(), mesh, "check")
+        same &= bool(torch.equal(theirs, p.detach()))
+    flag = torch.tensor([0.0 if same else 1.0], device=mesh.device)
+    coll.psum(flag, mesh, ("data",), "check")
+    return float(flag[0]) == 0.0
+
+
+def tp_split_witness(torch, seed: int, smi_line: str) -> None:
+    """``--tp-split-witness``, a report: why (a) holds the ZeRO-1 step
+    against a one-process step of a microbatch a rank.  At (a)'s config
+    and init, the gradient of the global batch in one microbatch against
+    the mean of TP_WORLD microbatches of one rank's rows each (the same
+    function), through the kernels and through the plain versions at
+    fp32, and through the plain versions at fp64 (every product and sum in
+    fp64: the function's own value at both shapes); each fp32 gradient
+    against the fp64 one of its shape; the kernels against the plain
+    versions at fp32 on one microbatch of the whole batch.  Each reading:
+    the gradient norms, their relative difference, the largest leaf error
+    over that leaf's largest entry, and embed's."""
+    import dataclasses
+
+    from repro_torch.configs import get_config
+    from repro_torch.models import build
+    from repro_torch.train import DataConfig, batch_at
+    from repro_torch.train.tree import items
+    torch.backends.cuda.matmul.allow_tf32 = False
+    torch.backends.cudnn.allow_tf32 = False
+    t0 = time.perf_counter()
+    layers, b, s = TP_CHECK
+    cfg = dataclasses.replace(get_config(TP_ARCH), n_layers=layers,
+                              dtype="float32")
+    dc = DataConfig(vocab=cfg.vocab, seq_len=s, global_batch=b, seed=seed)
+    batch = {k: torch.as_tensor(v, device="cuda")
+             for k, v in batch_at(dc, 0).items()}
+    m32 = build(cfg, device="cuda")
+    m32.init_params(torch.Generator("cuda").manual_seed(seed))
+    m64 = build(dataclasses.replace(cfg, dtype="float64"), device="cuda")
+    with torch.no_grad():
+        for (_, x), (_, y) in zip(items(m64.params), items(m32.params)):
+            x.copy_(y)
+    for m in (m32, m64):
+        m.requires_grad_(True)
+
+    real_float = torch.Tensor.float
+
+    def keep_fp64(self, *args, **kwargs):
+        return (self if self.dtype == torch.float64
+                else real_float(self, *args, **kwargs))
+
+    def grads(m, backend, split):
+        """{leaf: gradient} of the mean of ``split`` microbatches' losses,
+        summed in the gradient's dtype, as ``Trainer._grads`` sums.  For
+        the fp64 model, ``Tensor.float`` leaves fp64 tensors as they are,
+        so that the model's casts to fp32 (the logits, the norms, the
+        attention scores) stay in fp64."""
+        names = [".".join(p) for p, _ in items(m.params)]
+        leaves = [x for _, x in items(m.params)]
+        per, acc = b // split, None
+        if m is m64:
+            torch.Tensor.float = keep_fp64
+        try:
+            for i in range(split):
+                loss, _ = m.loss_fn({k: v[i * per:(i + 1) * per]
+                                     for k, v in batch.items()},
+                                    backend=backend)
+                check(loss.dtype == leaves[0].dtype,
+                      f"tp_split_witness: a {loss.dtype} loss of a "
+                      f"{leaves[0].dtype} model")
+                g = torch.autograd.grad(loss, leaves, allow_unused=True,
+                                        materialize_grads=True)
+                acc = list(g) if acc is None else [a.add_(x)
+                                                   for a, x in zip(acc, g)]
+        finally:
+            torch.Tensor.float = real_float
+        return {n: a.div_(split) for n, a in zip(names, acc)}
+
+    def norm(g):
+        return float(torch.sqrt(sum(x.double().pow(2).sum()
+                                    for x in g.values())))
+
+    def apart(got, want):
+        errs = {n: _tp_leaf_err(torch, got[n], want[n]) for n in want}
+        worst = max(errs, key=errs.get)
+        gn_got, gn_want = norm(got), norm(want)
+        return {"grad_norm": [gn_got, gn_want],
+                "grad_norm_rel_diff": abs(gn_got - gn_want) / gn_want,
+                "leaf_rel_err_max": errs[worst], "leaf": worst,
+                "embed_rel_err": errs["embed"]}
+
+    shapes = {"one_microbatch": 1, "a_microbatch_a_rank": TP_WORLD}
+    g = {(path, shape): grads(m, backend, split)
+         for path, m, backend in (("kernels_fp32", m32, "auto"),
+                                  ("plain_fp32", m32, "ref"),
+                                  ("plain_fp64", m64, "ref"))
+         for shape, split in shapes.items()}
+    torch.cuda.synchronize()
+    out = {path: {"one_microbatch_vs_a_microbatch_a_rank": apart(
+        g[path, "one_microbatch"], g[path, "a_microbatch_a_rank"])}
+        for path in ("kernels_fp32", "plain_fp32", "plain_fp64")}
+    for path in ("kernels_fp32", "plain_fp32"):
+        for shape in shapes:
+            out[path][f"{shape}_vs_plain_fp64"] = apart(
+                g[path, shape], g["plain_fp64", shape])
+    out["kernels_fp32_vs_plain_fp32_one_microbatch"] = apart(
+        g["kernels_fp32", "one_microbatch"], g["plain_fp32", "one_microbatch"])
+    emit({"phase": "tp_split_witness", "ok": True, "card": smi_line,
+          "config": f"{TP_ARCH} at published widths, {layers} of 40 layers, "
+                    f"global batch {b} x {s}, (a)'s init (seed {seed}), one "
+                    f"process on cuda:0",
+          **out, "seconds": round(time.perf_counter() - t0, 3)})
+    del g, m32, m64
+    torch.cuda.empty_cache()
+
+
+def tp_fp32_part(torch, mesh, seed, cfg) -> dict:
+    """(a): two ZeRO-1 steps, each against the one-process Trainer's step
+    from the same parameters (rank 0 holds them whole; the one-process
+    m and v are its own, equal to the mesh's but for the global clip's
+    rounding), then one compressed step against compress_and_sync's
+    arithmetic in one process on both ranks' factors.
+
+    The one-process Trainer runs with accum = TP_WORLD, each microbatch one
+    rank's rows, so that its products have the ranks' shapes: at these
+    widths the fp32 gradient of the whole batch in one microbatch moves
+    far past TP_LOSS_TOL from that of a microbatch a rank (the same
+    function; ``--tp-split-witness`` reads both against fp64)."""
+    import torch.distributed as dist
+
+    from repro_torch.models import build
+    from repro_torch.parallel import collectives as coll
+    from repro_torch.parallel import compression as pcomp
+    from repro_torch.train import AdamWConfig, DataConfig, Trainer, batch_at
+    from repro_torch.train.optimizer import adamw_update
+    from repro_torch.train.tree import get_path, items, map_tree
+    rank0 = dist.get_rank() == 0
+    _, b, s = TP_CHECK
+    opt = AdamWConfig(peak_lr=1e-2, warmup_steps=1, total_steps=10)
+    dc = DataConfig(vocab=cfg.vocab, seq_len=s, global_batch=b, seed=seed)
+    marks, t0 = {}, time.perf_counter()
+    model = build(cfg, device=mesh.device)
+    tr = Trainer(model, opt, mesh=mesh)
+    state = tr.init_state(torch.Generator(mesh.device).manual_seed(seed))
+    one_tr = one = None
+    if rank0:
+        one_tr = Trainer(build(cfg, device=mesh.device), opt, accum=TP_WORLD)
+        one = one_tr.init_state(torch.Generator(mesh.device).manual_seed(
+            seed))
+    marks["init"] = time.perf_counter() - t0
+    reads, worst = [], {}
+
+    def over(name, err, tol):
+        worst[name] = max(worst.get(name, 0.0), err / tol)
+    for step in range(2):
+        batch = batch_at(dc, step)
+        if rank0:
+            with torch.no_grad():
+                for (_, x), (_, y) in zip(items(one["params"]),
+                                          items(state["params"])):
+                    x.copy_(y)
+        state, m = tr.step(state, batch)
+        if rank0:
+            loss, _, grads = one_tr._grads(one["params"], batch)
+            _, _, om = adamw_update(one["params"], grads, one["opt"], opt)
+            del grads
+            read = {"step": step}
+            for k, want in (("loss", float(loss)),
+                            ("grad_norm", float(om["grad_norm"]))):
+                err = abs(float(m[k]) - want) / max(1.0, abs(want))
+                read[k] = [float(m[k]), want, err, TP_LOSS_TOL]
+                over(k, err, TP_LOSS_TOL)
+            reads.append(read)
+    marks["zero1_steps"] = time.perf_counter() - t0
+    sh = tr.state_shardings(state)
+    for mv in ("m", "v"):
+        for p, x in items(state["opt"][mv]):
+            full = coll.gather_sharded(x, get_path(sh["opt"][mv], p), "check")
+            if rank0:
+                over(mv, _tp_leaf_err(torch, full, get_path(one["opt"][mv],
+                                                            p)), TP_GRAD_TOL)
+            del full
+    if rank0:
+        lr = opt.peak_lr
+        for (p, x), (_, y) in zip(items(state["params"]),
+                                  items(one["params"])):
+            err = (x.detach().double() - y.detach().double()).abs()
+            held = get_path(one["opt"]["m"], p).abs()
+            held = held >= 1e-2 * held.max()
+            over("params_held", float(err[held].max()) if held.any()
+                 else 0.0, TP_STEP_TOL * lr)
+            over("params_all", float(err.max()), 2 * lr)
+        del one, one_tr
+    zero1_same = tp_replicas_equal(torch, mesh, state["params"])
+    marks["zero1_checks"] = time.perf_counter() - t0
+
+    # one compressed step, its compress_and_sync recorded
+    ctr = Trainer(model, opt, mesh=mesh,
+                  compression=pcomp.CompressionConfig(rank=TP_RANK))
+    del state
+    cstate = ctr.init_state(torch.Generator(mesh.device).manual_seed(seed))
+    seen = {}
+    real = pcomp.compress_and_sync
+
+    def recording(grads, st, ccfg, mesh_, axes):
+        seen["grads"] = map_tree(lambda g: g.detach().clone(), grads)
+        seen["state"] = st
+        out = real(grads, st, ccfg, mesh_, axes)
+        # AdamW rescales the synced gradients in place (the global clip)
+        seen["out"] = (map_tree(lambda g: g.detach().clone(), out[0]),
+                       *out[1:])
+        return out
+    pcomp.compress_and_sync = recording
+    try:
+        cstate, cm = ctr.step(cstate, batch_at(dc, 2))
+    finally:
+        pcomp.compress_and_sync = real
+    marks["compressed_step"] = time.perf_counter() - t0
+    ghat, new_comp, stats = seen["out"]
+    comp_read = {}
+
+    def both(x):
+        """The ranks' ``x`` stacked, on every rank."""
+        return coll.all_gather(x[None].contiguous(), mesh, ("data",), 0,
+                               "check")
+    for path, g in items(seen["grads"]):
+        st = get_path(seen["state"], path)
+        name = ".".join(path)
+        if st is None:
+            want = both(g).mean(0)
+            if rank0:
+                comp_read[name] = {"mean": _tp_leaf_err(
+                    torch, get_path(ghat, path), want)}
+            continue
+        gf = g.float() + st["err"][0]
+        p_ = torch.linalg.qr(both(torch.matmul(gf, st["q"])).mean(0))[0]
+        qn = both(torch.matmul(gf.mT, p_)).mean(0)
+        gh = torch.matmul(p_, qn.mT)
+        new = get_path(new_comp, path)
+        if rank0:
+            comp_read[name] = {
+                "ghat": _tp_leaf_err(torch, get_path(ghat, path), gh),
+                "q": _tp_leaf_err(torch, new["q"], qn),
+                "err": _tp_leaf_err(torch, new["err"][0], gf - gh)}
+        del gf, gh
+    if rank0:
+        for name, r in comp_read.items():
+            over("compress_and_sync", max(r.values()), TP_COMP_TOL)
+    comp_same = tp_replicas_equal(torch, mesh, cstate["params"])
+    marks["compressed_checks"] = time.perf_counter() - t0
+    del cstate, seen, ghat, new_comp, model, ctr, tr
+    return {"zero1_steps": reads, "zero1_replicas_bitwise": zero1_same,
+            "compressed_metrics": {k: float(v) for k, v in cm.items()},
+            "compression_ratio": stats["compression_ratio"],
+            "compress_and_sync_rel_err": comp_read,
+            "compressed_replicas_bitwise": comp_same,
+            "worst_err_over_tol": worst,
+            "seconds_at_end_of": marks}
+
+
+def tp_timed_part(torch, mesh, seed, cfg) -> dict:
+    """(b): TP_TIMED's steps, plain ZeRO-1 then compressed, each rank's
+    seconds a step, peak memory, collective bytes and host seconds in
+    them, and launches; the ranks' parameters bit for bit after each
+    step."""
+    from repro_torch.kernels import ops
+    from repro_torch.models import build
+    from repro_torch.parallel.compression import CompressionConfig
+    from repro_torch.train import AdamWConfig, DataConfig, Trainer, batch_at
+    _, b, s, steps = TP_TIMED
+    opt = AdamWConfig(peak_lr=1e-3, warmup_steps=1, total_steps=10)
+    dc = DataConfig(vocab=cfg.vocab, seq_len=s, global_batch=b, seed=seed)
+    model = build(cfg, device=mesh.device)
+    out = {}
+    for mode, compression in (("zero1", None),
+                              ("powersgd", CompressionConfig(rank=TP_RANK))):
+        tr = Trainer(model, opt, mesh=mesh, compression=compression)
+        state = tr.init_state(torch.Generator(mesh.device).manual_seed(seed))
+        if mesh.device.type == "cuda":
+            torch.cuda.empty_cache()
+            torch.cuda.reset_peak_memory_stats(mesh.device)
+        ops.reset_launch_counts()
+        lines = []
+        for step in range(steps):
+            batch = batch_at(dc, step)
+            mesh.traffic.clear()
+            _tp_sync(torch, mesh.device)
+            t0 = time.perf_counter()
+            state, m = tr.step(state, batch)
+            _tp_sync(torch, mesh.device)
+            dt = time.perf_counter() - t0
+            traffic = {k: dict(v) for k, v in mesh.traffic.items()}
+            lines.append({
+                "step": step, "s": dt, "loss": float(m["loss"]),
+                "grad_norm": float(m["grad_norm"]),
+                "tokens_per_s_this_rank": b * s / TP_WORLD / dt,
+                "collective_bytes": sum(v["bytes"] for v in
+                                        traffic.values()),
+                "collective_host_s": sum(v["seconds"] for v in
+                                         traffic.values()),
+                "collectives_by_site": traffic,
+                "compression_ratio": m.get("compression_ratio"),
+                "replicas_bitwise": tp_replicas_equal(torch, mesh,
+                                                      state["params"])})
+        counts = ops.launch_counts()
+        peak = (torch.cuda.max_memory_allocated(mesh.device) / 2 ** 30
+                if mesh.device.type == "cuda" else None)
+        out[mode] = {"steps": lines, "launches": counts, "peak_gib": peak}
+        del tr, state
+    del model
+    return out
+
+
+def train_parallel_rank(args, torch) -> int:
+    """One rank of the ``train_parallel`` phase: (a) then (b) on this
+    rank's card (cuda:0, shared), results to ``<--tp-out>/rank<r>.json``."""
+    import dataclasses
+    import datetime
+
+    import torch.distributed as dist
+
+    from repro_torch.configs import get_config
+    from repro_torch.launch.mesh import DIST_TIMEOUT_S, make_mesh
+    rank = args.train_parallel_rank
+    torch.backends.cuda.matmul.allow_tf32 = False
+    torch.backends.cudnn.allow_tf32 = False
+    dist.init_process_group(
+        "gloo", init_method=f"tcp://127.0.0.1:{args.tp_port}",
+        world_size=TP_WORLD, rank=rank,
+        timeout=datetime.timedelta(seconds=DIST_TIMEOUT_S))
+    try:
+        mesh = make_mesh((TP_WORLD,), ("data",))
+        full = get_config(TP_ARCH)
+        t0 = time.perf_counter()
+        fp32 = tp_fp32_part(torch, mesh, args.seed, dataclasses.replace(
+            full, n_layers=TP_CHECK[0], dtype="float32"))
+        t1 = time.perf_counter()
+        timed = tp_timed_part(torch, mesh, args.seed, dataclasses.replace(
+            full, n_layers=TP_TIMED[0]))
+        out = {"rank": rank, "device": str(mesh.device),
+               "fp32": fp32, "timed": timed,
+               "fp32_s": t1 - t0, "timed_s": time.perf_counter() - t1}
+        Path(args.tp_out, f"rank{rank}.json").write_text(json.dumps(out))
+    finally:
+        dist.destroy_process_group()
+    return 0
+
+
+def train_parallel_phase(args, torch, smi_line: str,
+                         main_counts: dict | None = None) -> dict:
+    """Two processes of this script train on cuda:0 over gloo
+    (``train_parallel_rank``); the phase fails on any mismatch, collective
+    error or timeout, and stops both.  Adds their launches to
+    ``main_counts``."""
+    import socket
+    import tempfile
+
+    t0 = time.perf_counter()
+    torch.cuda.empty_cache()
+    tmp = tempfile.TemporaryDirectory()
+    with socket.socket() as sock:
+        sock.bind(("127.0.0.1", 0))
+        port = sock.getsockname()[1]
+    logs = [open(Path(tmp.name, f"rank{r}.log"), "w+")
+            for r in range(TP_WORLD)]
+    procs = [subprocess.Popen(
+        [sys.executable, str(ROOT / "chip_smoke.py"), "--seed",
+         str(args.seed), "--train-parallel-rank", str(r), "--tp-port",
+         str(port), "--tp-out", tmp.name], stdout=logs[r],
+        stderr=subprocess.STDOUT) for r in range(TP_WORLD)]
+    try:
+        deadline = time.monotonic() + TP_TIMEOUT_S
+        while any(p.poll() is None for p in procs):
+            failed = [p for p in procs if p.poll() not in (None, 0)]
+            if failed or time.monotonic() > deadline:
+                break
+            time.sleep(0.2)
+    finally:
+        for p in procs:
+            if p.poll() is None:
+                p.kill()
+            p.wait()
+    tails = []
+    for log in logs:
+        log.seek(0)
+        tails.append(log.read()[-3000:])
+        log.close()
+    rcs = [p.returncode for p in procs]
+    check(rcs == [0] * TP_WORLD,
+          f"train_parallel: ranks exited {rcs} (timeout {TP_TIMEOUT_S} s):\n"
+          + "\n".join(tails))
+    ranks = [json.loads(Path(tmp.name, f"rank{r}.json").read_text())
+             for r in range(TP_WORLD)]
+    tmp.cleanup()
+    tp_report(ranks, smi_line, main_counts)
+    seconds = time.perf_counter() - t0
+    emit({"phase": "train_parallel", "ok": True, "seconds": round(seconds, 3),
+          "rank_seconds": [[r["fp32_s"], r["timed_s"]] for r in ranks]})
+    return {"seconds": seconds}
+
+
+def tp_report(ranks: list, smi_line: str, main_counts: dict | None) -> None:
+    """The ranks' readings: the checks of (a) and (b), one JSON line each;
+    the ranks' launches added to ``main_counts``."""
+    fp32 = ranks[0]["fp32"]
+    worst = fp32["worst_err_over_tol"]
+    ok_a = (all(v <= 1.0 for v in worst.values())
+            and all(r["fp32"]["zero1_replicas_bitwise"]
+                    and r["fp32"]["compressed_replicas_bitwise"]
+                    for r in ranks))
+    layers, b, s = TP_CHECK
+    emit({"phase": "train_parallel_fp32", "ok": ok_a, "card": smi_line,
+          "config": f"{TP_ARCH} at published widths, {layers} of 40 layers, "
+                    f"fp32, global batch {b} x {s}, {TP_WORLD} ranks on "
+                    f"cuda:0 over gloo",
+          "tolerances": {"loss_grad_norm": TP_LOSS_TOL, "m_v": TP_GRAD_TOL,
+                         "params_held_over_lr": TP_STEP_TOL,
+                         "params_all_over_lr": 2.0,
+                         "compress_and_sync": TP_COMP_TOL},
+          **fp32, "seconds_by_rank": [r["fp32_s"] for r in ranks]})
+    check(ok_a, f"train_parallel fp32: worst reading over its tolerance "
+          f"{worst}, or a replica differs")
+    layers, b, s, steps = TP_TIMED
+    micro = layers * steps
+    expect = {"flash_attention_wgmma": 2 * micro,
+              "flash_attention_bwd_wgmma": micro}
+    per_rank = []
+    for r in ranks:
+        for mode, t in r["timed"].items():
+            lines = t["steps"]
+            steady = [ln["s"] for ln in lines[1:]] or [lines[0]["s"]]
+            per_rank.append({
+                "rank": r["rank"], "mode": mode,
+                "s_per_step": [ln["s"] for ln in lines],
+                "tokens_per_s_this_rank_after_first":
+                    b * s / TP_WORLD / (sum(steady) / len(steady)),
+                "peak_gib": t["peak_gib"],
+                "collective_bytes_per_step": [ln["collective_bytes"]
+                                              for ln in lines],
+                "collective_host_s_per_step": [ln["collective_host_s"]
+                                               for ln in lines],
+                "collectives_by_site_last_step": lines[-1][
+                    "collectives_by_site"],
+                "compression_ratio": lines[-1]["compression_ratio"],
+                "loss": [ln["loss"] for ln in lines],
+                "replicas_bitwise": [ln["replicas_bitwise"] for ln in lines],
+                "launches": {k: t["launches"][k] for k in expect}})
+            check(all(ln["replicas_bitwise"] for ln in lines),
+                  f"train_parallel {mode}: the ranks' parameters differ")
+            check(all(math.isfinite(ln["loss"]) for ln in lines),
+                  f"train_parallel {mode}: a loss is not finite")
+            check(all(t["launches"][k] == n for k, n in expect.items()),
+                  f"train_parallel {mode} rank {r['rank']}: expected "
+                  f"{expect}, got {t['launches']}")
+            if main_counts is not None:
+                for k, v in t["launches"].items():
+                    main_counts[k] += v
+    emit({"phase": "train_parallel_bf16", "ok": True, "card": smi_line,
+          "config": f"{TP_ARCH} at published widths, {layers} of 40 layers "
+                    f"(two ranks' fp32 m, v and error feedback at 40 "
+                    f"layers pass 80 GB), bf16, global batch {b} x {s} "
+                    f"({b // TP_WORLD} a rank), {steps} steps of plain "
+                    f"ZeRO-1 and of PowerSGD rank {TP_RANK}, {TP_WORLD} "
+                    f"ranks on cuda:0 over gloo (no NCCL: one card; says "
+                    f"nothing of several cards)",
+          "expected_launches_per_rank": expect, "by_rank": per_rank})
+
+
 def bwd_times(args, torch) -> int:
     """``--bwd-times TREE``: this tree's ``flash_attn_bwd.cu`` against the
     one under TREE (another commit's checkout), both built here, on one card
@@ -6446,6 +6996,7 @@ def run(args, torch) -> int:
 
     # ---- training: the flash backward, granite-3-2b, the restart drill --
     trained = train_phase(args, torch, drive, gen, smi_line)
+    train_parallel_phase(args, torch, smi_line, main_counts)
     timing.update(trained["timing"])
     worst.update(trained["worst"])
     main_err.update(trained["main_err"])

@@ -18,19 +18,31 @@ Gloo, because the fabric runs no device collective, and NCCL refuses two
 ranks on one card.  Like every function here, importing this module
 touches no device.
 
-The reference's ``make_production_mesh`` and ``rules_for`` belong to its
-``parallel/`` package, which the port does not have yet.
+Training across processes has a mesh of its own, :class:`ProcessMesh`:
+named axes over the ranks of the default process group (``"data"``,
+``"pod"``, ``"model"``), each rank's coordinates on them, one subgroup per
+axis for ``parallel.collectives``, and the rank's device.
+:func:`make_mesh` builds one, :func:`make_production_mesh` the reference's
+(16, 16) and (2, 16, 16) meshes, and :func:`rules_for` the sharding rules
+of a mesh (``parallel.sharding``).
 """
 
 from __future__ import annotations
 
+import dataclasses
 import datetime
+import math
 import os
 import warnings
 
+import numpy as np
 import torch
 
-__all__ = ["DeviceMesh", "serve_mesh", "init_distributed"]
+from repro_torch.parallel.sharding import (DEFAULT_RULES, MULTIPOD_RULES,
+                                           AxisRules)
+
+__all__ = ["DeviceMesh", "serve_mesh", "init_distributed", "ProcessMesh",
+           "make_mesh", "make_production_mesh", "rules_for"]
 
 # how long the rendezvous waits for the other processes: the process
 # group's own default would block for 30 minutes on a missing peer
@@ -132,3 +144,76 @@ def init_distributed(*, coordinator: str | None = None,
                       f"(serving single-process): {exc!r}", stacklevel=2)
         return False
     return True
+
+
+class ProcessMesh:
+    """Named axes over the ranks of the default process group.
+
+    Rank r sits at the row-major coordinates of r in ``shape`` (the last
+    axis fastest, as the reference's ``jax.make_mesh`` lays devices out).
+    ``shape`` is {axis: size}, ``coords`` {axis: this rank's coordinate};
+    ``group(axis)`` is the subgroup of the ranks that differ from this one
+    on ``axis`` only.  ``device`` is this rank's card (``cuda:<rank mod
+    cards>``) unless the caller passes one (``device="cpu"``).
+    ``traffic`` is {call site: {"calls", "bytes", "seconds"}}, what
+    ``parallel.collectives`` handed the backend from this rank and the
+    host's time in its calls.
+
+    Every rank must build the same meshes in the same order: each builds
+    its subgroups, a collective call."""
+
+    def __init__(self, shape, axes, device=None):
+        import torch.distributed as dist
+        sizes = tuple(int(n) for n in shape)
+        axes = tuple(axes)
+        if len(sizes) != len(axes) or len(set(axes)) != len(axes):
+            raise ValueError(f"mesh shape {sizes} and axes {axes} do not "
+                             f"pair up")
+        world, rank = dist.get_world_size(), dist.get_rank()
+        if math.prod(sizes) != world:
+            raise ValueError(f"a mesh of shape {dict(zip(axes, sizes))} "
+                             f"needs {math.prod(sizes)} processes; the "
+                             f"process group has {world}")
+        self.shape = dict(zip(axes, sizes))
+        self.coords = {a: int(c) for a, c in
+                       zip(axes, np.unravel_index(rank, sizes))}
+        self.rank = rank
+        grid = np.arange(world).reshape(sizes)
+        self._groups = {}
+        for i, axis in enumerate(axes):
+            for ranks in np.moveaxis(grid, i, -1).reshape(-1, sizes[i]):
+                group = dist.new_group(ranks.tolist())
+                if rank in ranks:
+                    self._groups[axis] = group
+        if device is None:
+            from repro_torch.kernels.ops import check_device
+            check_device("cuda")
+            device = torch.device("cuda", rank % torch.cuda.device_count())
+        self.device = torch.device(device)
+        self.traffic: dict[str, dict] = {}
+
+    def group(self, axis: str):
+        return self._groups[axis]
+
+    def __repr__(self) -> str:
+        return (f"ProcessMesh({self.shape}, rank {self.rank} at "
+                f"{self.coords}, {self.device})")
+
+
+def make_mesh(shape, axes, device=None) -> ProcessMesh:
+    """A :class:`ProcessMesh` of ``shape`` over ``axes``."""
+    return ProcessMesh(shape, axes, device=device)
+
+
+def make_production_mesh(*, multi_pod: bool = False) -> ProcessMesh:
+    """(16, 16) = (data, model) single pod; (2, 16, 16) = (pod, data,
+    model) for the 2-pod, 512-chip production target.  Raises
+    ``ValueError`` unless the process group has that many ranks."""
+    shape = (2, 16, 16) if multi_pod else (16, 16)
+    axes = ("pod", "data", "model") if multi_pod else ("data", "model")
+    return make_mesh(shape, axes)
+
+
+def rules_for(mesh) -> AxisRules:
+    base = MULTIPOD_RULES if "pod" in mesh.shape else DEFAULT_RULES
+    return dataclasses.replace(base, mesh=mesh)

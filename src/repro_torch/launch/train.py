@@ -9,8 +9,11 @@ the spectral monitor (the paper's SVD pipeline on the card's kernels) ->
 checkpoints.  ``--smoke`` takes the reduced config; otherwise the full
 published one.  Prints one JSON line per logged step ({"step", "loss",
 "grad_norm", "lr"[, "sigma0"]}), then ``done: N steps in T s (R it/s)``.
-``--compress-rank`` (PowerSGD) belongs to ``parallel/``, ROADMAP Queue 1
-item 12.3, and raises until it is ported.
+``--compress-rank N`` hands ``CompressionConfig(rank=N)`` to the Trainer,
+as the reference's launcher does; like the reference's, this launcher
+builds no mesh, so the Trainer refuses it (``ValueError``: PowerSGD needs
+``mesh=``).  Data-parallel runs build a ``launch.mesh.ProcessMesh`` and
+a ``Trainer(mesh=...)`` themselves (``chip_smoke.py --train-parallel``).
 
 The final checkpoint is written once: where the loop's last step saved it
 (``--save-every`` dividing ``--steps``), the reference writes the same
@@ -30,6 +33,7 @@ import torch
 
 from repro_torch.configs.base import get_config, smoke_of
 from repro_torch.models import build
+from repro_torch.parallel.compression import CompressionConfig
 from repro_torch.train import (AdamWConfig, DataConfig, StragglerMonitor,
                                Trainer, batch_at, checkpoint)
 from repro_torch.train.spectral import SpectralMonitor, SpectralMonitorConfig
@@ -54,18 +58,13 @@ def main(argv=None) -> dict:
     ap.add_argument("--spectral-every", type=int, default=0,
                     help="refresh spectral monitor every N steps (0=off)")
     ap.add_argument("--compress-rank", type=int, default=0,
-                    help="PowerSGD gradient compression rank (0=off; not "
-                    "ported yet)")
+                    help="PowerSGD gradient compression rank (0=off)")
     ap.add_argument("--log-every", type=int, default=10)
     ap.add_argument("--device", default="cuda",
                     help="where the model trains (default the card)")
     ap.add_argument("--seed", type=int, default=0,
                     help="seed of the parameters' init generator")
     args = ap.parse_args(argv)
-    if args.compress_rank:
-        raise NotImplementedError(
-            "--compress-rank: PowerSGD compression is ROADMAP Queue 1 item "
-            "12.3 (parallel/), not ported yet")
 
     cfg = smoke_of(args.arch) if args.smoke else get_config(args.arch)
     model = build(cfg, device=args.device)
@@ -73,7 +72,9 @@ def main(argv=None) -> dict:
     opt = AdamWConfig(peak_lr=args.lr, warmup_steps=min(20, args.steps // 10 + 1),
                       total_steps=args.steps,
                       spectral_clip=2.0 if args.spectral_every else 0.0)
-    trainer = Trainer(model, opt, accum=args.accum)
+    compression = (CompressionConfig(rank=args.compress_rank)
+                   if args.compress_rank else None)
+    trainer = Trainer(model, opt, accum=args.accum, compression=compression)
     dc = DataConfig(vocab=cfg.vocab, seq_len=args.seq,
                     global_batch=args.batch, seed=17)
     monitor = (SpectralMonitor(SpectralMonitorConfig(every=args.spectral_every,

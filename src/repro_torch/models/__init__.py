@@ -3,6 +3,6 @@
 encoder-decoder) with the full-sequence path, causal self-attention
 through the flash-attention kernel, and one-token decode against the
 caches."""
-from repro_torch.models.zoo import Model, build
+from repro_torch.models.zoo import Model, batch_logical, build
 
-__all__ = ["Model", "build"]
+__all__ = ["Model", "build", "batch_logical"]

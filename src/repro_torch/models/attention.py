@@ -20,15 +20,15 @@ NEG_INF = -1e30
 def attn_params(cfg, dtype) -> dict:
     d, hd, nh, nkv = cfg.d_model, cfg.head_dim, cfg.n_heads, cfg.n_kv
     p = {
-        "wq": param((d, nh * hd), dtype),
-        "wk": param((d, nkv * hd), dtype),
-        "wv": param((d, nkv * hd), dtype),
-        "wo": param((nh * hd, d), dtype),
+        "wq": param((d, nh * hd), dtype, (None, "heads")),
+        "wk": param((d, nkv * hd), dtype, (None, "kv_heads")),
+        "wv": param((d, nkv * hd), dtype, (None, "kv_heads")),
+        "wo": param((nh * hd, d), dtype, ("heads", None)),
     }
     if cfg.qkv_bias:
-        p["bq"] = param((nh * hd,), dtype, init="zeros")
-        p["bk"] = param((nkv * hd,), dtype, init="zeros")
-        p["bv"] = param((nkv * hd,), dtype, init="zeros")
+        p["bq"] = param((nh * hd,), dtype, ("heads",), init="zeros")
+        p["bk"] = param((nkv * hd,), dtype, ("kv_heads",), init="zeros")
+        p["bv"] = param((nkv * hd,), dtype, ("kv_heads",), init="zeros")
     return p
 
 

@@ -29,10 +29,10 @@ __all__ = ["encdec_param_specs", "encode", "encdec_forward",
 
 
 def _mlp_p(d, f, dtype):
-    return {"wi": param((d, f), dtype),
-            "bi": param((f,), dtype, init="zeros"),
-            "wo": param((f, d), dtype),
-            "bo": param((d,), dtype, init="zeros")}
+    return {"wi": param((d, f), dtype, (None, "dff")),
+            "bi": param((f,), dtype, ("dff",), init="zeros"),
+            "wo": param((f, d), dtype, ("dff", None)),
+            "bo": param((d,), dtype, (None,), init="zeros")}
 
 
 def _mlp(x, p):
@@ -43,10 +43,10 @@ def _mlp(x, p):
 
 def _xattn_p(cfg, dtype):
     d, hd, nh, nkv = cfg.d_model, cfg.head_dim, cfg.n_heads, cfg.n_kv
-    return {"wq": param((d, nh * hd), dtype),
-            "wk": param((d, nkv * hd), dtype),
-            "wv": param((d, nkv * hd), dtype),
-            "wo": param((nh * hd, d), dtype)}
+    return {"wq": param((d, nh * hd), dtype, (None, "heads")),
+            "wk": param((d, nkv * hd), dtype, (None, "kv_heads")),
+            "wv": param((d, nkv * hd), dtype, (None, "kv_heads")),
+            "wo": param((nh * hd, d), dtype, ("heads", None))}
 
 
 def _enc_layer_p(cfg, dtype):
@@ -73,7 +73,7 @@ def encdec_param_specs(cfg) -> dict:
         "enc_norm": nn.rmsnorm_p(d, dtype),
         "dec_layers": _stack(_dec_layer_p(cfg, dtype), cfg.n_layers),
         "final_norm": nn.rmsnorm_p(d, dtype),
-        "lm_head": param((d, cfg.padded_vocab), dtype),
+        "lm_head": param((d, cfg.padded_vocab), dtype, (None, "vocab")),
     }
 
 

@@ -2,11 +2,13 @@
 after the reference's ``models/modules.py``.
 
 Every parameter is declared through ``param(...)``, which records its shape,
-dtype and init rule; ``init_tree`` materializes a tree of them from an
-explicit ``torch.Generator`` on an explicit device.  Weights keep the
+dtype, *logical sharding axes* and init rule; ``init_tree`` materializes a
+tree of them from an explicit ``torch.Generator`` on an explicit device,
+and ``logical_tree`` and ``shape_tree`` extract the matching trees of
+logical axes and shapes, from which ``parallel.sharding`` places each
+parameter and its optimizer state on a process mesh.  Weights keep the
 reference's layout, (in, out), so ``x @ w`` is a plain ``torch.matmul`` and
-the reference's weights carry across without a transpose.  The reference's
-logical sharding axes are left out: nothing here shards.
+the reference's weights carry across without a transpose.
 """
 
 from __future__ import annotations
@@ -17,8 +19,9 @@ import math
 import torch
 import torch.nn.functional as F
 
-__all__ = ["ParamSpec", "param", "spec_items", "init_tree", "dense",
-           "rmsnorm_p", "rmsnorm", "embedding_p", "swiglu_p", "swiglu"]
+__all__ = ["ParamSpec", "param", "spec_items", "init_tree", "logical_tree",
+           "shape_tree", "dense", "rmsnorm_p", "rmsnorm", "embedding_p",
+           "swiglu_p", "swiglu"]
 
 _CHUNK = 1 << 26     # elements drawn at once, so the fp32 draw stays small
 
@@ -27,6 +30,7 @@ _CHUNK = 1 << 26     # elements drawn at once, so the fp32 draw stays small
 class ParamSpec:
     shape: tuple[int, ...]
     dtype: torch.dtype
+    logical: tuple[str | None, ...]
     init: str = "normal"              # normal | zeros | ones | scaled
     scale: float = 1.0
 
@@ -58,8 +62,9 @@ class ParamSpec:
         return out
 
 
-def param(shape, dtype, init="scaled", scale=1.0) -> ParamSpec:
-    return ParamSpec(tuple(shape), dtype, init, scale)
+def param(shape, dtype, logical, init="scaled", scale=1.0) -> ParamSpec:
+    assert len(logical) == len(shape), (shape, logical)
+    return ParamSpec(tuple(shape), dtype, tuple(logical), init, scale)
 
 
 def spec_items(spec_tree, prefix: str = ""):
@@ -87,6 +92,21 @@ def init_tree(spec_tree, generator: torch.Generator, device) -> dict:
     return out
 
 
+def _map_specs(fn, spec_tree) -> dict:
+    return {k: fn(v) if isinstance(v, ParamSpec) else _map_specs(fn, v)
+            for k, v in spec_tree.items()}
+
+
+def logical_tree(spec_tree) -> dict:
+    """The nested dict of each parameter's logical axes."""
+    return _map_specs(lambda s: s.logical, spec_tree)
+
+
+def shape_tree(spec_tree) -> dict:
+    """The nested dict of each parameter's shape."""
+    return _map_specs(lambda s: s.shape, spec_tree)
+
+
 # ---------------------------------------------------------------------------
 # primitive layers (functional)
 # ---------------------------------------------------------------------------
@@ -102,7 +122,7 @@ def dense(x: torch.Tensor, w: torch.Tensor,
 
 
 def rmsnorm_p(d: int, dtype) -> ParamSpec:
-    return param((d,), dtype, init="ones")
+    return param((d,), dtype, (None,), init="ones")
 
 
 def rmsnorm(x: torch.Tensor, g: torch.Tensor, eps: float = 1e-5) -> torch.Tensor:
@@ -112,13 +132,13 @@ def rmsnorm(x: torch.Tensor, g: torch.Tensor, eps: float = 1e-5) -> torch.Tensor
 
 
 def embedding_p(vocab: int, d: int, dtype) -> ParamSpec:
-    return param((vocab, d), dtype, init="normal")
+    return param((vocab, d), dtype, ("vocab", None), init="normal")
 
 
 def swiglu_p(d: int, f: int, dtype) -> dict:
     return {
-        "wi": param((d, 2 * f), dtype),       # gate+up fused
-        "wo": param((f, d), dtype),
+        "wi": param((d, 2 * f), dtype, (None, "dff")),    # gate+up fused
+        "wo": param((f, d), dtype, ("dff", None)),
     }
 
 

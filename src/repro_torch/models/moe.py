@@ -23,9 +23,10 @@ __all__ = ["moe_params", "moe_ffn"]
 def moe_params(cfg, dtype) -> dict:
     d, f, e = cfg.d_model, cfg.d_ff, cfg.n_experts
     p = {
-        "router": param((d, e), torch.float32),     # fp32 at every dtype
-        "wi": param((e, d, 2 * f), dtype),
-        "wo": param((e, f, d), dtype),
+        "router": param((d, e), torch.float32,     # fp32 at every dtype
+                        (None, "expert")),
+        "wi": param((e, d, 2 * f), dtype, ("expert", None, "dff")),
+        "wo": param((e, f, d), dtype, ("expert", "dff", None)),
     }
     if cfg.n_shared_experts:
         p["shared"] = nn.swiglu_p(d, f * cfg.n_shared_experts, dtype)

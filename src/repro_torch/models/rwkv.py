@@ -32,23 +32,24 @@ def rwkv_params(cfg, dtype) -> dict:
     f32 = torch.float32                          # fp32 at every model dtype
     return {
         "tm": {
-            "mu": param((5, d), dtype, init="zeros"),     # r, k, v, w, g
-            "wr": param((d, d), dtype),
-            "wk": param((d, d), dtype),
-            "wv": param((d, d), dtype),
-            "wg": param((d, d), dtype),
-            "w0": param((d,), f32, init="zeros"),
-            "w_a": param((d, _LORA), dtype),
-            "w_b": param((_LORA, d), dtype, init="zeros"),
-            "u": param((d,), f32, init="zeros"),
-            "ln_g": param((d,), dtype, init="ones"),
-            "wo": param((d, d), dtype),
+            "mu": param((5, d), dtype, (None, None),   # r, k, v, w, g
+                        init="zeros"),
+            "wr": param((d, d), dtype, (None, "heads")),
+            "wk": param((d, d), dtype, (None, "heads")),
+            "wv": param((d, d), dtype, (None, "heads")),
+            "wg": param((d, d), dtype, (None, "heads")),
+            "w0": param((d,), f32, (None,), init="zeros"),
+            "w_a": param((d, _LORA), dtype, (None, None)),
+            "w_b": param((_LORA, d), dtype, (None, None), init="zeros"),
+            "u": param((d,), f32, (None,), init="zeros"),
+            "ln_g": param((d,), dtype, (None,), init="ones"),
+            "wo": param((d, d), dtype, ("heads", None)),
         },
         "cm": {
-            "mu": param((2, d), dtype, init="zeros"),
-            "wk": param((d, f), dtype),
-            "wv": param((f, d), dtype),
-            "wr": param((d, d), dtype),
+            "mu": param((2, d), dtype, (None, None), init="zeros"),
+            "wk": param((d, f), dtype, (None, "dff")),
+            "wv": param((f, d), dtype, ("dff", None)),
+            "wr": param((d, d), dtype, (None, None)),
         },
     }
 

@@ -91,16 +91,16 @@ def mamba_params(cfg, dtype) -> dict:
     n = cfg.ssm_state
     f32 = torch.float32                          # fp32 at every model dtype
     return {
-        "in_proj": param((d, 2 * di), dtype),
-        "conv_w": param((cfg.ssm_conv, di), dtype),
-        "conv_b": param((di,), dtype, init="zeros"),
-        "w_b": param((di, n), dtype),            # x -> B (input gate)
-        "w_c": param((di, n), dtype),            # x -> C (output gate)
-        "w_dt": param((di, 1), dtype),
-        "dt_bias": param((di,), f32, init="zeros"),
-        "a_log": param((di, n), f32, init="ones"),
-        "d_skip": param((di,), f32, init="ones"),
-        "out_proj": param((di, d), dtype),
+        "in_proj": param((d, 2 * di), dtype, (None, "dff")),
+        "conv_w": param((cfg.ssm_conv, di), dtype, (None, "dff")),
+        "conv_b": param((di,), dtype, ("dff",), init="zeros"),
+        "w_b": param((di, n), dtype, ("dff", None)),    # x -> B (input gate)
+        "w_c": param((di, n), dtype, ("dff", None)),    # x -> C (output gate)
+        "w_dt": param((di, 1), dtype, ("dff", None)),
+        "dt_bias": param((di,), f32, ("dff",), init="zeros"),
+        "a_log": param((di, n), f32, ("dff", None), init="ones"),
+        "d_skip": param((di,), f32, ("dff",), init="ones"),
+        "out_proj": param((di, d), dtype, ("dff", None)),
     }
 
 

@@ -58,8 +58,8 @@ def _layer_specs(cfg, dtype) -> dict:
 
 def _stack(tree, n_layers: int):
     if isinstance(tree, nn.ParamSpec):
-        return param((n_layers,) + tree.shape, tree.dtype, init=tree.init,
-                     scale=tree.scale)
+        return param((n_layers,) + tree.shape, tree.dtype,
+                     (None,) + tree.logical, init=tree.init, scale=tree.scale)
     return {k: _stack(v, n_layers) for k, v in tree.items()}
 
 
@@ -77,7 +77,8 @@ def decoder_param_specs(cfg) -> dict:
         "final_norm": nn.rmsnorm_p(d, dtype),
     }
     if not cfg.tie_embeddings:
-        specs["lm_head"] = param((d, cfg.padded_vocab), dtype)
+        specs["lm_head"] = param((d, cfg.padded_vocab), dtype,
+                                 (None, "vocab"))
     return specs
 
 

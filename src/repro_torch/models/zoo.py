@@ -28,7 +28,7 @@ from repro_torch.models import encdec as ed
 from repro_torch.models import modules as nn
 from repro_torch.models import transformer as tf
 
-__all__ = ["Model", "build"]
+__all__ = ["Model", "build", "batch_logical"]
 
 
 class _Tree(tnn.Module):
@@ -78,6 +78,13 @@ class Model(_Tree):
     # ---- parameters -------------------------------------------------------
     def param_specs(self) -> dict:
         return _param_specs(self.cfg)
+
+    def param_logical(self) -> dict:
+        """Each parameter's logical sharding axes (``parallel.sharding``)."""
+        return nn.logical_tree(self.param_specs())
+
+    def param_shapes(self) -> dict:
+        return nn.shape_tree(self.param_specs())
 
     @property
     def params(self) -> dict:
@@ -197,3 +204,19 @@ class Model(_Tree):
 
 def build(cfg, device="cuda") -> Model:
     return Model(cfg, device=device)
+
+
+def batch_logical(cfg, suite) -> dict:
+    """Logical sharding of each batch input of a shape suite (the batch
+    axis over the data-parallel ranks)."""
+    if suite.mode == "decode":
+        return {"token": ("batch", None)}
+    out = {"tokens": ("batch", None)}
+    if suite.mode == "train":
+        out["labels"] = ("batch", None)
+        out["mask"] = ("batch", None)
+    if cfg.kind == "encdec":
+        out["frames"] = ("batch", None, None)
+    if cfg.n_img_tokens:
+        out["images"] = ("batch", None, None)
+    return out

@@ -14,7 +14,17 @@ other leaf is stored in its own dtype.
 
 ``restore`` loads into the template's tensors in place (a model's
 parameters stay the tensors the model holds) and casts each stored array
-to the template leaf's dtype, as the reference's ``astype`` does.
+to the template leaf's dtype, as the reference's ``astype`` does.  None
+leaves (PowerSGD's state of an uncompressed leaf) are not stored, as the
+reference's pytree flattening drops them.
+
+Under a process mesh (``shardings=``, ``Trainer.state_shardings``) ``save``
+gathers each sharded leaf (ZeRO-1's m and v, PowerSGD's error-feedback
+rows) to its global array and rank 0 writes the reference's layout;
+``restore`` copies each rank's block of the global arrays into the
+template: the elastic re-shard of the reference's ``restore``, so a
+checkpoint written on one process resumes on a mesh and the other way
+round.
 """
 
 from __future__ import annotations
@@ -26,8 +36,10 @@ import threading
 
 import numpy as np
 import torch
+import torch.distributed as dist
 
-from repro_torch.train.tree import items
+from repro_torch.parallel import collectives as coll
+from repro_torch.train.tree import get_path, items
 
 __all__ = ["save", "restore", "latest_step", "AsyncCheckpointer"]
 
@@ -35,12 +47,18 @@ _SEP = "|"
 _BF16 = "__bfloat16__"
 
 
-def _flatten(tree) -> dict:
+def _flatten(tree, shardings=None) -> dict:
     """{key path joined by "|": numpy array} on the host; bf16 leaves as
-    their int16 bits, listed under ``__bfloat16__``."""
+    their int16 bits, listed under ``__bfloat16__``; with ``shardings``,
+    each sharded leaf gathered to its global array first."""
     out, bf16 = {}, []
     for path, leaf in items(tree):
+        if leaf is None:
+            continue
         key = _SEP.join(str(p) for p in path)
+        sh = get_path(shardings, path) if shardings is not None else None
+        if sh is not None and sh.dims():
+            leaf = coll.gather_sharded(leaf.detach(), sh, "checkpoint")
         leaf = leaf.detach().cpu()
         if leaf.dtype == torch.bfloat16:
             bf16.append(key)
@@ -74,10 +92,19 @@ def _save_flat(ckpt_dir: str, step: int, flat: dict, keep: int) -> str:
     return final
 
 
-def save(ckpt_dir: str, step: int, state: dict, *, keep: int = 3) -> str:
+def save(ckpt_dir: str, step: int, state: dict, *, keep: int = 3,
+         shardings=None) -> str:
     """Atomically persist ``state`` (nested dicts of tensors) for ``step``;
-    prune all but the newest ``keep``."""
-    return _save_flat(ckpt_dir, step, _flatten(state), keep)
+    prune all but the newest ``keep``.  With ``shardings`` every rank of
+    the mesh calls it: the sharded leaves are gathered, rank 0 writes, and
+    every rank returns once the checkpoint is complete."""
+    flat = _flatten(state, shardings)
+    final = os.path.join(ckpt_dir, f"step_{step:08d}")
+    if shardings is None or dist.get_rank() == 0:
+        final = _save_flat(ckpt_dir, step, flat, keep)
+    if shardings is not None:
+        dist.barrier()
+    return final
 
 
 def _prune(ckpt_dir: str, keep: int):
@@ -104,18 +131,26 @@ def latest_step(ckpt_dir: str) -> int | None:
 
 
 @torch.no_grad()
-def restore(ckpt_dir: str, step: int, template: dict) -> dict:
+def restore(ckpt_dir: str, step: int, template: dict,
+            shardings=None) -> dict:
     """Load ``step`` into the tensors of ``template`` in place, each cast
-    to its template leaf's dtype; returns ``template``."""
+    to its template leaf's dtype; returns ``template``.  With
+    ``shardings`` (keyed as ``template``) a leaf takes this rank's block of
+    the stored array."""
     path = os.path.join(ckpt_dir, f"step_{step:08d}", "state.npz")
     with np.load(path) as z:
         loaded = {k: z[k] for k in z.files}
     bf16 = set(loaded.pop(_BF16, np.array([], dtype=str)).tolist())
     for pathk, leaf in items(template):
+        if leaf is None:
+            continue
         key = _SEP.join(str(p) for p in pathk)
         src = torch.from_numpy(loaded[key])
         if key in bf16:
             src = src.view(torch.bfloat16)
+        sh = get_path(shardings, pathk) if shardings is not None else None
+        if sh is not None:
+            src = sh.take(src)
         leaf.copy_(src.to(leaf.dtype))
     return template
 

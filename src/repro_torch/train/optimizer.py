@@ -8,7 +8,9 @@ keyed as the parameters are.
 
 ``adamw_update`` updates the parameters, m and v in place (the reference
 donates them to its jitted step, so the values are the same) and walks each
-leaf in chunks, so that its fp32 temporaries stay at a chunk's size.
+leaf in chunks, so that its fp32 temporaries stay at a chunk's size.  Under
+ZeRO-1 it updates each rank's block of m, v and the parameters (the
+reference states ZeRO-1 as shardings and lets GSPMD slice the same update).
 ``spectral_clip`` takes per-leaf sigma_max from ``train.spectral``'s
 monitor: the paper's SVD pipeline on the parameters.
 """
@@ -112,7 +114,8 @@ def _spectral_factor(cfg: AdamWConfig, sig: torch.Tensor, ndim: int):
 
 @torch.no_grad()
 def adamw_update(params, grads, state, cfg: AdamWConfig,
-                 sigma_tree: Any | None = None):
+                 sigma_tree: Any | None = None, *, slices=None,
+                 reduce_sq=None):
     """One AdamW step, in place.  Returns (params, state, metrics {"lr",
     "grad_norm"}), the same params and state objects updated.
 
@@ -122,19 +125,39 @@ def adamw_update(params, grads, state, cfg: AdamWConfig,
     ``cfg.spectral_clip > 0`` each gradient leaf of >= 2 dims is rescaled
     by min(1, spectral_clip * sigma / sigma), as the reference does.  The
     global norm (reported as "grad_norm") is taken after that and before
-    the global clip."""
+    the global clip.
+
+    ZeRO-1: ``slices`` (keyed as ``params``) gives a leaf's block, a tuple
+    of slices, or None where the leaf is whole.  A sliced leaf's gradient,
+    m and v hold only that block, and only that block of the parameter is
+    updated (the caller gathers the rest); decay still follows the whole
+    leaf's ndim.  The squares of the blocks are summed by
+    ``reduce_sq(partial)`` across the ranks that hold the other blocks, and
+    the whole leaves' squares added once, so the norm is the whole
+    gradient's."""
     step = state["step"] + 1
     lr = cosine_lr(cfg, step)
     paths = [path for path, _ in items(params)]
     p_l = [leaf for _, leaf in items(params)]
     g_l = [get_path(grads, path).float() for path in paths]
+    s_l = [None if slices is None else get_path(slices, path)
+           for path in paths]
     if cfg.spectral_clip > 0 and sigma_tree is not None:
         for i, path in enumerate(paths):
             sig = get_path(sigma_tree, path)
             if sig is not None and g_l[i].dim() >= 2:
-                g_l[i].mul_(_spectral_factor(cfg, sig.to(g_l[i].device),
-                                             g_l[i].dim()))
-    gnorm = global_norm(dict(enumerate(g_l)))
+                factor = _spectral_factor(cfg, sig.to(g_l[i].device),
+                                          g_l[i].dim())
+                if s_l[i] is not None:
+                    factor = factor.expand(p_l[i].shape)[s_l[i]]
+                g_l[i].mul_(factor)
+    if slices is None:
+        gnorm = global_norm(dict(enumerate(g_l)))
+    else:
+        part = sum((_sq_sum(g) for g, s in zip(g_l, s_l) if s is not None),
+                   torch.zeros((), dtype=torch.float32, device=g_l[0].device))
+        whole = sum(_sq_sum(g) for g, s in zip(g_l, s_l) if s is None)
+        gnorm = torch.sqrt(reduce_sq(part) + whole)
     if cfg.clip_norm > 0:
         scale = torch.clamp(cfg.clip_norm / torch.clamp(gnorm, min=1e-9),
                             max=1.0)
@@ -145,11 +168,13 @@ def adamw_update(params, grads, state, cfg: AdamWConfig,
     stepf = step.float()
     bc1 = 1 - torch.pow(b1, stepf)
     bc2 = 1 - torch.pow(b2, stepf)
-    for path, p, g in zip(paths, p_l, g_l):
+    for path, p, g, sl in zip(paths, p_l, g_l, s_l):
         m = get_path(state["m"], path)
         v = get_path(state["v"], path)
         decay = p.dim() >= 2 and cfg.weight_decay
-        for pc, gc, mc, vc in zip(_chunks(p), _chunks(g), _chunks(m),
+        target = p if sl is None else p[sl]
+        work = target if target.is_contiguous() else target.contiguous()
+        for pc, gc, mc, vc in zip(_chunks(work), _chunks(g), _chunks(m),
                                   _chunks(v)):
             mc.copy_(b1 * mc + (1 - b1) * gc)
             vc.copy_(b2 * vc + (1 - b2) * gc * gc)
@@ -158,5 +183,7 @@ def adamw_update(params, grads, state, cfg: AdamWConfig,
             if decay:
                 delta = delta + cfg.weight_decay * pf
             pc.copy_(pf - lr * delta)
+        if work is not target:
+            target.copy_(work)
     state["step"].copy_(step)
     return params, state, {"lr": lr, "grad_norm": gnorm}

@@ -4,7 +4,7 @@ sorted-key order, the order ``jax.tree_util`` flattens a dict in."""
 
 from __future__ import annotations
 
-__all__ = ["items", "map_tree", "get_path"]
+__all__ = ["items", "map_tree", "get_path", "unflatten"]
 
 
 def items(tree, prefix: tuple = ()):
@@ -33,3 +33,14 @@ def get_path(tree, path: tuple):
             return None
         tree = tree[key]
     return tree
+
+
+def unflatten(paths, leaves) -> dict:
+    """The nested dict with ``leaves`` at ``paths`` (``items``' inverse)."""
+    out: dict = {}
+    for path, leaf in zip(paths, leaves):
+        node = out
+        for key in path[:-1]:
+            node = node.setdefault(key, {})
+        node[path[-1]] = leaf
+    return out

@@ -48,6 +48,7 @@ from repro_torch.convert import (model_params_from_reference,
 from repro_torch.launch import train as launch_train
 from repro_torch.models import build
 from repro_torch.models import transformer as ttf
+from repro_torch.parallel.compression import CompressionConfig
 from repro_torch.train import (AdamWConfig, DataConfig, FailureInjector,
                                Prefetcher, StragglerMonitor, Trainer,
                                batch_at, checkpoint, run_with_restarts)
@@ -396,12 +397,21 @@ def test_grad_accumulation_matches_full_batch():
 
 
 def test_trainer_refuses_what_parallel_would_give():
+    """What ``parallel/`` does not give: a "model" axis larger than 1 and
+    an MoE config under a mesh (ROADMAP item 12.5), and compression
+    without a mesh, from the Trainer and from the launcher."""
+    class Mesh:
+        shape = {"data": 2, "model": 2}
     model = build(smoke_of("granite-3-2b"), device="cpu")
-    for kw in ({"mesh": object()}, {"rules": object()},
-               {"compression": object()}):
-        with pytest.raises(NotImplementedError, match="12.3"):
-            Trainer(model, AdamWConfig(), **kw)
-    with pytest.raises(NotImplementedError, match="12.3"):
+    with pytest.raises(NotImplementedError, match="12.5"):
+        Trainer(model, AdamWConfig(), mesh=Mesh())
+    Mesh.shape = {"data": 2}
+    moe = build(smoke_of("granite-moe-3b-a800m"), device="cpu")
+    with pytest.raises(NotImplementedError, match="12.5"):
+        Trainer(moe, AdamWConfig(), mesh=Mesh())
+    with pytest.raises(ValueError, match="mesh="):
+        Trainer(model, AdamWConfig(), compression=CompressionConfig())
+    with pytest.raises(ValueError, match="mesh="):
         launch_train.main(["--arch", "granite-3-2b", "--smoke", "--device",
                            "cpu", "--compress-rank", "2"])
 
